@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on any failure (the script then exits
+non-zero and prints no result line):
+
+1. build   — compile every CUDA kernel from ``src/repro_torch/kernels/*/
+             csrc/*.cu`` with nvcc for sm_90a (one nvcc per source, all at
+             once) into ``build/repro_torch/``; print the card's name and
+             power limit and the compiler's register report.
+2. parity  — hold each kernel bit-equal to its plain PyTorch version on the
+             card over a sweep of shapes and densities (and K = 0).
+3. main    — the query path at full size: an Erdos-Renyi graph of 16384
+             nodes and 65536 edges over 8 labels, randomly cut into 16
+             fragments; ``repro_torch.connect(fr)``, ``warm(with_dist=True)``,
+             then one ``run`` of 256 Reach + 256 Dist (half bounded at 6).
+             64 sampled answers per kind are checked against a host BFS, and
+             both kernels must have launched during the run.  The kernels
+             are then held against their plain versions on the full
+             closure squarings and batch composes of the real operands,
+             and timed at those shapes.
+4. rpq     — regular path queries at a reduced size (2048 nodes, 8
+             fragments): the product closure has side nb * |Q|, which at
+             full size is a 6.4 GB matrix whose squaring would outlast a
+             smoke run.  Answers are checked against a host product-graph
+             BFS.
+
+The second-to-last line of output is a JSON object with one entry per
+kernel; the last is ``{"ok": true, "device": {...}}``.  Times come from
+CUDA events after a warm-up; bounds are reckoned from the H100 SXM data
+sheet (3.35 TB/s, 1979 TOPS int8) and, for the SIMT min-plus, from the
+DPX rate that the probe ``csrc/dpx_rate.cu`` measures in the same run.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+INT8_TENSOR_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense
+
+
+def _require_repo():
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        raise SystemExit("chip_smoke.py must run from a checkout of the repo "
+                         f"(no src/repro_torch beside {__file__})")
+    sys.path.insert(0, str(src))
+
+
+def _nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def cuda_timed(fn, reps: int, warmup: bool = True):
+    """Milliseconds per call of ``fn`` on the card (CUDA events, after one
+    warm-up call unless ``warmup`` is False) and the last call's result."""
+    import torch
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        result = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, result
+
+
+def dpx_rate() -> float:
+    """__viaddmin_s32 operations per second over the whole card, from the
+    probe ``csrc/dpx_rate.cu``: 8 blocks of 256 threads per SM (full
+    occupancy), 2^16 rounds of 8 DPX instructions per thread."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.library("dpx_rate")
+    fn = lib.dpx_rate
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count * 8
+    iters = 1 << 16
+    seed = torch.tensor([1, 9, 8, 7, 6, 5, 4, 3, 2], dtype=torch.int32,
+                        device="cuda")
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        _build.check(lib, "dpx_rate", fn(seed.data_ptr(), out.data_ptr(),
+                                         blocks, iters, stream))
+    ms, _ = cuda_timed(launch, 3)
+    return blocks * 256 * iters * 8 / (ms * 1e-3)
+
+
+def _sass_opcodes(lib: Path, top: int = 6) -> str:
+    """The most frequent SASS opcodes of a built library (cuobjdump)."""
+    from collections import Counter
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    ops = Counter()
+    for line in sass.splitlines():
+        # "/*0080*/  @P0 VIADDMNMX R3, R4, ... ;  /* 0x... */"
+        if not line.strip().startswith("/*") or "*/" not in line:
+            continue
+        words = [w for w in line.split("*/", 1)[1].split()
+                 if not w.startswith("@")]
+        if words and not words[0].startswith("/*"):
+            ops[words[0].rstrip(";").split(".")[0]] += 1
+    return ", ".join(f"{op} {n}" for op, n in ops.most_common(top))
+
+
+def _reset_launches():
+    from repro_torch.kernels.bool_matmul import ops as bops
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    bops.launches = 0
+    tops.launches = 0
+
+
+def _launches():
+    from repro_torch.kernels.bool_matmul import ops as bops
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    return {"or_and_matmul": bops.launches, "min_plus_matmul": tops.launches}
+
+
+# ---------------------------------------------------------------------------
+# 1. build
+# ---------------------------------------------------------------------------
+
+def phase_build() -> dict:
+    import torch
+    from repro_torch.kernels import _build
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} nvcc {_build.nvcc()}")
+    t0 = time.perf_counter()
+    paths = _build.build()
+    print(f"build: {len(paths)} libraries in "
+          f"{time.perf_counter() - t0:.1f} s -> {_build.BUILD_DIR}")
+    for name, path in paths.items():
+        log = path.with_suffix(".log").read_text()
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+        print(f"  {name} SASS: {_sass_opcodes(path)}")
+    card = _nvidia_smi("name,power.limit")
+    print(f"card: {card}")
+    return {"card": card}
+
+
+# ---------------------------------------------------------------------------
+# 2. parity sweep
+# ---------------------------------------------------------------------------
+
+SHAPES = [(128, 128, 128), (7, 200, 33), (256, 64, 128), (1, 1, 1),
+          (130, 257, 5), (64, 512, 64), (5, 0, 7)]
+DENSITIES = [0.0, 0.02, 0.3, 1.0]
+
+
+def _check_equal(name, got, want):
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version ({bad} entries differ)")
+
+
+def _max_abs_err(got, want) -> float:
+    return float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
+
+
+def phase_parity() -> None:
+    import torch
+    from repro_torch.kernels.bool_matmul import or_and_matmul, or_and_matmul_ref
+    from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
+                                                     min_plus_matmul_ref)
+    dev = torch.device("cuda")
+    n = 0
+    for si, (m, k, n_) in enumerate(SHAPES):
+        for density in DENSITIES:
+            rng = np.random.default_rng([SEED, si, int(density * 100)])
+            a = torch.tensor(rng.random((m, k)) < density, device=dev)
+            b = torch.tensor(rng.random((k, n_)) < density, device=dev)
+            _check_equal(f"or_and {m}x{k}x{n_} d={density}",
+                         or_and_matmul(a, b), or_and_matmul_ref(a, b))
+            # strided operands: a transposed view and a column slice
+            at = torch.tensor(rng.random((k, m)) < density, device=dev).T
+            _check_equal(f"or_and strided {m}x{k}x{n_}",
+                         or_and_matmul(at, b[:, ::2]),
+                         or_and_matmul_ref(at, b[:, ::2]))
+            n += 2
+        rng = np.random.default_rng([SEED, si, 7])
+        a = rng.integers(0, 50, (m, k)).astype(np.int32)
+        b = rng.integers(0, 50, (k, n_)).astype(np.int32)
+        a[rng.random((m, k)) < 0.3] = INF
+        b[rng.random((k, n_)) < 0.3] = INF
+        a, b = torch.tensor(a, device=dev), torch.tensor(b, device=dev)
+        _check_equal(f"min_plus {m}x{k}x{n_}", min_plus_matmul(a, b),
+                     min_plus_matmul_ref(a, b))
+        _check_equal(f"min_plus strided {m}x{k}x{n_}",
+                     min_plus_matmul(a, b[:, ::2]),
+                     min_plus_matmul_ref(a, b[:, ::2]))
+        n += 2
+    print(f"parity: {n} kernel calls bit-equal to their plain versions")
+
+
+# ---------------------------------------------------------------------------
+# 3. main path at full size
+# ---------------------------------------------------------------------------
+
+N_NODES, N_EDGES, N_LABELS, N_FRAGS = 16384, 65536, 8, 16
+N_PER_KIND, N_CHECK = 256, 64
+
+
+def _check_reach_dist(g, queries, results, n_check):
+    from repro_torch import Dist, Reach
+    from repro_torch.graph import bfs_distances, bfs_reachable
+    idx = {"reach": [i for i, q in enumerate(queries) if isinstance(q, Reach)],
+           "dist": [i for i, q in enumerate(queries) if isinstance(q, Dist)]}
+    for kind, ids in idx.items():
+        for i in ids[:n_check]:
+            q, r = queries[i], results[i]
+            if kind == "reach":
+                want = bool(bfs_reachable(g, q.s)[q.t])
+                if r.answer != want:
+                    raise AssertionError(f"{q}: got {r.answer}, BFS {want}")
+            else:
+                d = int(bfs_distances(g, q.s)[q.t])
+                dist = None if d < 0 else d
+                want = dist is not None and (q.bound is None or dist <= q.bound)
+                want_d = dist if want else None
+                if (r.answer, r.distance) != (want, want_d):
+                    raise AssertionError(f"{q}: got {(r.answer, r.distance)},"
+                                         f" BFS {(want, want_d)}")
+    return {k: min(len(v), n_check) for k, v in idx.items()}
+
+
+def phase_main(out: dict) -> None:
+    import torch
+    import repro_torch
+    from repro_torch import Dist, Reach
+    from repro_torch.core.cache import _gather_boundary_matrix
+    from repro_torch.core.fragments import fragment_graph
+    from repro_torch.graph import erdos_renyi, random_partition
+    from repro_torch.kernels.bool_matmul import or_and_matmul, or_and_matmul_ref
+    from repro_torch.kernels.tropical_matmul import (min_plus_matmul,
+                                                     min_plus_matmul_ref)
+
+    t0 = time.perf_counter()
+    g = erdos_renyi(N_NODES, N_EDGES, n_labels=N_LABELS, seed=SEED)
+    fr = fragment_graph(g, random_partition(g, N_FRAGS, seed=SEED), N_FRAGS)
+    nb = fr.n_boundary
+    print(f"main: n={g.n} m={g.m} k={fr.k} nb={nb} n_max={fr.n_max} "
+          f"e_max={fr.e_max} s_max={fr.s_max} (host fragmentation "
+          f"{time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(SEED)
+    pairs = rng.integers(0, g.n, size=(2 * N_PER_KIND, 2))
+    queries = [Reach(int(s), int(t)) for s, t in pairs[:N_PER_KIND]]
+    queries += [Dist(int(s), int(t), bound=6 if i % 2 else None)
+                for i, (s, t) in enumerate(pairs[N_PER_KIND:])]
+
+    sess = repro_torch.connect(fr)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    sess.warm(with_dist=True)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    squarings = _launches()
+    t0 = time.perf_counter()
+    results = sess.run(queries)
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches()
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    checked = _check_reach_dist(g, queries, results, N_CHECK)
+    print(f"main: cache build (warm, reach + dist) {warm_ms:.1f} ms; "
+          f"closure squarings or-and {squarings['or_and_matmul']}, "
+          f"min-plus {squarings['min_plus_matmul']}")
+    print(f"main: run of {len(queries)} mixed queries {run_ms:.1f} ms; "
+          f"launches {launches}; checked against BFS {checked}")
+
+    # warm per-query cost, one kind per run
+    per_query_us = {}
+    for kind, qs in (("reach", queries[:N_PER_KIND]),
+                     ("dist", queries[N_PER_KIND:])):
+        sess.run(qs)
+        t0 = time.perf_counter()
+        sess.run(qs)
+        per_query_us[kind] = (time.perf_counter() - t0) * 1e6 / len(qs)
+    print(f"main: warm per-query us {per_query_us}")
+
+    # Each kernel against its plain version at the main path's shapes, on
+    # real operands: the first squaring of each closure, of D0 | I and of
+    # W0 with its zero diagonal (a later squaring of a closed matrix would
+    # give back its input), and the compose of one batch, [256, nb] x
+    # [nb, nb].  nb = 16039 = 125 * 128 + 39, so the last row and column
+    # tiles are ragged.  The plain min-plus squaring goes one [1, nb, nb]
+    # broadcast per row, so it is timed once, without warm-up.
+    cache = fr.rvset_cache
+    C, Cd = cache.closure, cache.dist_closure
+    eye = torch.eye(nb, dtype=torch.bool, device="cuda")
+    A0 = _gather_boundary_matrix(fr, cache.bl_frontier, cache.part_b) | eye
+    W0 = torch.where(eye, 0, _gather_boundary_matrix(fr, cache.bl_dist,
+                                                     cache.part_b))
+    del eye
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sb = torch.rand((N_PER_KIND, nb), device="cuda", generator=gen) < 0.01
+    sbd = W0[torch.randint(0, nb, (N_PER_KIND,), device="cuda",
+                           generator=gen)]
+    t_or_plain, want = cuda_timed(lambda: or_and_matmul_ref(A0, A0), 2)
+    t_or_sq, got = cuda_timed(lambda: or_and_matmul(A0, A0), 5)
+    _check_equal("or_and squaring", got, want)
+    err_or = _max_abs_err(got, want)
+    t_or_cp_plain, want = cuda_timed(lambda: or_and_matmul_ref(sb, C), 5)
+    t_or_cp, got = cuda_timed(lambda: or_and_matmul(sb, C), 20)
+    _check_equal("or_and compose", got, want)
+    err_or = max(err_or, _max_abs_err(got, want))
+    del got, want
+    Ch = A0.half()
+    t_or_lib, _ = cuda_timed(lambda: (Ch @ Ch) > 0, 3)
+    del Ch
+    t_mp_plain, want = cuda_timed(lambda: min_plus_matmul_ref(W0, W0), 1,
+                                  warmup=False)
+    t_mp_sq, got = cuda_timed(lambda: min_plus_matmul(W0, W0), 2)
+    _check_equal("min_plus squaring", got, want)
+    err_mp = _max_abs_err(got, want)
+    t_mp_cp_plain, want = cuda_timed(lambda: min_plus_matmul_ref(sbd, Cd), 1)
+    t_mp_cp, got = cuda_timed(lambda: min_plus_matmul(sbd, Cd), 5)
+    _check_equal("min_plus compose", got, want)
+    err_mp = max(err_mp, _max_abs_err(got, want))
+    del got, want
+    print("main: both kernels bit-equal to their plain versions on the "
+          "full squarings and composes")
+
+    props = torch.cuda.get_device_properties(0)
+    sm_mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
+    dpx_nominal = props.multi_processor_count * 64 * sm_mhz * 1e6
+    dpx_per_s = dpx_rate()
+    print(f"dpx: measured {dpx_per_s:.4e} __viaddmin_s32/s over the card "
+          f"(probe csrc/dpx_rate.cu); {props.multi_processor_count} SMs x 64 "
+          f"lanes x {sm_mhz:.0f} MHz would give {dpx_nominal:.4e}")
+
+    def bounds(ops, ops_rate, nbytes):
+        t_ops, t_bytes = ops / ops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    b_or, by_or = bounds(2 * nb ** 3, INT8_TENSOR_OPS_PER_S, 3 * nb * nb)
+    b_or_cp, _ = bounds(2 * N_PER_KIND * nb * nb, INT8_TENSOR_OPS_PER_S,
+                        nb * nb + 2 * N_PER_KIND * nb)
+    b_mp, by_mp = bounds(nb ** 3, dpx_per_s, 3 * 4 * nb * nb)
+    b_mp_cp, _ = bounds(N_PER_KIND * nb * nb, dpx_per_s,
+                        4 * (nb * nb + 2 * N_PER_KIND * nb))
+    print(f"time or_and_matmul: squaring [{nb}]^2 {t_or_sq:.3f} ms "
+          f"(bound {b_or:.3f} ms, {by_or}), plain {t_or_plain:.3f} ms, "
+          f"cuBLAS fp16 {t_or_lib:.3f} ms; compose [{N_PER_KIND},{nb}]x"
+          f"[{nb},{nb}] {t_or_cp:.3f} ms (bound {b_or_cp:.3f} ms), plain "
+          f"{t_or_cp_plain:.3f} ms")
+    print(f"time min_plus_matmul: squaring [{nb}]^2 {t_mp_sq:.3f} ms "
+          f"(bound {b_mp:.3f} ms, {by_mp}, at the measured DPX rate), plain "
+          f"{t_mp_plain:.3f} ms; compose [{N_PER_KIND},{nb}]x[{nb},{nb}] "
+          f"{t_mp_cp:.3f} ms (bound {b_mp_cp:.3f} ms), plain "
+          f"{t_mp_cp_plain:.3f} ms")
+    out["kernels"] = [
+        {"name": "or_and_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/bool_matmul/csrc/or_and_matmul.cu",
+         "replaces": "src/repro/kernels/bool_matmul/bool_matmul.py:42",
+         "launches": launches["or_and_matmul"], "max_abs_err": err_or,
+         "ms": t_or_sq, "plain_ms": t_or_plain, "bound_ms": b_or,
+         "bound_by": by_or, "library_ms": t_or_lib,
+         "shape": f"[{nb},{nb}]x[{nb},{nb}]",
+         "compose_ms": t_or_cp, "compose_plain_ms": t_or_cp_plain,
+         "compose_bound_ms": b_or_cp,
+         "squarings": squarings["or_and_matmul"]},
+        {"name": "min_plus_matmul", "route": "cuda",
+         "source": ("src/repro_torch/kernels/tropical_matmul/csrc/"
+                    "min_plus_matmul.cu"),
+         "replaces": "src/repro/kernels/tropical_matmul/tropical_matmul.py:51",
+         "launches": launches["min_plus_matmul"], "max_abs_err": err_mp,
+         "ms": t_mp_sq, "plain_ms": t_mp_plain, "bound_ms": b_mp,
+         "bound_by": by_mp, "library_ms": None,
+         "shape": f"[{nb},{nb}]x[{nb},{nb}]",
+         "compose_ms": t_mp_cp, "compose_plain_ms": t_mp_cp_plain,
+         "compose_bound_ms": b_mp_cp, "dpx_ops_per_s": dpx_per_s,
+         "squarings": squarings["min_plus_matmul"]},
+    ]
+    out["main"] = {"warm_ms": warm_ms, "run_ms": run_ms,
+                   "per_query_us": per_query_us, "nb": nb}
+
+
+# ---------------------------------------------------------------------------
+# 4. regular path queries at reduced size
+# ---------------------------------------------------------------------------
+
+RPQ_NODES, RPQ_EDGES, RPQ_FRAGS = 2048, 8192, 8
+RPQ_REGEXES = ["(0|1)* 2", "0* 1"]
+N_RPQ = 64
+
+
+def _rpq_oracle(g, s: int, t: int, qa) -> bool:
+    """Product-graph BFS over (node, state), vectorized over the graph."""
+    if s == t:
+        return bool(qa.nullable)
+    lq = qa.state_labels
+    nodes = np.arange(g.n)
+    match = ((lq[None, :] >= 0) & (g.labels[:, None] == lq[None, :])) \
+        | (lq[None, :] == -3) \
+        | ((lq[None, :] == -1) & (nodes[:, None] == s)) \
+        | ((lq[None, :] == -2) & (nodes[:, None] == t))
+    trans = qa.trans.astype(np.int64)
+    seen = np.zeros((g.n, qa.n_states), dtype=bool)
+    seen[s, 0] = True
+    frontier = seen.copy()
+    while frontier.any():
+        adv = (frontier.astype(np.int64) @ trans) > 0          # [n, Q]
+        nxt = np.zeros_like(seen)
+        hit = adv[g.src]                                         # [m, Q]
+        rows, qs = np.nonzero(hit)
+        nxt[g.dst[rows], qs] = True
+        nxt &= match
+        if nxt[t, qa.final]:
+            return True
+        frontier = nxt & ~seen
+        seen |= nxt
+    return False
+
+
+def phase_rpq(out: dict) -> None:
+    import torch
+    import repro_torch
+    from repro_torch import Reach, Rpq
+    from repro_torch.core.fragments import fragment_graph
+    from repro_torch.graph import bfs_reachable, erdos_renyi, random_partition
+
+    g = erdos_renyi(RPQ_NODES, RPQ_EDGES, n_labels=N_LABELS, seed=SEED)
+    fr = fragment_graph(g, random_partition(g, RPQ_FRAGS, seed=SEED),
+                        RPQ_FRAGS)
+    print(f"rpq: REDUCED size n={g.n} m={g.m} k={fr.k} nb={fr.n_boundary}: "
+          "the product closure has side nb*|Q|, a 6.4 GB matrix at the full "
+          "size, and its squarings would outlast a smoke run")
+    rng = np.random.default_rng(SEED + 1)
+    pairs = rng.integers(0, g.n, size=(3 * N_RPQ, 2))
+    queries = []
+    for i, (s, t) in enumerate(pairs):
+        s, t = int(s), int(t)
+        if i % 3 == 2:
+            queries.append(Reach(s, t))
+        else:
+            queries.append(Rpq(s, t, regex=RPQ_REGEXES[i % 3]))
+    sess = repro_torch.connect(fr)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = sess.run(queries)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches()
+    if launches["or_and_matmul"] == 0:
+        raise AssertionError("or_and_matmul never launched on the RPQ path")
+    t0 = time.perf_counter()
+    sess.run(queries)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    n_checked = 0
+    for q, r in zip(queries, results):
+        if isinstance(q, Rpq):
+            want = _rpq_oracle(g, q.s, q.t, sess._resolve_automaton(q))
+        else:
+            want = bool(bfs_reachable(g, q.s)[q.t])
+        if r.answer != want:
+            raise AssertionError(f"{q}: got {r.answer}, oracle {want}")
+        n_checked += 1
+    n_rpq = sum(isinstance(q, Rpq) for q in queries)
+    sides = {rx: fr.n_boundary * sess._resolve_automaton(
+        Rpq(0, 0, regex=rx)).n_states for rx in RPQ_REGEXES}
+    print(f"rpq: product closure sides {sides}; first run (builds caches) "
+          f"{cold_ms:.1f} ms, warm run {warm_ms:.1f} ms "
+          f"({warm_ms * 1e3 / len(queries):.1f} us/query, {n_rpq} Rpq); "
+          f"launches {launches}; {n_checked} answers match the oracles")
+    out["rpq"] = {"cold_ms": cold_ms, "warm_ms": warm_ms,
+                  "launches": launches, "sides": sides}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
+              "is False", file=sys.stderr)
+        return 1
+    _require_repo()
+    out: dict = {}
+    out.update(phase_build())
+    phase_parity()
+    phase_main(out)
+    phase_rpq(out)
+    kernels = out["kernels"]
+    for k in kernels:
+        k["rpq_launches"] = out["rpq"]["launches"][k["name"]]
+    print(out["card"])            # nvidia-smi: name, power.limit
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

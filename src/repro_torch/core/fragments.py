@@ -1,0 +1,275 @@
+"""Fragmentation F = (F, G_f) of a graph (paper Section 2.1), padded so that
+one batched program evaluates every fragment at once.
+
+Host-side preparation (numpy) that turns ``(Graph, partition)`` into
+stacked ``[k, ...]`` per-fragment arrays.
+
+Local node layout inside fragment ``F_i`` (paper Fig. 1 / Sec 2.1):
+
+  * locals ``0 .. n_i-1``       — the real nodes ``V_i`` (partition class i);
+  * locals ``n_i .. n_i+o_i-1`` — *virtual nodes* ``F_i.O``: one stub per
+    distinct cross-edge target (labels copied from the target node so that
+    regular queries can match on them);
+  * local ``n_max``             — a pad node; pad edges self-loop on it.
+
+The fragment graph's node set ``V_f`` is ``bnodes``: every node with an
+incoming cross edge, plus two reserved slots for the query endpoints: row
+``B-2`` is ``s`` and column ``B-1`` is ``t``.  ``reserve_*`` headroom adds
+spare boundary positions ``nb_active .. nb_cap-1`` that stay inert (no
+source row maps to them and their target columns point at the pad node).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..graph.graph import Graph
+
+
+def packed_bits(rows: int, cols: int) -> int:
+    """Bits actually shipped for a [rows, cols] Boolean payload once packed:
+    rows x ceil(cols/32) uint32 words."""
+    return rows * ((cols + 31) // 32) * 32
+
+
+@dataclasses.dataclass
+class Fragmentation:
+    """Host metadata + stacked padded per-fragment arrays."""
+
+    g: Graph
+    part: np.ndarray          # [n] fragment id per node
+    k: int                    # number of fragments (sites)
+    bnodes: np.ndarray        # [nb_active] global ids of boundary nodes (V_f)
+    b_index: np.ndarray       # [n] position in bnodes or -1
+    n_max: int                # max local slots (real + stubs) over fragments
+    e_max: int                # max local edges over fragments
+    s_max: int                # max sources per fragment (in-nodes + 1 for s)
+    arrays: Dict[str, np.ndarray]   # stacked [k, ...] arrays
+    frag_sizes: np.ndarray    # [k] |F_i| = n_i + e_i  (paper's |F_i|)
+    owner_local: np.ndarray   # [n] local index of a node in its own fragment
+    nb_cap: int = -1          # boundary slot capacity (-1: len(bnodes))
+    # amortized rvset cache (built lazily by core.cache.get_rvset_cache)
+    rvset_cache: object = dataclasses.field(default=None, repr=False,
+                                            compare=False)
+    _slot_of: np.ndarray = dataclasses.field(default=None, repr=False,
+                                             compare=False)
+
+    @classmethod
+    def from_numpy(cls, fields: dict) -> "Fragmentation":
+        """Rebuild a fragmentation from plain numpy fields: ``n``, ``src``,
+        ``dst``, ``labels`` (and optionally ``label_names``) of the graph,
+        then ``part``, ``k``, ``bnodes``, ``b_index``, ``n_max``, ``e_max``,
+        ``s_max``, ``arrays`` (a dict), ``frag_sizes``, ``owner_local`` and
+        ``nb_cap``.  Every array is copied, so the caller's buffers are
+        never shared."""
+        g = Graph(int(fields["n"]), np.array(fields["src"]),
+                  np.array(fields["dst"]), np.array(fields["labels"]),
+                  fields.get("label_names"))
+        return cls(g=g, part=np.array(fields["part"], dtype=np.int32),
+                   k=int(fields["k"]), bnodes=np.array(fields["bnodes"]),
+                   b_index=np.array(fields["b_index"]),
+                   n_max=int(fields["n_max"]), e_max=int(fields["e_max"]),
+                   s_max=int(fields["s_max"]),
+                   arrays={name: np.array(v)
+                           for name, v in fields["arrays"].items()},
+                   frag_sizes=np.array(fields["frag_sizes"]),
+                   owner_local=np.array(fields["owner_local"]),
+                   nb_cap=int(fields["nb_cap"]))
+
+    @property
+    def B(self) -> int:       # boundary matrix side (capacity + query slots)
+        return (self.nb_cap if self.nb_cap >= 0 else len(self.bnodes)) + 2
+
+    @property
+    def n_boundary(self) -> int:   # boundary matrix rows (|V_f| + spares)
+        return self.B - 2
+
+    @property
+    def nb_active(self) -> int:    # |V_f| proper: activated boundary slots
+        return len(self.bnodes)
+
+    def boundary_owner(self) -> np.ndarray:
+        """[n_boundary] int32: owning fragment of each boundary slot (spare
+        slots map to fragment 0 — inert, since no frontier row or target
+        column ever carries data for them)."""
+        own = np.zeros(self.n_boundary, dtype=np.int32)
+        own[: self.nb_active] = self.part[self.bnodes]
+        return own
+
+    def boundary_local(self) -> np.ndarray:
+        """[n_boundary] int32: local slot of each boundary node inside its
+        owning fragment (pad slot ``n_max`` for spare positions)."""
+        loc = np.full(self.n_boundary, self.n_max, dtype=np.int32)
+        loc[: self.nb_active] = self.owner_local[self.bnodes]
+        return loc
+
+    def slot_index(self) -> np.ndarray:
+        """[n, k] int32: local slot of every global node inside every
+        fragment — its owned slot in its home fragment, its virtual-stub
+        slot in fragments that have a cross edge to it, ``n_max`` elsewhere.
+        Built once and memoized."""
+        if self._slot_of is None:
+            slot_of = np.full((self.g.n, self.k), self.n_max, dtype=np.int32)
+            gids = self.arrays["gids"]               # [k, n_max+1], pad -1
+            for f in range(self.k):
+                valid = np.nonzero(gids[f] >= 0)[0]
+                slot_of[gids[f, valid], f] = valid
+            self._slot_of = slot_of
+        return self._slot_of
+
+    @property
+    def S_ROW(self) -> int:   # reserved boundary row/col for s
+        return self.B - 2
+
+    @property
+    def T_COL(self) -> int:   # reserved boundary col for t
+        return self.B - 1
+
+    def packed_traffic_bits(self, states: int = 1) -> int:
+        """Bits the one collective ships once the Boolean payload is
+        bitpacked into uint32 words: rows x ceil(cols/32) words.
+        ``states`` > 1 gives the product-automaton (B*|Q|)^2 case."""
+        side = self.B * states
+        return packed_bits(side, side)
+
+    def traffic_bits(self, kind: str = "reach", states: int = 1,
+                     batch: Optional[int] = None) -> int:
+        """Wire size of the ONE collective, the same formula as the
+        reference package so ``QueryStats.payload_bits`` agree bit for bit.
+
+        Single query (``batch=None``): Boolean kinds ship the bitpacked
+        ``B*states`` square, the tropical kinds the raw int32 square.
+        Fused batch (``batch=N``): the ``side = |V_f| * states`` boundary
+        rows plus one s-row and one t-column per query, each ``side + 1``
+        wide; bitpacked for Boolean kinds, raw int32 for tropical ones.
+        """
+        if kind not in ("reach", "dist", "bounded", "rpq"):
+            raise ValueError(f"unknown query kind {kind!r}; expected one of "
+                             "('reach', 'dist', 'bounded', 'rpq')")
+        if batch is None:
+            if kind in ("reach", "rpq"):
+                return self.packed_traffic_bits(states=states)
+            side = self.B * states
+            return side * side * 32
+        side = self.n_boundary * states
+        rows, cols = side + 2 * batch, side + 1
+        if kind in ("reach", "rpq"):
+            return packed_bits(rows, cols)
+        return rows * cols * 32
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def fragment_graph(g: Graph, part: np.ndarray, k: int,
+                   pad_multiple: int = 8, reserve_boundary: int = 0,
+                   reserve_edges: int = 0, reserve_stubs: int = 0,
+                   reserve_sources: Optional[int] = None) -> Fragmentation:
+    """Build the padded fragmentation (host, numpy).
+
+    ``reserve_*`` pre-allocate headroom for dynamic updates (spare boundary
+    positions, edge slots, virtual-node slots and source rows per
+    fragment); ``reserve_sources`` defaults to ``reserve_boundary``.
+    """
+    part = np.asarray(part, dtype=np.int32)
+    if part.shape != (g.n,):
+        raise ValueError(f"part must be [{g.n}], got {part.shape}")
+    if part.min(initial=0) < 0 or part.max(initial=0) >= k:
+        raise ValueError(f"fragment ids must lie in [0, {k})")
+    if reserve_sources is None:
+        reserve_sources = reserve_boundary
+
+    cross_mask = part[g.src] != part[g.dst]
+    bnodes = np.unique(g.dst[cross_mask])          # in-nodes == V_f core
+    b_index = np.full(g.n, -1, dtype=np.int64)
+    b_index[bnodes] = np.arange(len(bnodes))
+    nb_cap = len(bnodes) + reserve_boundary
+    B = nb_cap + 2
+
+    # --- per-fragment local structures -------------------------------------
+    glists = [np.where(part == i)[0] for i in range(k)]
+    g2l = np.full(g.n, -1, dtype=np.int64)
+    for gl in glists:
+        g2l[gl] = np.arange(len(gl))
+
+    frag_src = [[] for _ in range(k)]
+    frag_dst = [[] for _ in range(k)]
+    stub_maps: list[dict] = [dict() for _ in range(k)]   # global id -> stub
+
+    src_part = part[g.src]
+    internal = ~cross_mask
+    for i in range(k):
+        sel = internal & (src_part == i)
+        frag_src[i] = list(g2l[g.src[sel]])
+        frag_dst[i] = list(g2l[g.dst[sel]])
+    # cross edges -> stubs
+    cs, cd = g.src[cross_mask], g.dst[cross_mask]
+    for u, w in zip(cs, cd):
+        i = int(part[u])
+        sm = stub_maps[i]
+        if int(w) not in sm:
+            sm[int(w)] = len(glists[i]) + len(sm)
+        frag_src[i].append(int(g2l[u]))
+        frag_dst[i].append(sm[int(w)])
+
+    n_locals = [len(glists[i]) + len(stub_maps[i]) for i in range(k)]
+    n_max = _round_up((max(n_locals) if k else 1) + reserve_stubs,
+                      pad_multiple)
+    e_max = _round_up(max((len(frag_src[i]) for i in range(k)), default=1)
+                      + reserve_edges, pad_multiple)
+    e_max = max(e_max, 1)
+
+    in_counts = [int(np.sum(part[bnodes] == i)) for i in range(k)] or [0]
+    s_maxr = max(in_counts) + 1 + reserve_sources  # +1 reserved slot for s
+
+    esrc = np.full((k, e_max), n_max, dtype=np.int32)
+    edst = np.full((k, e_max), n_max, dtype=np.int32)
+    gids = np.full((k, n_max + 1), -1, dtype=np.int32)
+    labels = np.full((k, n_max + 1), -9, dtype=np.int32)
+    src_local = np.full((k, s_maxr), n_max, dtype=np.int32)
+    src_row = np.full((k, s_maxr), B, dtype=np.int32)      # B == dropped
+    tgt_local = np.full((k, B), n_max, dtype=np.int32)
+
+    for i in range(k):
+        ne = len(frag_src[i])
+        esrc[i, :ne] = frag_src[i]
+        edst[i, :ne] = frag_dst[i]
+        nl = len(glists[i])
+        gids[i, :nl] = glists[i]
+        labels[i, :nl] = g.labels[glists[i]]
+        for w, loc in stub_maps[i].items():
+            gids[i, loc] = w
+            labels[i, loc] = g.labels[w]
+        # sources: in-nodes owned by this fragment
+        mine = bnodes[part[bnodes] == i]
+        src_local[i, : len(mine)] = g2l[mine]
+        src_row[i, : len(mine)] = b_index[mine]
+        # targets: stubs for boundary nodes of other fragments
+        for w, loc in stub_maps[i].items():
+            tgt_local[i, b_index[w]] = loc
+
+    frag_sizes = np.array(
+        [len(glists[i]) + len(frag_src[i]) for i in range(k)], dtype=np.int64)
+    arrays = dict(esrc=esrc, edst=edst, gids=gids, labels=labels,
+                  src_local=src_local, src_row=src_row, tgt_local=tgt_local,
+                  n_local=np.array(n_locals, dtype=np.int32))
+    return Fragmentation(g=g, part=part, k=k, bnodes=bnodes, b_index=b_index,
+                         n_max=n_max, e_max=e_max, s_max=s_maxr,
+                         arrays=arrays, frag_sizes=frag_sizes,
+                         owner_local=g2l, nb_cap=nb_cap)
+
+
+def query_slots(fr: Fragmentation, s: int, t: int) -> Dict[str, np.ndarray]:
+    """Per-query inputs: where s and t live.  Returns stacked [k]-arrays
+    ``s_local``/``t_local`` (local index of s / t inside the owning
+    fragment, pad ``n_max`` elsewhere) and the global ids."""
+    k, n_max = fr.k, fr.n_max
+    s_local = np.full(k, n_max, dtype=np.int32)
+    t_local = np.full(k, n_max, dtype=np.int32)
+    s_local[fr.part[s]] = fr.owner_local[s]
+    t_local[fr.part[t]] = fr.owner_local[t]
+    return dict(s_local=s_local, t_local=t_local,
+                s_gid=np.int32(s), t_gid=np.int32(t))

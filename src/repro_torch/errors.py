@@ -1,0 +1,49 @@
+"""Lifecycle states and the typed errors of the query session.
+
+:class:`Status` is the lifecycle enum shared by session results and, in
+later slices, serving futures.  It subclasses :class:`str`, so
+``Status.DONE == "done"`` holds.
+"""
+from __future__ import annotations
+
+import enum
+
+
+class Status(str, enum.Enum):
+    """Lifecycle of a submitted request (query or graph update).
+
+    ``PENDING`` -> queued, not yet picked up by the scheduler;
+    ``RUNNING`` -> popped into an executing batch;
+    terminal states: ``DONE`` (query answered), ``DEAD_LETTER`` (query
+    quarantined after retries + bisection), ``DEADLINE`` (latency budget
+    expired before service), ``APPLIED`` (delta landed), ``FAILED``
+    (delta rolled back).
+    """
+
+    PENDING = "pending"
+    RUNNING = "running"
+    DONE = "done"
+    DEAD_LETTER = "dead_letter"
+    DEADLINE = "deadline"
+    APPLIED = "applied"
+    FAILED = "failed"
+
+    @property
+    def terminal(self) -> bool:
+        """True once a future carrying this status will never change."""
+        return self not in (Status.PENDING, Status.RUNNING)
+
+    def __str__(self) -> str:  # repr-friendly: "done", not "Status.DONE"
+        return self.value
+
+
+class NoCudaDevice(RuntimeError):
+    """The session was asked for the card (the default) but PyTorch sees
+    no CUDA device.  The port never falls back to the CPU on its own: a
+    caller that wants the CPU passes ``device="cpu"``."""
+
+    def __init__(self):
+        super().__init__(
+            "repro_torch runs on a CUDA device by default and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to "
+            "run on the CPU")

@@ -1,0 +1,91 @@
+"""The CUDA kernels on the card: each held bit-equal to its plain PyTorch
+version, and the session on the card equal to the session on the CPU.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports neither jax nor the JAX package, so it also runs where only the
+port is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import Dist, Reach, Rpq
+from repro_torch.core.fragments import fragment_graph
+from repro_torch.graph import erdos_renyi, random_partition
+from repro_torch.kernels.bool_matmul import ops as bops
+from repro_torch.kernels.bool_matmul import or_and_matmul, or_and_matmul_ref
+from repro_torch.kernels.tropical_matmul import ops as tops
+from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
+                                                 min_plus_matmul_ref)
+
+SHAPES = [(128, 128, 128), (7, 200, 33), (256, 64, 128), (1, 1, 1),
+          (130, 257, 5), (64, 512, 64), (5, 0, 7), (300, 1000, 260)]
+DENSITIES = [0.0, 0.02, 0.3, 1.0]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
+def test_or_and_kernel_matches_plain(cuda, shape):
+    m, k, n = shape
+    rng = np.random.default_rng(1)
+    for density in DENSITIES:
+        a = torch.tensor(rng.random((m, k)) < density, device=cuda)
+        b = torch.tensor(rng.random((k, n)) < density, device=cuda)
+        before = bops.launches
+        got = or_and_matmul(a, b)
+        assert bops.launches == before + 1
+        assert got.is_cuda and got.dtype == torch.bool
+        assert torch.equal(got, or_and_matmul_ref(a, b))
+        # strided operands: a column-major view and a column slice
+        at = a.T.contiguous().T
+        assert torch.equal(or_and_matmul(at, b[:, ::2]),
+                           or_and_matmul_ref(a, b[:, ::2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
+def test_min_plus_kernel_matches_plain(cuda, shape):
+    m, k, n = shape
+    rng = np.random.default_rng(2)
+    a = rng.integers(0, 50, (m, k)).astype(np.int32)
+    b = rng.integers(0, 50, (k, n)).astype(np.int32)
+    a[rng.random((m, k)) < 0.3] = INF
+    b[rng.random((k, n)) < 0.3] = INF
+    a, b = torch.tensor(a, device=cuda), torch.tensor(b, device=cuda)
+    before = tops.launches
+    got = min_plus_matmul(a, b)
+    assert tops.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got, min_plus_matmul_ref(a, b))
+    assert torch.equal(min_plus_matmul(a.T.contiguous().T, b[:, ::2]),
+                       min_plus_matmul_ref(a, b[:, ::2]))
+
+
+@pytest.mark.gpu
+def test_session_on_card_matches_cpu(cuda):
+    g = erdos_renyi(300, 1200, n_labels=3, seed=5)
+    part = random_partition(g, 4, seed=5)
+    on_cpu, on_card = (fragment_graph(g, part, 4) for _ in range(2))
+    rng = np.random.default_rng(5)
+    queries = []
+    for i, (s, t) in enumerate(rng.integers(0, g.n, size=(64, 2))):
+        s, t = int(s), int(t)
+        queries.append([Reach(s, t), Dist(s, t), Dist(s, t, bound=3),
+                        Rpq(s, t, regex="(0|1)* 2")][i % 4])
+    want = repro_torch.connect(on_cpu, device="cpu").run(queries)
+    bops.launches = tops.launches = 0
+    got = repro_torch.connect(on_card).run(queries)
+    assert bops.launches > 0 and tops.launches > 0
+    assert on_card.rvset_cache.closure.is_cuda
+    assert [(r.answer, r.distance, r.stats) for r in got] == \
+        [(r.answer, r.distance, r.stats) for r in want]

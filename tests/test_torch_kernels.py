@@ -1,0 +1,149 @@
+"""The port's semiring products and closures vs the JAX package's Pallas
+kernels (interpret mode on the CPU, as tests/test_kernels.py runs them).
+
+Boolean and int32 results must be bit-equal: these semirings do not round.
+On the CPU the port's wrappers take their plain PyTorch versions; the
+CUDA kernels themselves are held against the same plain versions by
+tests/test_torch_gpu.py on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bes as jbes
+from repro.kernels.bool_matmul import bool_matmul, bool_matmul_ref
+from repro.kernels.tropical_matmul import min_plus_chunked, tropical_matmul
+from repro_torch.core import bes as tbes
+from repro_torch.kernels.bool_matmul import ops as bops
+from repro_torch.kernels.bool_matmul import or_and_matmul
+from repro_torch.kernels.tropical_matmul import ops as tops
+from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
+                                                 min_plus_matmul_ref)
+
+SHAPES = [(128, 128, 128), (7, 200, 33), (256, 64, 128), (1, 1, 1),
+          (130, 257, 5), (64, 512, 64)]
+DENSITIES = [0.0, 0.02, 0.3, 1.0]
+
+
+def _bool_operands(shape, density, seed):
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    return rng.random((m, k)) < density, rng.random((k, n)) < density
+
+
+def _tropical_operands(shape, seed):
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 50, (m, k)).astype(np.int32)
+    b = rng.integers(0, 50, (k, n)).astype(np.int32)
+    a[rng.random((m, k)) < 0.3] = INF          # absent edges
+    b[rng.random((k, n)) < 0.3] = INF
+    return a, b
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("density", DENSITIES)
+def test_or_and_matches_pallas(shape, density):
+    a, b = _bool_operands(shape, density, hash(shape) % 2**32)
+    want = np.asarray(bool_matmul(jnp.asarray(a), jnp.asarray(b)))
+    got = or_and_matmul(torch.tensor(a), torch.tensor(b))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_min_plus_matches_pallas(shape):
+    a, b = _tropical_operands(shape, hash(shape) % 2**31)
+    want = np.asarray(tropical_matmul(jnp.asarray(a), jnp.asarray(b)))
+    got = min_plus_matmul(torch.tensor(a), torch.tensor(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_empty_contraction():
+    """K = 0: or-and gives all-false, min-plus INF (min over nothing)."""
+    a, b = np.zeros((5, 0), bool), np.zeros((0, 7), bool)
+    want = np.asarray(bool_matmul_ref(jnp.asarray(a), jnp.asarray(b)))
+    got = or_and_matmul(torch.tensor(a), torch.tensor(b))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got.any()
+    ai, bi = np.zeros((5, 0), np.int32), np.zeros((0, 7), np.int32)
+    want = np.asarray(min_plus_chunked(jnp.asarray(ai), jnp.asarray(bi)))
+    got = min_plus_matmul(torch.tensor(ai), torch.tensor(bi))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got == INF).all()
+
+
+def test_plain_min_plus_chunking_is_exact():
+    """One chunk of rows; chunks of 4 rows with a ragged last one (9 rows,
+    K * N = 2^22); one row per chunk (K * N above the chunk budget)."""
+    for shape in ((37, 19, 11), (9, 2048, 2048), (3, 4100, 4100)):
+        a, b = _tropical_operands(shape, 3)
+        want = np.stack([np.minimum((row[:, None].astype(np.int64) + b)
+                                    .min(0), INF) for row in a])
+        got = min_plus_matmul_ref(torch.tensor(a), torch.tensor(b))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wrappers_reject_bad_operands():
+    with pytest.raises(TypeError):
+        or_and_matmul(torch.zeros(2, 2, dtype=torch.int32),
+                      torch.zeros(2, 2, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        or_and_matmul(torch.zeros(2, 3, dtype=torch.bool),
+                      torch.zeros(2, 2, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        min_plus_matmul(torch.zeros(2, 2), torch.zeros(2, 2))
+    with pytest.raises(ValueError):
+        min_plus_matmul(torch.zeros(2, 3, dtype=torch.int32),
+                        torch.zeros(2, 2, dtype=torch.int32))
+    # neither the CPU nor a CUDA device: no kernel and no plain fallback
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        or_and_matmul(torch.zeros(2, 2, dtype=torch.bool, device=meta),
+                      torch.zeros(2, 2, dtype=torch.bool, device=meta))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        min_plus_matmul(torch.zeros(2, 2, dtype=torch.int32, device=meta),
+                        torch.zeros(2, 2, dtype=torch.int32, device=meta))
+
+
+def test_cpu_path_launches_no_kernel():
+    """A CPU tensor takes the plain version; the launch counters count
+    kernel launches only."""
+    before = (bops.launches, tops.launches)
+    or_and_matmul(torch.ones(3, 3, dtype=torch.bool),
+                  torch.ones(3, 3, dtype=torch.bool))
+    min_plus_matmul(torch.zeros(3, 3, dtype=torch.int32),
+                    torch.zeros(3, 3, dtype=torch.int32))
+    assert (bops.launches, tops.launches) == before
+
+
+def test_closures_match_pallas_closures():
+    """bes closures: the port == the JAX package driving its Pallas
+    kernels (use_pallas=True)."""
+    rng = np.random.default_rng(0)
+    D = rng.random((50, 50)) < 0.05
+    want = np.asarray(jbes.bool_closure(jnp.asarray(D), use_pallas=True))
+    np.testing.assert_array_equal(
+        tbes.bool_closure(torch.tensor(D)).numpy(), want)
+    W = rng.integers(0, 9, (40, 40)).astype(np.int32)
+    W[rng.random((40, 40)) < 0.6] = INF
+    want = np.asarray(jbes.tropical_closure(jnp.asarray(W), use_pallas=True))
+    np.testing.assert_array_equal(
+        tbes.tropical_closure(torch.tensor(W)).numpy(), want)
+
+
+@pytest.mark.parametrize("B", [0, 1, 2, 33])
+def test_closures_match_reference_on_edge_sizes(B):
+    """Empty, single-node and path-shaped matrices; a path of length B-1
+    needs every allowed squaring."""
+    D = np.zeros((B, B), bool)
+    D[np.arange(B - 1), np.arange(1, B)] = True
+    W = np.where(D, 1, INF).astype(np.int32)
+    np.testing.assert_array_equal(
+        tbes.bool_closure(torch.tensor(D)).numpy(),
+        np.asarray(jbes.bool_closure(jnp.asarray(D))))
+    np.testing.assert_array_equal(
+        tbes.tropical_closure(torch.tensor(W)).numpy(),
+        np.asarray(jbes.tropical_closure(jnp.asarray(W))))
