@@ -11,7 +11,9 @@ non-zero and prints no result line):
              once) into ``build/repro_torch/``; print the card's name and
              power limit and the compiler's register report.
 2. parity  — hold each kernel bit-equal to its plain PyTorch version on the
-             card over a sweep of shapes and densities (and K = 0).
+             card over a sweep of shapes and densities (and K = 0); the
+             bit-packed product also against the or-and kernel, with
+             K = 31, 32, 33 and words whose bit 31 is set.
 3. main    — the query path at full size: an Erdos-Renyi graph of 16384
              nodes and 65536 edges over 8 labels, randomly cut into 16
              fragments; ``repro_torch.connect(fr)``, ``warm(with_dist=True)``,
@@ -21,17 +23,27 @@ non-zero and prints no result line):
              are then held against their plain versions on the full
              closure squarings and batch composes of the real operands,
              and timed at those shapes.
-4. rpq     — regular path queries at a reduced size (2048 nodes, 8
-             fragments): the product closure has side nb * |Q|, which at
-             full size is a 6.4 GB matrix whose squaring would outlast a
-             smoke run.  Answers are checked against a host product-graph
-             BFS.
+4. sharded — the same graph and queries through the sharded backend,
+             ``connect(fr, backend="shard_map")`` on a one-rank NCCL group
+             (d = 1, all 16 fragments packed on the card): one timed ``run``
+             of the 256 Reach and one of the 256 Dist, each checked against
+             the host BFS and the vmap session's answers, with exactly one
+             collective per group of ``traffic_bits`` bits; the per-batch
+             time split into local stage, collective, closure and combine.
+             The bit-packed kernel is held against its plain version and
+             the or-and kernel on ``D0 | I`` taken from the merged wire.
+5. rpq     — regular path queries at a reduced size (2048 nodes, 8
+             fragments), through the vmap session and then the sharded
+             one: the product closure has side nb * |Q|, which at full size
+             is a 6.4 GB matrix whose squaring would outlast a smoke run.
+             Answers are checked against a host product-graph BFS.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel; the last is ``{"ok": true, "device": {...}}``.  Times come from
 CUDA events after a warm-up; bounds are reckoned from the H100 SXM data
-sheet (3.35 TB/s, 1979 TOPS int8) and, for the SIMT min-plus, from the
-DPX rate that the probe ``csrc/dpx_rate.cu`` measures in the same run.
+sheet (3.35 TB/s, 1979 TOPS int8, 64 int32 operations per clock per SM
+at the card's maximum SM clock) and, for the SIMT min-plus, from the DPX
+rate that the probe ``csrc/dpx_rate.cu`` measures in the same run.
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ SEED = 0
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT8_TENSOR_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense
+INT32_OPS_PER_CLOCK_PER_SM = 64    # H100 SXM data sheet (LOP3 included)
 
 
 def _require_repo():
@@ -62,6 +75,13 @@ def _nvidia_smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+def _bound(ops, ops_rate, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``ops`` operations at ``ops_rate`` and ``nbytes`` moved once."""
+    t_ops, t_bytes = ops / ops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def cuda_timed(fn, reps: int, warmup: bool = True):
@@ -125,17 +145,21 @@ def _sass_opcodes(lib: Path, top: int = 6) -> str:
     return ", ".join(f"{op} {n}" for op, n in ops.most_common(top))
 
 
-def _reset_launches():
+def _counted():
+    from repro_torch.kernels.bitpack_ops import ops as pops
     from repro_torch.kernels.bool_matmul import ops as bops
     from repro_torch.kernels.tropical_matmul import ops as tops
-    bops.launches = 0
-    tops.launches = 0
+    return {"or_and_matmul": bops, "min_plus_matmul": tops,
+            "bitpack_matmul": pops}
+
+
+def _reset_launches():
+    for ops in _counted().values():
+        ops.launches = 0
 
 
 def _launches():
-    from repro_torch.kernels.bool_matmul import ops as bops
-    from repro_torch.kernels.tropical_matmul import ops as tops
-    return {"or_and_matmul": bops.launches, "min_plus_matmul": tops.launches}
+    return {name: ops.launches for name, ops in _counted().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +240,38 @@ def phase_parity() -> None:
                      min_plus_matmul(a, b[:, ::2]),
                      min_plus_matmul_ref(a, b[:, ::2]))
         n += 2
+    n += _parity_bitpack(dev)
     print(f"parity: {n} kernel calls bit-equal to their plain versions")
+
+
+def _parity_bitpack(dev) -> int:
+    """The bit-packed product on pre-packed words, against its plain
+    version and the or-and kernel on the unpacked operands, over the
+    sweep and K = 31, 32, 33; row 0 is all ones, so bit 31 is set in
+    every one of its words."""
+    import torch
+    from repro_torch.kernels.bitpack_ops import (bitpack_matmul,
+                                                 bitpack_matmul_ref,
+                                                 pack_cols, pack_rows,
+                                                 pack_rows_ref)
+    from repro_torch.kernels.bool_matmul import or_and_matmul
+    n = 0
+    shapes = SHAPES + [(9, 31, 9), (9, 32, 9), (9, 33, 9)]
+    for si, (m, k, n_) in enumerate(shapes):
+        for density in DENSITIES:
+            rng = np.random.default_rng([SEED, si, int(density * 100), 3])
+            a = torch.tensor(rng.random((m, k)) < density, device=dev)
+            b = torch.tensor(rng.random((k, n_)) < density, device=dev)
+            a[0] = True
+            ap, bp = pack_rows(a), pack_cols(b)
+            _check_equal(f"pack_rows {m}x{k}", ap, pack_rows_ref(a))
+            got = bitpack_matmul(ap, bp, k)
+            _check_equal(f"bitpack {m}x{k}x{n_} d={density}", got,
+                         bitpack_matmul_ref(ap, bp, k))
+            _check_equal(f"bitpack vs or_and {m}x{k}x{n_} d={density}", got,
+                         or_and_matmul(a, b))
+            n += 1
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +305,7 @@ def _check_reach_dist(g, queries, results, n_check):
     return {k: min(len(v), n_check) for k, v in idx.items()}
 
 
-def phase_main(out: dict) -> None:
+def phase_main(out: dict):
     import torch
     import repro_torch
     from repro_torch import Dist, Reach
@@ -286,8 +341,8 @@ def phase_main(out: dict) -> None:
     results = sess.run(queries)
     run_ms = (time.perf_counter() - t0) * 1e3
     launches = _launches()
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("or_and_matmul", "min_plus_matmul"):
+        if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
     checked = _check_reach_dist(g, queries, results, N_CHECK)
     print(f"main: cache build (warm, reach + dist) {warm_ms:.1f} ms; "
@@ -357,16 +412,11 @@ def phase_main(out: dict) -> None:
           f"(probe csrc/dpx_rate.cu); {props.multi_processor_count} SMs x 64 "
           f"lanes x {sm_mhz:.0f} MHz would give {dpx_nominal:.4e}")
 
-    def bounds(ops, ops_rate, nbytes):
-        t_ops, t_bytes = ops / ops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        return (max(t_ops, t_bytes),
-                "operations" if t_ops >= t_bytes else "bytes")
-
-    b_or, by_or = bounds(2 * nb ** 3, INT8_TENSOR_OPS_PER_S, 3 * nb * nb)
-    b_or_cp, _ = bounds(2 * N_PER_KIND * nb * nb, INT8_TENSOR_OPS_PER_S,
+    b_or, by_or = _bound(2 * nb ** 3, INT8_TENSOR_OPS_PER_S, 3 * nb * nb)
+    b_or_cp, _ = _bound(2 * N_PER_KIND * nb * nb, INT8_TENSOR_OPS_PER_S,
                         nb * nb + 2 * N_PER_KIND * nb)
-    b_mp, by_mp = bounds(nb ** 3, dpx_per_s, 3 * 4 * nb * nb)
-    b_mp_cp, _ = bounds(N_PER_KIND * nb * nb, dpx_per_s,
+    b_mp, by_mp = _bound(nb ** 3, dpx_per_s, 3 * 4 * nb * nb)
+    b_mp_cp, _ = _bound(N_PER_KIND * nb * nb, dpx_per_s,
                         4 * (nb * nb + 2 * N_PER_KIND * nb))
     print(f"time or_and_matmul: squaring [{nb}]^2 {t_or_sq:.3f} ms "
           f"(bound {b_or:.3f} ms, {by_or}), plain {t_or_plain:.3f} ms, "
@@ -403,10 +453,185 @@ def phase_main(out: dict) -> None:
     ]
     out["main"] = {"warm_ms": warm_ms, "run_ms": run_ms,
                    "per_query_us": per_query_us, "nb": nb}
+    return g, fr, queries, results
 
 
 # ---------------------------------------------------------------------------
-# 4. regular path queries at reduced size
+# 4. the sharded backend at full size, on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+def _nccl_rank() -> None:
+    """A one-rank NCCL process group on the card (d = 1), its store file
+    under ``build/`` in the checkout."""
+    import torch
+    import torch.distributed as dist
+    store = ROOT / "build" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    print(f"sharded: NCCL {torch.cuda.nccl.version()}, "
+          f"one rank on {torch.cuda.get_device_name(0)}")
+
+
+class _PhaseClock:
+    """The ``mark`` callback of the sharded batch programs: a CUDA event as
+    each phase begins, so :meth:`ms` gives each phase's time."""
+
+    def __init__(self):
+        self.events = []
+
+    def __call__(self, phase: str) -> None:
+        import torch
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append((phase, event))
+
+    def ms(self) -> dict:
+        self.events[-1][1].synchronize()
+        return {p: a.elapsed_time(b) for (p, a), (_, b)
+                in zip(self.events, self.events[1:])}
+
+
+def _sharded_split(fr, pairs, kind, qa=None, keep_wire=None) -> dict:
+    """One fused sharded batch with the time of each phase (local stage,
+    collective, closure, combine), outside any counted run.  With
+    ``keep_wire`` (a dict) the merged payload words are kept there."""
+    from repro_torch.core import distributed as D
+    run, args = D._batch_sharded_program(fr, np.asarray(pairs), kind, qa=qa)
+    clock = _PhaseClock()
+    all_reduce = D._all_reduce
+    if keep_wire is not None:
+        def keep(x, op, group):
+            keep_wire["wire"] = all_reduce(x, op, group)
+            return keep_wire["wire"]
+        D._all_reduce = keep
+    try:
+        run(*args, mark=clock)
+    finally:
+        D._all_reduce = all_reduce
+    ms = clock.ms()
+    ms["total"] = sum(ms.values())
+    return ms
+
+
+def _sharded_run(sess, fr, queries) -> dict:
+    """One timed ``run`` of one kind through the sharded session after a
+    warm-up, with every count set to 0 just before it and read just
+    after; exactly one collective of ``traffic_bits`` bits must ride it."""
+    import torch
+    from repro_torch.core import distributed as D
+    sess.run(queries)
+    torch.cuda.synchronize()
+    _reset_launches()
+    D.collectives = D.payload_bits = 0
+    t0 = time.perf_counter()
+    results = sess.run(queries)
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches()
+    collectives, bits = D.collectives, D.payload_bits
+    groups = sess.last_plan.groups
+    want_bits = sum(fr.traffic_bits(
+        gr.kind, states=1 if gr.automaton is None else gr.automaton.n_states,
+        batch=gr.padded_size) for gr in groups)
+    if collectives != len(groups) or bits != want_bits:
+        raise AssertionError(f"{collectives} collectives of {bits} bits for "
+                             f"{len(groups)} groups of {want_bits} bits")
+    return {"results": results, "run_ms": run_ms, "launches": launches,
+            "collectives": collectives, "payload_bits": bits}
+
+
+def phase_sharded(out: dict, g, fr, queries, vmap_results) -> None:
+    import torch
+    import repro_torch
+    from repro_torch.kernels.bitpack_ops import (bitpack_matmul,
+                                                 bitpack_matmul_ref,
+                                                 pack_cols, pack_rows,
+                                                 unpack_rows)
+    from repro_torch.kernels.bool_matmul import or_and_matmul
+
+    sess = repro_torch.connect(fr, backend="shard_map")
+    pl = sess.placement
+    if (sess.backend, pl.d, pl.fpd) != ("shard_map", 1, fr.k):
+        raise AssertionError(f"sharded session {sess.backend} d={pl.d} "
+                             f"fpd={pl.fpd}")
+    nb = fr.n_boundary
+    kinds = {"reach": (slice(0, N_PER_KIND), "or_and_matmul"),
+             "dist": (slice(N_PER_KIND, None), "min_plus_matmul")}
+    report, launches = {}, {}
+    for kind, (part, kernel) in kinds.items():
+        qs = queries[part]
+        r = _sharded_run(sess, fr, qs)
+        if r["launches"][kernel] == 0:
+            raise AssertionError(f"{kernel} never launched on the sharded "
+                                 f"{kind} path")
+        got = [(x.answer, x.distance) for x in r["results"]]
+        if got != [(x.answer, x.distance) for x in vmap_results[part]]:
+            raise AssertionError(f"sharded {kind} answers differ from the "
+                                 "vmap session's")
+        checked = _check_reach_dist(g, qs, r["results"], N_CHECK)
+        launches[kind] = r["launches"]
+        report[kind] = {k: r[k] for k in ("run_ms", "collectives",
+                                           "payload_bits", "launches")}
+        print(f"sharded: {kind} run of {len(qs)} {r['run_ms']:.1f} ms; "
+              f"{r['collectives']} collective of {r['payload_bits']} bits "
+              f"(traffic_bits); launches {r['launches']}; equal to the vmap "
+              f"session, checked against BFS {checked}")
+
+    # each batch again, its time split by phase; the reach batch keeps its
+    # merged wire, whose first nb rows are D0 packed into words
+    wire = {}
+    for kind, (part, _) in kinds.items():
+        pairs = [(q.s, q.t) for q in queries[part]]
+        report[kind]["split_ms"] = _sharded_split(
+            fr, pairs, kind, keep_wire=wire if kind == "reach" else None)
+        print(f"sharded: {kind} batch split (ms) {report[kind]['split_ms']}")
+
+    # the bit-packed kernel on the wire's operands: A = D0 | I
+    words = wire.pop("wire")[:nb]
+    A = unpack_rows(words, nb) | torch.eye(nb, dtype=torch.bool,
+                                           device="cuda")
+    ap, bp = pack_rows(A), pack_cols(A)
+    n_launched = _launches()["bitpack_matmul"]
+    t_b3, got = cuda_timed(lambda: bitpack_matmul(ap, bp, nb), 5)
+    t_b3_plain, want = cuda_timed(lambda: bitpack_matmul_ref(ap, bp, nb), 2)
+    _check_equal("bitpack squaring", got, want)
+    err = _max_abs_err(got, want)
+    _check_equal("bitpack vs or_and squaring", got, or_and_matmul(A, A))
+    del got, want
+    Ah = A.half()
+    t_b3_lib, _ = cuda_timed(lambda: (Ah @ Ah) > 0, 3)
+    del Ah
+    n_launched = _launches()["bitpack_matmul"] - n_launched
+    W = ap.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
+    int32_rate = sms * INT32_OPS_PER_CLOCK_PER_SM * sm_mhz * 1e6
+    b_b3, by_b3 = _bound(nb * nb * W, int32_rate, 2 * 4 * nb * W + nb * nb)
+    print(f"time bitpack_matmul: squaring [{nb},{W}]x[{W},{nb}] words "
+          f"{t_b3:.3f} ms (bound {b_b3:.3f} ms, {by_b3}: {nb}^2 x {W} LOP3 "
+          f"at {sms} SMs x {INT32_OPS_PER_CLOCK_PER_SM} x {sm_mhz:.0f} MHz), "
+          f"plain {t_b3_plain:.3f} ms, cuBLAS fp16 {t_b3_lib:.3f} ms; "
+          "bit-equal to its plain version and to or_and_matmul")
+    out["kernels"].append(
+        {"name": "bitpack_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/bitpack_ops/csrc/bitpack_matmul.cu",
+         "replaces": "src/repro/kernels/bitpack_ops/bitpack_ops.py:74",
+         "launches": launches["reach"]["bitpack_matmul"]
+         + launches["dist"]["bitpack_matmul"],
+         "max_abs_err": err, "ms": t_b3, "plain_ms": t_b3_plain,
+         "bound_ms": b_b3, "bound_by": by_b3, "library_ms": t_b3_lib,
+         "shape": f"[{nb},{W}]x[{W},{nb}] words",
+         "wire_operand_launches": n_launched})
+    for k in out["kernels"]:
+        k["sharded_launches"] = {kind: launches[kind][k["name"]]
+                                 for kind in kinds}
+    out["sharded"] = report
+
+
+# ---------------------------------------------------------------------------
+# 5. regular path queries at reduced size
 # ---------------------------------------------------------------------------
 
 RPQ_NODES, RPQ_EDGES, RPQ_FRAGS = 2048, 8192, 8
@@ -477,13 +702,14 @@ def phase_rpq(out: dict) -> None:
     sess.run(queries)
     warm_ms = (time.perf_counter() - t0) * 1e3
     n_checked = 0
-    for q, r in zip(queries, results):
+    want = {}
+    for i, (q, r) in enumerate(zip(queries, results)):
         if isinstance(q, Rpq):
-            want = _rpq_oracle(g, q.s, q.t, sess._resolve_automaton(q))
+            want[i] = _rpq_oracle(g, q.s, q.t, sess._resolve_automaton(q))
         else:
-            want = bool(bfs_reachable(g, q.s)[q.t])
-        if r.answer != want:
-            raise AssertionError(f"{q}: got {r.answer}, oracle {want}")
+            want[i] = bool(bfs_reachable(g, q.s)[q.t])
+        if r.answer != want[i]:
+            raise AssertionError(f"{q}: got {r.answer}, oracle {want[i]}")
         n_checked += 1
     n_rpq = sum(isinstance(q, Rpq) for q in queries)
     sides = {rx: fr.n_boundary * sess._resolve_automaton(
@@ -495,6 +721,32 @@ def phase_rpq(out: dict) -> None:
     out["rpq"] = {"cold_ms": cold_ms, "warm_ms": warm_ms,
                   "launches": launches, "sides": sides}
 
+    # the same Rpq queries through the sharded backend (d = 1, fpd = 8):
+    # one collective per automaton group
+    rpq_ids = [i for i, q in enumerate(queries) if isinstance(q, Rpq)]
+    sharded = repro_torch.connect(fr, backend="shard_map")
+    r = _sharded_run(sharded, fr, [queries[i] for i in rpq_ids])
+    if r["launches"]["or_and_matmul"] == 0:
+        raise AssertionError("or_and_matmul never launched on the sharded "
+                             "RPQ path")
+    for i, res in zip(rpq_ids, r["results"]):
+        if res.answer != want[i]:
+            raise AssertionError(f"sharded {queries[i]}: got {res.answer}, "
+                                 f"oracle {want[i]}")
+    qa = sharded._resolve_automaton(queries[rpq_ids[0]])
+    pairs = [(queries[i].s, queries[i].t) for i in rpq_ids
+             if queries[i].regex == queries[rpq_ids[0]].regex]
+    split = _sharded_split(fr, pairs, "rpq", qa=qa)
+    print(f"rpq: sharded run of {len(rpq_ids)} Rpq (fpd "
+          f"{sharded.placement.fpd}) {r['run_ms']:.1f} ms; "
+          f"{r['collectives']} collectives of {r['payload_bits']} bits for "
+          f"{sharded.last_plan.n_groups} groups (traffic_bits); launches "
+          f"{r['launches']}; {len(rpq_ids)} answers match the oracle; "
+          f"{qa.n_states}-state batch of {len(pairs)} split (ms) {split}")
+    out["rpq"]["sharded"] = {k: r[k] for k in ("run_ms", "collectives",
+                                               "payload_bits", "launches")}
+    out["rpq"]["sharded"]["split_ms"] = split
+
 
 def main() -> int:
     import torch
@@ -503,14 +755,22 @@ def main() -> int:
               "is False", file=sys.stderr)
         return 1
     _require_repo()
+    import torch.distributed as dist
     out: dict = {}
     out.update(phase_build())
     phase_parity()
-    phase_main(out)
-    phase_rpq(out)
+    g, fr, queries, results = phase_main(out)
+    _nccl_rank()
+    try:
+        phase_sharded(out, g, fr, queries, results)
+        del g, fr, queries, results
+        phase_rpq(out)
+    finally:
+        dist.destroy_process_group()
     kernels = out["kernels"]
     for k in kernels:
         k["rpq_launches"] = out["rpq"]["launches"][k["name"]]
+        k["rpq_sharded_launches"] = out["rpq"]["sharded"]["launches"][k["name"]]
     print(out["card"])            # nvidia-smi: name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

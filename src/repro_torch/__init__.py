@@ -16,9 +16,10 @@ The front door is :func:`repro_torch.connect`::
 The session runs on the CUDA device; pass ``device="cpu"`` to run the
 plain PyTorch versions of the kernels on the CPU instead.
 """
+from .core.fragments import Placement
 from .core.plan import Dist, Query, QueryResult, Reach, Rpq
 from .core.session import QuerySession, connect
 from .errors import NoCudaDevice, Status
 
 __all__ = ["connect", "QuerySession", "QueryResult", "Status", "Reach",
-           "Dist", "Rpq", "Query", "NoCudaDevice"]
+           "Dist", "Rpq", "Query", "NoCudaDevice", "Placement"]

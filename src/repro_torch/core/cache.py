@@ -201,6 +201,161 @@ def combine_dist(direct, sb, tc, Cd):
 
 
 # ---------------------------------------------------------------------------
+# per-rank local stage (sharded backend: each rank contributes its own
+# fragments' D0/W0 rows, per-pair s-rows and t-column entries, which ride
+# the ONE collective of core.distributed.dis_*_batch_sharded)
+# ---------------------------------------------------------------------------
+#
+# Every function takes the rank's owned fragments as a leading [fpd, ...]
+# axis and returns the contributions already merged over it.  The merge is
+# exact because every d0/sb row and tc column is computed by exactly one
+# fragment, the others contributing the semiring zero (False or INF), so
+# the functions write each fragment's owned rows and columns straight into
+# one [nb, nb] buffer instead of stacking [fpd, nb, nb] and reducing.  The
+# same disjointness lets them skip the work whose result is all zero: a
+# pair's forward propagation runs only in the fragment that holds its
+# source, and a fragment that owns no boundary row adds no rows.  Pad
+# slots (no edges, no sources, nothing owned) therefore cost nothing.
+# Shapes: ``s_slot``/``t_slot`` [fpd, N] (local slot of s_j / t_j in each
+# fragment, ``n_max`` if absent); ``srcidx`` [fpd, nb] (boundary position ->
+# source row, pad row elsewhere); ``own`` [fpd, nb] ownership mask;
+# ``tgt_mine`` [fpd, nb] (stub slot of boundary node w in each fragment).
+
+def _local_stage_packed(F, single_source, zero, esrc, edst, s_slot, t_slot,
+                        srcidx, own, tgt_mine, n_max: int):
+    """Shared body of the reach and dist stages over all-sources frontiers
+    F [fpd, S, n_max+1] (Boolean or tropical, semiring zero ``zero``)."""
+    fpd, nb = own.shape
+    N = s_slot.shape[1]
+    dev = F.device
+    d0 = torch.full((nb, nb), zero, dtype=F.dtype, device=dev)
+    sb = torch.full((N, nb), zero, dtype=F.dtype, device=dev)
+    direct = torch.full((N,), zero, dtype=F.dtype, device=dev)
+    tc = torch.full((N, nb), zero, dtype=F.dtype, device=dev)
+    tgt = tgt_mine.long()
+    frag, pair = torch.nonzero(s_slot < n_max, as_tuple=True)
+    if frag.numel():
+        f = single_source(esrc[frag], edst[frag], s_slot[frag, pair],
+                          n_max=n_max)                     # [P, n+1]
+        sb[pair] = torch.gather(f, 1, tgt[frag])
+        direct[pair] = torch.gather(f, 1, t_slot[frag, pair].long()[:, None])[:, 0]
+    for j in range(fpd):
+        mine = torch.nonzero(own[j])[:, 0]
+        if mine.numel() == 0:
+            continue
+        rows = F[j][srcidx[j, mine].long()]                # [r, n+1]
+        d0[mine] = rows[:, tgt[j]]
+        tc[:, mine] = rows[:, t_slot[j].long()].T
+    return d0, sb, direct, tc
+
+
+def local_stage_reach_packed(esrc, edst, src_local, s_slot, t_slot, srcidx,
+                             own, tgt_mine, *, n_max: int):
+    """One rank's local stage of a fused reach batch over its ``fpd``
+    owned fragments: their all-sources fixpoints and the single-source
+    propagations of the pairs whose source they hold.  Returns ``(d0
+    [nb, nb], sb [N, nb], direct [N], tc [N, nb])`` bool — all-false outside
+    the rank's ownership, so the cross-rank merge is a plain bitwise OR."""
+    F = engine.local_frontier_reach(esrc, edst, src_local, n_max=n_max)
+    return _local_stage_packed(F, engine.single_source_reach, False, esrc,
+                               edst, s_slot, t_slot, srcidx, own, tgt_mine,
+                               n_max)
+
+
+def local_stage_dist_packed(esrc, edst, src_local, s_slot, t_slot, srcidx,
+                            own, tgt_mine, *, n_max: int):
+    """Tropical twin of :func:`local_stage_reach_packed`: non-owned entries
+    are INF, so the cross-rank merge is a min.  Returns ``(w0 [nb, nb],
+    sb [N, nb], direct [N], tc [N, nb])`` int32."""
+    F = engine.local_frontier_dist(esrc, edst, src_local, n_max=n_max)
+    return _local_stage_packed(F, engine.single_source_dist, INF, esrc, edst,
+                               s_slot, t_slot, srcidx, own, tgt_mine, n_max)
+
+
+def local_stage_rpq_packed(esrc, edst, src_local, src_row, tgt_local, labels,
+                           gids, q_labels, q_trans, q_start, s_slot, t_slot,
+                           s_gids, t_gids, local_b, mine, *, n_max: int,
+                           B: int):
+    """Product-automaton local stage of a fused RPQ batch on one rank.
+
+    The query-independent part is the owned fragments' product rvset rows
+    (``local_eval_regular`` with the s/t sentinels matched off, as in
+    :func:`product_closure`); the per-pair part is one forward product
+    propagation from ``(s_j, u_s)`` in the fragment holding ``s_j`` and one
+    reverse propagation to ``(t_j, u_t)`` in every owned fragment that
+    holds ``t_j`` and owns boundary rows.  Per-fragment arguments carry
+    ``[fpd, ...]``; ``q_*``, ``s_gids``/``t_gids`` [N] and ``local_b`` [nb]
+    (local slot of each boundary node in its owner) are shared; ``mine``
+    [fpd, nb] masks the in-nodes each fragment owns.  Returns ``(d0
+    [(nb*Q), (nb*Q)], sb [N, nb*Q], direct [N], tc [N, nb*Q])``."""
+    fpd = esrc.shape[0]
+    Q = q_labels.shape[0]
+    nb = B - 2
+    N = s_slot.shape[1]
+    dev = esrc.device
+    no_slot = torch.full((fpd,), n_max, dtype=torch.int32, device=dev)
+    D = engine.local_eval_regular(
+        esrc, edst, src_local, src_row, tgt_local, labels, gids, q_labels,
+        q_trans, no_slot, no_slot, NO_NODE, NO_NODE, n_max=n_max, B=B)
+    d0 = D.reshape(B, Q, B, Q)[:nb, :, :nb, :].reshape(nb * Q, nb * Q)
+    direct = torch.zeros(N, dtype=torch.bool, device=dev)
+    sb = torch.zeros((N, nb, Q), dtype=torch.bool, device=dev)
+    tc = torch.zeros((N, nb, Q), dtype=torch.bool, device=dev)
+    frag, pair = torch.nonzero(s_slot < n_max, as_tuple=True)
+    if frag.numel():
+        f = engine.single_source_regular(
+            esrc[frag], edst[frag], labels[frag], gids[frag], q_labels,
+            q_trans, s_slot[frag, pair], q_start, s_gids[pair], t_gids[pair],
+            n_max=n_max)                                   # [P, n+1, Q]
+        hit = t_slot[frag, pair].long()
+        direct[pair] = f[torch.arange(len(pair), device=dev), hit, Q - 1]
+        tgt = tgt_local[frag, :nb].long()
+        sb[pair] = torch.gather(f, 1, tgt[:, :, None].expand(-1, nb, Q))
+    frag, pair = torch.nonzero((t_slot < n_max) & mine.any(1)[:, None],
+                               as_tuple=True)
+    if frag.numel():
+        rev = engine.reverse_target_regular(
+            esrc[frag], edst[frag], labels[frag], gids[frag], q_labels,
+            q_trans, t_slot[frag, pair], s_gids[pair], t_gids[pair],
+            n_max=n_max)                                   # [C, n+1, Q]
+        for j in range(fpd):
+            owned = torch.nonzero(mine[j])[:, 0]
+            sel = torch.nonzero(frag == j)[:, 0]
+            if owned.numel() and sel.numel():
+                tc[pair[sel][:, None], owned[None, :]] = \
+                    rev[sel][:, local_b[owned].long(), :]
+    return d0, sb.reshape(N, nb * Q), direct, tc.reshape(N, nb * Q)
+
+
+def local_stage_reach(esrc, edst, src_local, s_slot, t_slot, srcidx, own,
+                      tgt_mine, *, n_max: int):
+    """:func:`local_stage_reach_packed` for one fragment: every argument
+    without the leading ``[fpd]`` axis."""
+    return local_stage_reach_packed(
+        esrc[None], edst[None], src_local[None], s_slot[None], t_slot[None],
+        srcidx[None], own[None], tgt_mine[None], n_max=n_max)
+
+
+def local_stage_dist(esrc, edst, src_local, s_slot, t_slot, srcidx, own,
+                     tgt_mine, *, n_max: int):
+    """:func:`local_stage_dist_packed` for one fragment."""
+    return local_stage_dist_packed(
+        esrc[None], edst[None], src_local[None], s_slot[None], t_slot[None],
+        srcidx[None], own[None], tgt_mine[None], n_max=n_max)
+
+
+def local_stage_rpq(esrc, edst, src_local, src_row, tgt_local, labels, gids,
+                    q_labels, q_trans, q_start, s_slot, t_slot, s_gids,
+                    t_gids, local_b, mine, *, n_max: int, B: int):
+    """:func:`local_stage_rpq_packed` for one fragment."""
+    return local_stage_rpq_packed(
+        esrc[None], edst[None], src_local[None], src_row[None],
+        tgt_local[None], labels[None], gids[None], q_labels, q_trans,
+        q_start, s_slot[None], t_slot[None], s_gids, t_gids, local_b,
+        mine[None], n_max=n_max, B=B)
+
+
+# ---------------------------------------------------------------------------
 # batched per-query phase
 # ---------------------------------------------------------------------------
 

@@ -1,0 +1,377 @@
+"""Sharded backend: fragments packed onto the ranks of a torch.distributed
+process group (d <= k), ONE collective per fused batch.
+
+A :class:`~repro_torch.core.fragments.Placement` maps every fragment to a
+rank (several fragments per rank when ``k > d``).  Every rank builds the
+same fragmentation and placement, runs the local stage of its owned
+fragments with no communication (``core.cache.local_stage_*_packed``),
+joins the single collective that assembles the boundary dependency matrix
+and the per-pair rows, and then runs the closure and the combine
+replicated, so every rank returns the same answers.
+
+Performance-guarantee mapping (checked by tests/test_torch_sharded.py):
+  * "each site visited once"  -> exactly one collective per fused batch,
+    none inside a fixpoint loop: every collective goes through
+    :func:`_all_reduce`, which counts calls and payload bits;
+  * "traffic O(|V_f|^2)" bits -> the payload is ``[side + 2N, side + 1]``
+    (``side = |V_f|``, or ``|V_f| |Q|`` for RPQs; one s-row and one t-row
+    per pair; the extra column carries the per-pair direct answer):
+    bitpacked 32-bit words for the Boolean kinds, raw int32 for the
+    tropical one, so the bits equal ``Fragmentation.traffic_bits(kind,
+    states, batch=N)`` and do not depend on |G|.
+
+The Boolean wire is merged with SUM over int32 words: every bit is set on
+exactly one rank (d0/sb rows by their owner, tc columns by frag(u)), so
+no carry occurs and SUM equals OR.  MAX would not do: a word with bit 31
+set is negative and loses to the zero words of the other ranks, and NCCL
+has no bitwise-OR reduce.  The tropical wire is merged with MIN, exact
+because non-owners ship INF, the tropical zero.
+
+Left for later slices (ROADMAP queue A): the single-query
+``dis_reach_sharded``/``dis_rpq_sharded`` (item 5b), ``lower_*_hlo``
+(item 10), ``update_rows_sharded``/``apply_delta_sharded`` (item 6).
+"""
+from __future__ import annotations
+
+import functools
+from collections import OrderedDict
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from . import cache as _cache
+from ..kernels.bitpack_ops.ops import pack_payload, unpack_payload
+from .automaton import QueryAutomaton
+from .bes import bool_closure, tropical_closure
+from .engine import INF
+from .fragments import Fragmentation, Placement
+
+#: collectives issued by :func:`_all_reduce` since the count was set to 0
+collectives = 0
+#: bits those collectives shipped (numel x element size x 8, per rank)
+payload_bits = 0
+
+
+def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+    """The ONE collective of a fused batch, in place on ``x``; every
+    collective of the sharded backend goes through here and is counted."""
+    global collectives, payload_bits
+    dist.all_reduce(x, op=op, group=group)
+    collectives += 1
+    payload_bits += x.numel() * x.element_size() * 8
+    return x
+
+
+def _require_process_group() -> None:
+    """Raise unless a torch.distributed process group is initialized: the
+    sharded backend never creates one behind the caller's back."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "backend='shard_map' runs one collective per fused batch over a "
+            "torch.distributed process group, and none is initialized; "
+            "call torch.distributed.init_process_group(...) first (one rank "
+            "per device: world_size=1 on one card)")
+
+
+def _no_mark(phase: str) -> None:
+    pass
+
+
+def _split_merged(merged, side: int, N: int):
+    """Undo the payload concatenation: (d0, sb, direct, tc)."""
+    return (merged[:side, :side], merged[side:side + N, :side],
+            merged[side:side + N, side], merged[side + N:, :side])
+
+
+def _resolve_placement(fr: Fragmentation, group,
+                       placement: Optional[Placement]) -> Placement:
+    """The placement the sharded engines run: :meth:`Placement.balanced`
+    over the group's ranks by default.  Raises ValueError when it does
+    not fit the fragmentation or the group (including d > k: a fragment
+    is never split across ranks)."""
+    _require_process_group()
+    d = dist.get_world_size(group)
+    if placement is None:
+        placement = Placement.balanced(fr, d)
+    if placement.k != fr.k:
+        raise ValueError(f"placement maps {placement.k} fragments but the "
+                         f"fragmentation has {fr.k}")
+    if placement.d != d:
+        raise ValueError(f"the process group has {d} ranks but the "
+                         f"placement expects {placement.d}")
+    return placement
+
+
+def _pack_rows(arr: np.ndarray, perm: np.ndarray, pad) -> np.ndarray:
+    """Reorder a stacked [k, ...] per-fragment array into the rank-major
+    [d*fpd, ...] packed layout; pad slots (perm == -1) are filled with the
+    array's inert value."""
+    out = np.full((len(perm),) + arr.shape[1:], pad, dtype=arr.dtype)
+    valid = perm >= 0
+    out[valid] = arr[perm[valid]]
+    return out
+
+
+def _srcidx_own(fr: Fragmentation):
+    """Host-side inverse of ``src_row``: for each fragment, the source-row
+    index of every boundary position it owns (pad row ``S-1``, the
+    reserved s slot, elsewhere) plus the ownership mask.  [k, nb] each."""
+    src_row = fr.arrays["src_row"]                         # [k, S]
+    k, S, nb = fr.k, src_row.shape[1], fr.n_boundary
+    srcidx = np.full((k, nb), S - 1, dtype=np.int32)
+    own = np.zeros((k, nb), dtype=bool)
+    for i in range(k):
+        mine = src_row[i] < fr.B - 2
+        srcidx[i, src_row[i, mine]] = np.nonzero(mine)[0]
+        own[i, src_row[i, mine]] = True
+    return srcidx, own
+
+
+# inert pad values per fragment array: pad fragments read as "no edges, no
+# sources, no ownership", so their local stages contribute only semiring
+# zeros to the on-rank merge
+def _array_pads(fr: Fragmentation) -> dict:
+    return dict(esrc=fr.n_max, edst=fr.n_max, src_local=fr.n_max,
+                src_row=fr.B, tgt_local=fr.n_max, labels=-9, gids=-1,
+                n_local=0)
+
+
+# live entries in a Fragmentation's device-upload memo: a small LRU, so
+# that alternate placements (and, with the delta slice, versions) do not
+# thrash each other's uploads while stale ones are bounded
+_UPLOAD_MEMO_CAP = 4
+
+
+def _device_inputs(fr: Fragmentation, placement: Placement, rank: int,
+                   device) -> dict:
+    """Query-independent uploads for the batched sharded engines: this
+    rank's ``fpd`` rows of the fragment arrays and of the boundary-
+    ownership gathers, in the placement's rank-major packed layout.
+    Memoized in a small per-Fragmentation LRU keyed on
+    ``(fr.arrays_version, placement.cache_key(), rank, device)``, so
+    steady-state batches skip the host-to-device copy of the edge lists;
+    a mutation of the host arrays (which bumps ``arrays_version``) or a
+    new placement starts a fresh entry."""
+    device = torch.device(device)
+    memos = fr.__dict__.setdefault("_sharded_device_inputs", OrderedDict())
+    key = (fr.arrays_version, placement.cache_key(), rank, str(device))
+    memo = memos.get(key)
+    if memo is not None:
+        memos.move_to_end(key)
+        return memo
+    perm = placement.perm()
+    rows = slice(rank * placement.fpd, (rank + 1) * placement.fpd)
+    pads = _array_pads(fr)
+    srcidx, own = _srcidx_own(fr)
+    mine = fr.boundary_owner()[None, :] == np.arange(fr.k)[:, None]
+    mine[:, fr.nb_active:] = False     # spare slots are owned by nobody
+
+    def upload(arr, pad):
+        return torch.tensor(_pack_rows(arr, perm, pad)[rows], device=device)
+
+    memo = dict(
+        perm=perm, rows=rows,
+        arrs={name: upload(v, pads[name]) for name, v in fr.arrays.items()},
+        srcidx=upload(srcidx, fr.s_max - 1), own=upload(own, False),
+        mine=upload(mine, False),
+        local_b=torch.tensor(fr.boundary_local(), device=device))
+    memos[key] = memo
+    while len(memos) > _UPLOAD_MEMO_CAP:
+        memos.popitem(last=False)
+    return memo
+
+
+# ---------------------------------------------------------------------------
+# the three batch programs: local stage -> ONE collective -> replicated
+# closure and combine.  ``mark(phase)`` is called as each phase begins
+# ("local", "collective", "closure", "combine") and once at the end
+# ("end"); a caller can record CUDA events there to time the phases.
+# ---------------------------------------------------------------------------
+
+def _batch_reach(esrc, edst, src_local, tgt_local, s_slot, t_slot, srcidx,
+                 own, *, nb: int, n_max: int, group,
+                 mark: Callable[[str], None] = _no_mark):
+    mark("local")
+    d0, sb, direct, tc = _cache.local_stage_reach_packed(
+        esrc, edst, src_local, s_slot, t_slot, srcidx, own,
+        tgt_local[:, :nb], n_max=n_max)
+    N = sb.shape[0]
+    payload = torch.zeros((nb + 2 * N, nb + 1), dtype=torch.bool,
+                          device=d0.device)
+    payload[:nb, :nb] = d0
+    payload[nb:nb + N, :nb] = sb
+    payload[nb:nb + N, nb] = direct
+    payload[nb + N:, :nb] = tc
+    del d0, sb, direct, tc
+    mark("collective")
+    merged = unpack_payload(
+        _all_reduce(pack_payload(payload), dist.ReduceOp.SUM, group), nb + 1)
+    d0_m, sb_m, direct_m, tc_m = _split_merged(merged, nb, N)
+    mark("closure")
+    C = bool_closure(d0_m)
+    mark("combine")
+    ans = _cache.combine_bool(direct_m, sb_m, tc_m, C)
+    mark("end")
+    return ans
+
+
+def _batch_dist(esrc, edst, src_local, tgt_local, s_slot, t_slot, srcidx,
+                own, *, nb: int, n_max: int, group,
+                mark: Callable[[str], None] = _no_mark):
+    mark("local")
+    w0, sb, direct, tc = _cache.local_stage_dist_packed(
+        esrc, edst, src_local, s_slot, t_slot, srcidx, own,
+        tgt_local[:, :nb], n_max=n_max)
+    N = sb.shape[0]
+    payload = torch.full((nb + 2 * N, nb + 1), INF, dtype=torch.int32,
+                         device=w0.device)
+    payload[:nb, :nb] = w0
+    payload[nb:nb + N, :nb] = sb
+    payload[nb:nb + N, nb] = direct
+    payload[nb + N:, :nb] = tc
+    del w0, sb, direct, tc
+    mark("collective")
+    # int32 rows do not bitpack: the wire carries the rows each rank
+    # contributes, never the B^2 matrix
+    merged = _all_reduce(payload, dist.ReduceOp.MIN, group)
+    w0_m, sb_m, direct_m, tc_m = _split_merged(merged, nb, N)
+    mark("closure")
+    Cd = tropical_closure(w0_m)
+    mark("combine")
+    ans = _cache.combine_dist(direct_m, sb_m, tc_m, Cd)
+    mark("end")
+    return ans
+
+
+def _batch_rpq(esrc, edst, src_local, src_row, tgt_local, labels, gids,
+               s_slot, t_slot, mine, q_labels, q_trans, s_gids, t_gids,
+               local_b, *, n_max: int, B: int, q_start: int, group,
+               mark: Callable[[str], None] = _no_mark):
+    mark("local")
+    d0, sb, direct, tc = _cache.local_stage_rpq_packed(
+        esrc, edst, src_local, src_row, tgt_local, labels, gids, q_labels,
+        q_trans, q_start, s_slot, t_slot, s_gids, t_gids, local_b, mine,
+        n_max=n_max, B=B)
+    side, N = d0.shape[0], sb.shape[0]
+    payload = torch.zeros((side + 2 * N, side + 1), dtype=torch.bool,
+                          device=d0.device)
+    payload[:side, :side] = d0
+    payload[side:side + N, :side] = sb
+    payload[side:side + N, side] = direct
+    payload[side + N:, :side] = tc
+    del d0, sb, direct, tc
+    mark("collective")
+    merged = unpack_payload(
+        _all_reduce(pack_payload(payload), dist.ReduceOp.SUM, group),
+        side + 1)
+    d0_m, sb_m, direct_m, tc_m = _split_merged(merged, side, N)
+    mark("closure")
+    C = bool_closure(d0_m)
+    mark("combine")
+    ans = _cache.combine_bool(direct_m, sb_m, tc_m, C)
+    mark("end")
+    return ans
+
+
+def _batch_sharded_program(fr: Fragmentation, pairs: np.ndarray, kind: str,
+                           qa: Optional[QueryAutomaton] = None, group=None,
+                           placement: Optional[Placement] = None,
+                           device=None):
+    """``(program, args)`` for one fused N-pair sharded batch of ``kind``
+    on this rank; ``program(*args)`` returns the [N] answers on
+    ``device`` (``None``: the current CUDA device)."""
+    placement = _resolve_placement(fr, group, placement)
+    device = torch.device("cuda" if device is None else device)
+    k, n_max, N = fr.k, fr.n_max, len(pairs)
+    ss, tt = pairs[:, 0], pairs[:, 1]
+    # per-fragment query inputs: [k, N] local slots of s and t (n_max
+    # absent), cut below to this rank's rows of the packed layout
+    s_slots = np.full((k, N), n_max, dtype=np.int32)
+    s_slots[fr.part[ss], np.arange(N)] = fr.owner_local[ss]
+    t_slots = fr.slot_index()[tt, :].T.copy()              # [k, N]
+    inp = _device_inputs(fr, placement, dist.get_rank(group), device)
+    perm, rows, arrs = inp["perm"], inp["rows"], inp["arrs"]
+    s_slot = torch.tensor(_pack_rows(s_slots, perm, n_max)[rows],
+                          device=device)
+    t_slot = torch.tensor(_pack_rows(t_slots, perm, n_max)[rows],
+                          device=device)
+    if kind == "rpq":
+        args = (arrs["esrc"], arrs["edst"], arrs["src_local"],
+                arrs["src_row"], arrs["tgt_local"], arrs["labels"],
+                arrs["gids"], s_slot, t_slot, inp["mine"],
+                torch.tensor(qa.state_labels, device=device),
+                torch.tensor(qa.trans, device=device),
+                torch.tensor(ss.astype(np.int32), device=device),
+                torch.tensor(tt.astype(np.int32), device=device),
+                inp["local_b"])
+        return functools.partial(_batch_rpq, n_max=n_max, B=fr.B,
+                                 q_start=int(qa.start), group=group), args
+    program = {"reach": _batch_reach, "dist": _batch_dist}[kind]
+    args = (arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["tgt_local"],
+            s_slot, t_slot, inp["srcidx"], inp["own"])
+    return functools.partial(program, nb=fr.n_boundary, n_max=n_max,
+                             group=group), args
+
+
+def _as_batch_pairs(pairs) -> np.ndarray:
+    return np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+
+
+def dis_reach_batch_sharded(fr: Fragmentation, pairs, group=None,
+                            placement: Optional[Placement] = None,
+                            device=None) -> np.ndarray:
+    """Answer N (s, t) pairs over the process group with a single
+    collective.
+
+    Each rank contributes, for its owned fragments: their rows of the
+    boundary dependency matrix D0, the s-row and direct bit of every pair
+    whose source they hold, and the t-column entries of their own
+    in-nodes, merged on the rank first, so the wire is the same as with
+    one fragment per rank.  All three ride ONE bitpacked SUM (== OR); the
+    closure and the per-pair combine run replicated.  Returns [N] bool on
+    every rank."""
+    pairs = _as_batch_pairs(pairs)
+    if len(pairs) == 0:
+        return np.zeros(0, dtype=bool)
+    run, args = _batch_sharded_program(fr, pairs, "reach", group=group,
+                                       placement=placement, device=device)
+    ans = run(*args).cpu().numpy().copy()
+    ans[pairs[:, 0] == pairs[:, 1]] = True
+    return ans
+
+
+def dis_dist_batch_sharded(fr: Fragmentation, pairs, group=None,
+                           placement: Optional[Placement] = None,
+                           device=None) -> np.ndarray:
+    """Tropical twin of :func:`dis_reach_batch_sharded`: N shortest
+    distances with ONE int32 MIN collective.  Returns [N] int64 with -1
+    for unreachable, like ``cache.dis_dist_batch``."""
+    pairs = _as_batch_pairs(pairs)
+    if len(pairs) == 0:
+        return np.zeros(0, dtype=np.int64)
+    run, args = _batch_sharded_program(fr, pairs, "dist", group=group,
+                                       placement=placement, device=device)
+    d = run(*args).cpu().numpy().astype(np.int64)
+    d[d >= INF] = -1
+    return d
+
+
+def dis_rpq_batch_sharded(fr: Fragmentation, pairs, qa: QueryAutomaton,
+                          group=None, placement: Optional[Placement] = None,
+                          device=None) -> np.ndarray:
+    """Product-automaton twin of :func:`dis_reach_batch_sharded` for one
+    automaton: each rank ships its owned fragments' product rvset rows and
+    its pairs' forward / reverse product propagations in ONE bitpacked
+    SUM; the (nb|Q|)^2 closure and the combine run replicated.  Returns
+    [N] bool (s == t answered by nullability, like
+    ``cache.dis_rpq_batch``)."""
+    pairs = _as_batch_pairs(pairs)
+    if len(pairs) == 0:
+        return np.zeros(0, dtype=bool)
+    run, args = _batch_sharded_program(fr, pairs, "rpq", qa=qa, group=group,
+                                       placement=placement, device=device)
+    ans = run(*args).cpu().numpy().copy()
+    ans[pairs[:, 0] == pairs[:, 1]] = bool(qa.nullable)
+    return ans

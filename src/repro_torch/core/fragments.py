@@ -26,12 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..graph.graph import Graph
-
-
-def packed_bits(rows: int, cols: int) -> int:
-    """Bits actually shipped for a [rows, cols] Boolean payload once packed:
-    rows x ceil(cols/32) uint32 words."""
-    return rows * ((cols + 31) // 32) * 32
+from ..kernels.bitpack_ops.ops import packed_bits
 
 
 @dataclasses.dataclass
@@ -50,6 +45,9 @@ class Fragmentation:
     frag_sizes: np.ndarray    # [k] |F_i| = n_i + e_i  (paper's |F_i|)
     owner_local: np.ndarray   # [n] local index of a node in its own fragment
     nb_cap: int = -1          # boundary slot capacity (-1: len(bnodes))
+    # bumped on every in-place mutation of the host arrays (graph deltas,
+    # a later slice); consumers that memoize device uploads key on it
+    arrays_version: int = 0
     # amortized rvset cache (built lazily by core.cache.get_rvset_cache)
     rvset_cache: object = dataclasses.field(default=None, repr=False,
                                             compare=False)
@@ -61,8 +59,8 @@ class Fragmentation:
         """Rebuild a fragmentation from plain numpy fields: ``n``, ``src``,
         ``dst``, ``labels`` (and optionally ``label_names``) of the graph,
         then ``part``, ``k``, ``bnodes``, ``b_index``, ``n_max``, ``e_max``,
-        ``s_max``, ``arrays`` (a dict), ``frag_sizes``, ``owner_local`` and
-        ``nb_cap``.  Every array is copied, so the caller's buffers are
+        ``s_max``, ``arrays`` (a dict), ``frag_sizes``, ``owner_local``,
+        ``nb_cap`` and optionally ``arrays_version``.  Every array is copied, so the caller's buffers are
         never shared."""
         g = Graph(int(fields["n"]), np.array(fields["src"]),
                   np.array(fields["dst"]), np.array(fields["labels"]),
@@ -76,7 +74,8 @@ class Fragmentation:
                            for name, v in fields["arrays"].items()},
                    frag_sizes=np.array(fields["frag_sizes"]),
                    owner_local=np.array(fields["owner_local"]),
-                   nb_cap=int(fields["nb_cap"]))
+                   nb_cap=int(fields["nb_cap"]),
+                   arrays_version=int(fields.get("arrays_version", 0)))
 
     @property
     def B(self) -> int:       # boundary matrix side (capacity + query slots)
@@ -260,6 +259,128 @@ def fragment_graph(g: Graph, part: np.ndarray, k: int,
                          n_max=n_max, e_max=e_max, s_max=s_maxr,
                          arrays=arrays, frag_sizes=frag_sizes,
                          owner_local=g2l, nb_cap=nb_cap)
+
+
+# ---------------------------------------------------------------------------
+# fragment -> rank placement (k >> d packing for the sharded backend)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Fragment-to-rank assignment for the sharded backend.
+
+    The paper has one *site* per fragment; a process group is usually
+    smaller than a fragmentation, so the sharded engines pack several
+    fragments onto each rank (``d <= k``).  Each rank runs its owned
+    fragments' local stages, merges their boundary rows on the rank, and
+    still ships exactly ONE collective per fused batch: the wire size is
+    unchanged, and the response-time bound becomes the largest per-rank
+    workload ``max_d sum_{i on d} |F_i|`` instead of the largest fragment.
+
+    ``device_of[i]`` is the rank owning fragment ``i``.  Ranks hold at most
+    :attr:`fpd` fragments; short ranks are padded with inert fragments
+    (pad-only edge lists, no owned boundary rows) that contribute nothing.
+
+    Construct with :meth:`balanced` (greedy workload balancing, the
+    session's default) or :meth:`round_robin`, or pass an explicit
+    ``device_of``.  Instances are frozen and hashable; :meth:`cache_key`
+    keys the device-upload memo.
+    """
+
+    k: int                    # fragments
+    d: int                    # ranks
+    device_of: tuple          # [k] owning rank per fragment
+
+    def __post_init__(self):
+        object.__setattr__(self, "device_of",
+                           tuple(int(x) for x in self.device_of))
+        if self.d < 1:
+            raise ValueError(f"placement needs >= 1 device, got d={self.d}")
+        if self.d > self.k:
+            raise ValueError(
+                f"placement maps {self.k} fragments onto {self.d} devices: "
+                "d > k is invalid — the sharded backend packs whole "
+                "fragments onto ranks and cannot split one fragment across "
+                "several; use a process group with at most k ranks")
+        if len(self.device_of) != self.k:
+            raise ValueError(f"device_of has {len(self.device_of)} entries "
+                             f"for {self.k} fragments")
+        bad = [x for x in self.device_of if not (0 <= x < self.d)]
+        if bad:
+            raise ValueError(f"device_of entries out of range [0, {self.d}): "
+                             f"{bad[:4]}")
+
+    @classmethod
+    def round_robin(cls, k: int, d: int) -> "Placement":
+        """Baseline policy: fragment ``i`` lives on rank ``i % d``."""
+        return cls(k=k, d=d, device_of=tuple(i % d for i in range(k)))
+
+    @staticmethod
+    def fragment_weights(fr: Fragmentation) -> np.ndarray:
+        """Per-fragment workload estimate used by :meth:`balanced`:
+        ``|F_i| * (1 + b_i)`` with ``b_i`` the boundary rows fragment ``i``
+        owns (each is one source of its all-sources fixpoint)."""
+        b_owned = np.bincount(fr.part[fr.bnodes],
+                              minlength=fr.k).astype(np.int64)
+        return fr.frag_sizes.astype(np.int64) * (1 + b_owned)
+
+    @classmethod
+    def balanced(cls, fr: Fragmentation, d: int) -> "Placement":
+        """Greedy boundary-size balancing (LPT list scheduling).
+
+        Fragments go in decreasing :meth:`fragment_weights` order, each
+        onto the least-loaded rank that still has a free slot (ranks hold
+        at most ``ceil(k/d)`` fragments, the round-robin layout's
+        :attr:`fpd`).  Guarantees ``max_load <= total/d + max_weight`` and
+        is deterministic (ties go to the lowest rank)."""
+        k = fr.k
+        if d > k:       # same validation as __post_init__, but earlier
+            return cls(k=k, d=d, device_of=())
+        w = cls.fragment_weights(fr)
+        cap = -(-k // d)
+        loads = np.zeros(d, dtype=np.int64)
+        counts = np.zeros(d, dtype=np.int64)
+        device_of = np.zeros(k, dtype=np.int64)
+        for i in np.argsort(-w, kind="stable"):
+            cand = np.where(counts < cap, loads, np.iinfo(np.int64).max)
+            dev = int(np.argmin(cand))
+            device_of[i] = dev
+            loads[dev] += w[i]
+            counts[dev] += 1
+        return cls(k=k, d=d, device_of=tuple(device_of))
+
+    @property
+    def fpd(self) -> int:
+        """Owned-fragments axis length per rank (max over ranks)."""
+        return int(max(np.bincount(np.asarray(self.device_of, np.int64),
+                                   minlength=self.d).max(initial=0), 1))
+
+    def perm(self) -> np.ndarray:
+        """[d * fpd] int64 rank-major packing order: entry ``r*fpd + j`` is
+        the fragment in slot ``j`` of rank ``r``, or ``-1`` for an inert
+        pad slot."""
+        fpd = self.fpd
+        out = np.full(self.d * fpd, -1, dtype=np.int64)
+        fill = np.zeros(self.d, dtype=np.int64)
+        for i, dev in enumerate(self.device_of):
+            out[dev * fpd + fill[dev]] = i
+            fill[dev] += 1
+        return out
+
+    def loads(self, weights: np.ndarray) -> np.ndarray:
+        """[d] summed ``weights`` per rank (``weights``: [k])."""
+        return np.bincount(np.asarray(self.device_of, np.int64),
+                           weights=np.asarray(weights, np.float64),
+                           minlength=self.d).astype(np.int64)
+
+    def max_load(self, fr: Fragmentation) -> int:
+        """Largest per-rank workload, what the response-time bound scales
+        with once fragments are packed."""
+        return int(self.loads(self.fragment_weights(fr)).max(initial=0))
+
+    def cache_key(self) -> tuple:
+        """Hashable identity for the device-upload memo."""
+        return (self.k, self.d, self.device_of)
 
 
 def query_slots(fr: Fragmentation, s: int, t: int) -> Dict[str, np.ndarray]:

@@ -13,6 +13,12 @@ in submission order.
 
 The session runs on the CUDA device unless the caller passes
 ``device="cpu"``; it never falls back to the CPU on its own.
+
+``backend="shard_map"`` runs every group through the sharded engines of
+:mod:`repro_torch.core.distributed` instead: the fragments are packed onto
+the ranks of an initialized torch.distributed process group (one rank per
+device; ``d = 1`` with every fragment on one card), with ONE collective per
+fused group.
 """
 from __future__ import annotations
 
@@ -21,12 +27,14 @@ import threading
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 from . import cache as _cache
+from . import distributed
 from ..errors import NoCudaDevice, Status
 from .automaton import QueryAutomaton, build_query_automaton
 from .engine import QueryStats
-from .fragments import Fragmentation
+from .fragments import Fragmentation, Placement
 from .plan import (Dist, ExecutionGroup, Query, QueryPlan, QueryResult,
                    Reach, Rpq, plan_queries)
 
@@ -41,6 +49,10 @@ class SessionStats:
     queries: int = 0         # queries answered
     batches: int = 0         # run() calls
     executions: int = 0      # batched executions issued (one per group)
+    # sharded groups served by a fallback engine; stays 0: a sharded
+    # engine failure raises (the degrade-on-failure route is ROADMAP
+    # queue A, item 9)
+    degraded_groups: int = 0
 
 
 def _resolve_device(device) -> torch.device:
@@ -55,43 +67,83 @@ def _resolve_device(device) -> torch.device:
 
 
 def connect(fr: Fragmentation, backend: str = "auto",
-            cache: str = "amortized", device=None) -> "QuerySession":
+            cache: str = "amortized", group=None,
+            placement: Optional[Placement] = None,
+            device=None) -> "QuerySession":
     """Open a :class:`QuerySession` over ``fr`` — the front door of the
     package (also exported as ``repro_torch.connect``).
 
-    ``backend``: ``"auto"`` and ``"vmap"`` run every fragment's local
-    stage as one batched program on one device.  ``cache``:
-    ``"amortized"`` serves batches from the rvset/product caches (built
-    lazily, shared with every other session on the same fragmentation).
-    ``device``: where the caches live and the kernels run; ``None`` means
-    the CUDA device, and raises :class:`~repro_torch.errors.NoCudaDevice`
-    when there is none.
+    ``backend``:
+
+    * ``"vmap"`` runs every fragment's local stage as one batched program
+      on one device, against the amortized caches;
+    * ``"shard_map"`` packs the fragments onto the ranks of the
+      torch.distributed process group ``group`` (``None``: the default
+      group, which the caller must have initialized) according to
+      ``placement`` and ships ONE collective per fused group, for all
+      three query classes.  Groups of at most ``fr.k`` ranks are valid;
+      every rank runs the same batches and gets the same answers;
+    * ``"auto"`` picks shard_map when ``fr.k > 1`` and the group (or the
+      placement) has ``1 < d <= fr.k`` ranks, and vmap otherwise.
+
+    ``placement`` maps fragment -> rank (see
+    :class:`~repro_torch.core.fragments.Placement`); by default
+    ``Placement.balanced`` over the group's ranks.  ``cache``:
+    ``"amortized"`` serves vmap batches from the rvset/product caches
+    (built lazily, shared with every other session on the same
+    fragmentation).  ``device``: where the caches live and the kernels
+    run; ``None`` means the current CUDA device, and raises
+    :class:`~repro_torch.errors.NoCudaDevice` when there is none.
     """
-    return QuerySession(fr, backend=backend, cache=cache, device=device)
+    return QuerySession(fr, backend=backend, cache=cache, group=group,
+                        placement=placement, device=device)
 
 
 class QuerySession:
     """Unified query interface over one fragmentation (see :func:`connect`)."""
 
     def __init__(self, fr: Fragmentation, backend: str = "auto",
-                 cache: str = "amortized", device=None):
+                 cache: str = "amortized", group=None,
+                 placement: Optional[Placement] = None, device=None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{BACKENDS}")
         if cache not in CACHE_MODES:
             raise ValueError(f"unknown cache mode {cache!r}; expected one "
                              f"of {CACHE_MODES}")
-        if backend == "shard_map":
-            raise NotImplementedError(
-                "backend='shard_map' is not ported yet (ROADMAP queue A, "
-                "item 7: sharded backend)")
         if cache == "none":
             raise NotImplementedError(
                 "cache='none' is not ported yet (ROADMAP queue A, item 5b: "
                 "uncached one-shot engine)")
+        if placement is not None and placement.k != fr.k:
+            raise ValueError(f"placement maps {placement.k} fragments but "
+                             f"the fragmentation has {fr.k}")
+        # d: the ranks the sharded backend would run on.  An explicit
+        # placement pins it; otherwise the process group's size, and 1
+        # when there is no group.  shard_map fits iff d <= fr.k: a
+        # fragment is never split across ranks.
+        if placement is not None:
+            d, have = placement.d, f"a {placement.d}-rank placement"
+        elif dist.is_available() and dist.is_initialized():
+            d = dist.get_world_size(group)
+            have = f"a {d}-rank process group"
+        else:
+            d, have = 1, "no process group"
+        fits = 1 <= d <= fr.k
+        if backend == "auto":
+            backend = "shard_map" if fr.k > 1 and d > 1 and fits else "vmap"
+        elif backend == "shard_map" and not fits:
+            raise ValueError(
+                f"backend='shard_map' packs fragments onto at most one rank "
+                f"each ({fr.k} fragments), cannot use {have}; use a process "
+                f"group with <= {fr.k} ranks, or backend='auto' to run vmap")
+        if backend == "shard_map":
+            placement = distributed._resolve_placement(fr, group, placement)
         self.fr = fr
         self.cache_mode = cache
-        self.backend = "vmap"
+        self.backend = backend
+        self.group = group
+        self.placement = placement
         self.device = _resolve_device(device)
         self.stats = SessionStats()
         self.last_plan: Optional[QueryPlan] = None
@@ -195,24 +247,40 @@ class QuerySession:
                           results) -> None:
         """One batched execution for the whole group (padded to the
         group's bucket size; pad answers are discarded)."""
-        pairs = group.pairs()
         stats = self._group_stats(fr, group)
+        ans = self._execute_group(fr, group.kind, group.pairs(),
+                                  group.automaton)
         if group.kind == "reach":
-            ans = _cache.dis_reach_batch(fr, pairs, self.device)
             for i, q, a, st in zip(group.indices, group.queries, ans, stats):
                 results[i] = self._reach_result(q, a, st)
         elif group.kind == "dist":
             # exact distances once; each query's bound applies at answer
             # extraction (this is what lets bounded + exact queries fuse)
-            ans = _cache.dis_dist_batch(fr, pairs, self.device)
             for i, q, di, st in zip(group.indices, group.queries, ans, stats):
                 results[i] = self._dist_result(q, int(di), st)
         else:                                   # rpq
-            ans = _cache.dis_rpq_batch(fr, pairs, group.automaton,
-                                       self.device)
             for i, q, a, st in zip(group.indices, group.queries, ans, stats):
                 results[i] = self._rpq_result(q, group.automaton, a, st)
         self.stats.executions += 1
+
+    def _execute_group(self, fr: Fragmentation, kind: str, pairs, qa):
+        """One batched engine execution.  On the shard_map backend every
+        kind routes through its one-collective sharded batch engine, so
+        the paper's guarantees survive fusion for all three query
+        classes; an engine failure raises."""
+        if self.backend == "shard_map":
+            where = dict(group=self.group, placement=self.placement,
+                         device=self.device)
+            if kind == "reach":
+                return distributed.dis_reach_batch_sharded(fr, pairs, **where)
+            if kind == "dist":
+                return distributed.dis_dist_batch_sharded(fr, pairs, **where)
+            return distributed.dis_rpq_batch_sharded(fr, pairs, qa, **where)
+        if kind == "reach":
+            return _cache.dis_reach_batch(fr, pairs, self.device)
+        if kind == "dist":
+            return _cache.dis_dist_batch(fr, pairs, self.device)
+        return _cache.dis_rpq_batch(fr, pairs, qa, self.device)
 
     def _group_stats(self, fr: Fragmentation,
                      group: ExecutionGroup) -> List[QueryStats]:

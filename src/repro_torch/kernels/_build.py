@@ -1,11 +1,12 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
-into its own shared library for ``sm_90a``.  Libraries go to
-``build/repro_torch/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edit rebuilds and an unchanged source is built
-once.  ``nvcc -Xptxas -v`` prints each kernel's registers, shared memory
-and spills; that report is kept beside the library as ``<name>.log``.
+into its own shared library for ``sm_90a``; sources may include the
+package's ``*.cuh`` headers.  Libraries go to ``build/repro_torch/`` at the
+root of the checkout, named by a hash of the source, the headers and the
+flags, so an edit rebuilds and an unchanged source is built once.
+``nvcc -Xptxas -v`` prints each kernel's registers, shared memory and
+spills; that report is kept beside the library as ``<name>.log``.
 
 Only a wrapper's CUDA branch imports this module, so code that runs on the
 CPU never needs ``nvcc``.
@@ -29,6 +30,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 SOURCES = {
     "or_and_matmul": "bool_matmul/csrc/or_and_matmul.cu",
     "min_plus_matmul": "tropical_matmul/csrc/min_plus_matmul.cu",
+    "bitpack_matmul": "bitpack_ops/csrc/bitpack_matmul.cu",
     # throughput probe behind the min-plus bound (chip_smoke.py); no query
     # path calls it
     "dpx_rate": "tropical_matmul/csrc/dpx_rate.cu",
@@ -59,9 +61,11 @@ def nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     """Where the library of kernel ``name`` lives once built."""
-    src = (_KERNELS / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((_KERNELS / SOURCES[name]).read_bytes())
+    for header in sorted(_KERNELS.rglob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:

@@ -47,7 +47,7 @@ def test_fragment_graph_matches_reference(case):
         np.testing.assert_array_equal(tfr.arrays[name], arr, err_msg=name)
         assert tfr.arrays[name].dtype == arr.dtype, name
     for name in ("k", "n_max", "e_max", "s_max", "nb_cap", "B", "n_boundary",
-                 "nb_active", "S_ROW", "T_COL"):
+                 "nb_active", "S_ROW", "T_COL", "arrays_version"):
         assert getattr(tfr, name) == getattr(jfr, name), name
     for name in ("part", "bnodes", "b_index", "frag_sizes", "owner_local"):
         np.testing.assert_array_equal(getattr(tfr, name), getattr(jfr, name))
@@ -74,7 +74,9 @@ def test_from_numpy_copies_the_fields():
                   s_max=jfr.s_max, arrays=jfr.arrays,
                   frag_sizes=jfr.frag_sizes, owner_local=jfr.owner_local,
                   nb_cap=jfr.nb_cap)
-    fr = tfrag.Fragmentation.from_numpy(fields)
+    assert tfrag.Fragmentation.from_numpy(fields).arrays_version == 0
+    fr = tfrag.Fragmentation.from_numpy(dict(fields, arrays_version=3))
+    assert fr.arrays_version == 3
     assert fr.B == jfr.B and fr.nb_active == jfr.nb_active
     for name, arr in jfr.arrays.items():
         np.testing.assert_array_equal(fr.arrays[name], arr)

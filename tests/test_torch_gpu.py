@@ -15,6 +15,10 @@ import repro_torch
 from repro_torch import Dist, Reach, Rpq
 from repro_torch.core.fragments import fragment_graph
 from repro_torch.graph import erdos_renyi, random_partition
+from repro_torch.kernels.bitpack_ops import ops as pops
+from repro_torch.kernels.bitpack_ops import (bitpack_matmul,
+                                             bitpack_matmul_ref, pack_cols,
+                                             pack_rows, pack_rows_ref)
 from repro_torch.kernels.bool_matmul import ops as bops
 from repro_torch.kernels.bool_matmul import or_and_matmul, or_and_matmul_ref
 from repro_torch.kernels.tropical_matmul import ops as tops
@@ -69,6 +73,28 @@ def test_min_plus_kernel_matches_plain(cuda, shape):
     assert torch.equal(got, min_plus_matmul_ref(a, b))
     assert torch.equal(min_plus_matmul(a.T.contiguous().T, b[:, ::2]),
                        min_plus_matmul_ref(a, b[:, ::2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES + [(9, 31, 9), (9, 32, 9),
+                                            (9, 33, 9)])
+def test_bitpack_kernel_matches_plain(cuda, shape):
+    """B3 on pre-packed words == its plain version == B1 on the unpacked
+    operands; the all-ones row sets bit 31 of every word."""
+    m, k, n = shape
+    rng = np.random.default_rng(3)
+    for density in DENSITIES:
+        a = torch.tensor(rng.random((m, k)) < density, device=cuda)
+        b = torch.tensor(rng.random((k, n)) < density, device=cuda)
+        a[0] = True
+        ap, bp = pack_rows(a), pack_cols(b)
+        assert torch.equal(ap, pack_rows_ref(a))
+        before = pops.launches
+        got = bitpack_matmul(ap, bp, k)
+        assert pops.launches == before + 1
+        assert got.is_cuda and got.dtype == torch.bool
+        assert torch.equal(got, bitpack_matmul_ref(ap, bp, k))
+        assert torch.equal(got, or_and_matmul(a, b))
 
 
 @pytest.mark.gpu

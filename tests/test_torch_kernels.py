@@ -1,5 +1,6 @@
-"""The port's semiring products and closures vs the JAX package's Pallas
-kernels (interpret mode on the CPU, as tests/test_kernels.py runs them).
+"""The port's semiring products, word packing and closures vs the JAX
+package's Pallas kernels (interpret mode on the CPU, as
+tests/test_kernels.py runs them).
 
 Boolean and int32 results must be bit-equal: these semirings do not round.
 On the CPU the port's wrappers take their plain PyTorch versions; the
@@ -12,9 +13,12 @@ import pytest
 import torch
 
 from repro.core import bes as jbes
+from repro.kernels import bitpack_ops as jpack
 from repro.kernels.bool_matmul import bool_matmul, bool_matmul_ref
 from repro.kernels.tropical_matmul import min_plus_chunked, tropical_matmul
 from repro_torch.core import bes as tbes
+from repro_torch.kernels import bitpack_ops as tpack
+from repro_torch.kernels.bitpack_ops import ops as pops
 from repro_torch.kernels.bool_matmul import ops as bops
 from repro_torch.kernels.bool_matmul import or_and_matmul
 from repro_torch.kernels.tropical_matmul import ops as tops
@@ -61,6 +65,50 @@ def test_min_plus_matches_pallas(shape):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 100, 256])
+def test_packing_matches_reference(k):
+    """pack_rows / pack_cols / pack_payload give the JAX package's uint32
+    words bit for bit (int32 here), and unpack_rows inverts them."""
+    rng = np.random.default_rng(k)
+    a = rng.random((17, k)) < 0.4
+    a[3] = True                                 # bit 31 set in every word
+    ta = torch.tensor(a)
+    words = tpack.pack_rows(ta)
+    assert words.dtype == torch.int32 and words.shape == (17, (k + 31) // 32)
+    want = np.asarray(jpack.pack_rows(jnp.asarray(a)))
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(tpack.pack_rows_ref(ta).numpy(),
+                                  words.numpy())
+    np.testing.assert_array_equal(
+        tpack.pack_payload(ta).numpy().view(np.uint32),
+        np.asarray(jpack.pack_payload(jnp.asarray(a))))
+    np.testing.assert_array_equal(
+        tpack.pack_cols(ta.T).numpy().view(np.uint32),
+        np.asarray(jpack.pack_cols(jnp.asarray(a.T))))
+    assert tpack.pack_cols(ta.T).is_contiguous()
+    np.testing.assert_array_equal(tpack.unpack_rows(words, k).numpy(), a)
+    np.testing.assert_array_equal(tpack.unpack_payload(words, k).numpy(), a)
+    assert tpack.packed_bits(17, k) == jpack.packed_bits(17, k) == \
+        words.numel() * 32
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("density", [0.02, 0.3])
+def test_bitpack_matmul_matches_pallas(shape, density):
+    """The plain bit-packed product (the CPU side of bitpack_matmul) ==
+    the JAX package's bitpack_bool_matmul driving its Pallas kernel."""
+    a, b = _bool_operands(shape, density, hash(shape) % 2**30)
+    want = np.asarray(jpack.bitpack_bool_matmul(jnp.asarray(a),
+                                                jnp.asarray(b)))
+    ta, tb = torch.tensor(a), torch.tensor(b)
+    got = tpack.bitpack_matmul(tpack.pack_rows(ta), tpack.pack_cols(tb),
+                               shape[1])
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tpack.bitpack_bool_matmul(ta, tb).numpy(),
+                                  want)
+
+
 def test_empty_contraction():
     """K = 0: or-and gives all-false, min-plus INF (min over nothing)."""
     a, b = np.zeros((5, 0), bool), np.zeros((0, 7), bool)
@@ -98,6 +146,11 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError):
         min_plus_matmul(torch.zeros(2, 3, dtype=torch.int32),
                         torch.zeros(2, 2, dtype=torch.int32))
+    words = torch.zeros(2, 1, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tpack.bitpack_matmul(words.bool(), words.T, 32)
+    with pytest.raises(ValueError):                 # 33 columns need 2 words
+        tpack.bitpack_matmul(words, words.T, 33)
     # neither the CPU nor a CUDA device: no kernel and no plain fallback
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -106,17 +159,23 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="cpu or cuda"):
         min_plus_matmul(torch.zeros(2, 2, dtype=torch.int32, device=meta),
                         torch.zeros(2, 2, dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tpack.bitpack_matmul(torch.zeros(2, 1, dtype=torch.int32, device=meta),
+                             torch.zeros(1, 2, dtype=torch.int32, device=meta),
+                             32)
 
 
 def test_cpu_path_launches_no_kernel():
     """A CPU tensor takes the plain version; the launch counters count
     kernel launches only."""
-    before = (bops.launches, tops.launches)
+    before = (bops.launches, tops.launches, pops.launches)
     or_and_matmul(torch.ones(3, 3, dtype=torch.bool),
                   torch.ones(3, 3, dtype=torch.bool))
     min_plus_matmul(torch.zeros(3, 3, dtype=torch.int32),
                     torch.zeros(3, 3, dtype=torch.int32))
-    assert (bops.launches, tops.launches) == before
+    tpack.bitpack_bool_matmul(torch.ones(3, 3, dtype=torch.bool),
+                              torch.ones(3, 3, dtype=torch.bool))
+    assert (bops.launches, tops.launches, pops.launches) == before
 
 
 def test_closures_match_pallas_closures():
