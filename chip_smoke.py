@@ -9,11 +9,15 @@ non-zero and prints no result line):
 1. build   — compile every CUDA kernel from ``src/repro_torch/kernels/*/
              csrc/*.cu`` with nvcc for sm_90a (one nvcc per source, all at
              once) into ``build/repro_torch/``; print the card's name and
-             power limit and the compiler's register report.
+             power limit, the compiler's register report and each
+             library's most frequent SASS opcodes; the or-and kernel's
+             SASS must hold a warpgroup MMA opcode (*GMMA).
 2. parity  — hold each kernel bit-equal to its plain PyTorch version on the
-             card over a sweep of shapes and densities (and K = 0); the
-             bit-packed product also against the or-and kernel, with
-             K = 31, 32, 33 and words whose bit 31 is set.
+             card over a sweep of shapes and densities (and K = 0), the
+             or-and kernel also through its K-major entry with C^T written
+             by the same launch; the bit-packed product also against the
+             or-and kernel, with K = 31, 32, 33 and words whose bit 31 is
+             set.
 3. main    — the query path at full size: an Erdos-Renyi graph of 16384
              nodes and 65536 edges over 8 labels, randomly cut into 16
              fragments; ``repro_torch.connect(fr)``, ``warm(with_dist=True)``,
@@ -22,7 +26,9 @@ non-zero and prints no result line):
              both kernels must have launched during the run.  The kernels
              are then held against their plain versions on the full
              closure squarings and batch composes of the real operands,
-             and timed at those shapes.
+             and timed at those shapes; the or-and squaring also beside
+             its operand preparation, the former route (pack + bit-packed
+             kernel) and two library calls (cuBLAS fp16, torch._int_mm).
 4. sharded — the same graph and queries through the sharded backend,
              ``connect(fr, backend="shard_map")`` on a one-rank NCCL group
              (d = 1, all 16 fragments packed on the card): one timed ``run``
@@ -126,8 +132,8 @@ def dpx_rate() -> float:
     return blocks * 256 * iters * 8 / (ms * 1e-3)
 
 
-def _sass_opcodes(lib: Path, top: int = 6) -> str:
-    """The most frequent SASS opcodes of a built library (cuobjdump)."""
+def _sass_opcodes(lib: Path):
+    """SASS opcode counts of a built library (cuobjdump), a Counter."""
     from collections import Counter
     from repro_torch.kernels import _build
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
@@ -142,6 +148,10 @@ def _sass_opcodes(lib: Path, top: int = 6) -> str:
                  if not w.startswith("@")]
         if words and not words[0].startswith("/*"):
             ops[words[0].rstrip(";").split(".")[0]] += 1
+    return ops
+
+
+def _top(ops, top: int = 6) -> str:
     return ", ".join(f"{op} {n}" for op, n in ops.most_common(top))
 
 
@@ -167,6 +177,7 @@ def _launches():
 # ---------------------------------------------------------------------------
 
 def phase_build() -> dict:
+    import ctypes
     import torch
     from repro_torch.kernels import _build
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -175,15 +186,32 @@ def phase_build() -> dict:
     paths = _build.build()
     print(f"build: {len(paths)} libraries in "
           f"{time.perf_counter() - t0:.1f} s -> {_build.BUILD_DIR}")
+    report = {}
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text()
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
-        print(f"  {name} SASS: {_sass_opcodes(path)}")
+        ptxas = [line.strip() for line in log.splitlines()
+                 if "registers" in line or "spill" in line]
+        for line in ptxas:
+            print(f"  {name}: {line}")
+        ops = _sass_opcodes(path)
+        print(f"  {name} SASS: {_top(ops)}")
+        report[name] = {"ptxas": ptxas,
+                        "gmma": {op: n for op, n in ops.items() if "GMMA" in op}}
+    # the or-and kernel runs on the tensor cores: its SASS must hold the
+    # warpgroup MMA (IGMMA for 8-bit integers on sm_90a)
+    gmma = report["or_and_matmul"]["gmma"]
+    if not gmma:
+        raise AssertionError("no warpgroup MMA opcode (*GMMA) in the or-and "
+                             "kernel's SASS")
+    smem_bytes = _build.library("or_and_matmul").or_and_matmul_smem_bytes
+    smem_bytes.argtypes, smem_bytes.restype = [], ctypes.c_int
+    smem = smem_bytes()
+    report["or_and_matmul"]["dynamic_smem_bytes"] = smem
+    print(f"  or_and_matmul warpgroup MMA opcodes {gmma}; {smem} bytes of "
+          "dynamic shared memory per block")
     card = _nvidia_smi("name,power.limit")
     print(f"card: {card}")
-    return {"card": card}
+    return {"card": card, "build": report}
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +238,9 @@ def _max_abs_err(got, want) -> float:
 
 def phase_parity() -> None:
     import torch
-    from repro_torch.kernels.bool_matmul import or_and_matmul, or_and_matmul_ref
+    from repro_torch.kernels.bool_matmul import (or_and_matmul,
+                                                 or_and_matmul_nt,
+                                                 or_and_matmul_ref)
     from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
                                                      min_plus_matmul_ref)
     dev = torch.device("cuda")
@@ -220,14 +250,19 @@ def phase_parity() -> None:
             rng = np.random.default_rng([SEED, si, int(density * 100)])
             a = torch.tensor(rng.random((m, k)) < density, device=dev)
             b = torch.tensor(rng.random((k, n_)) < density, device=dev)
+            want = or_and_matmul_ref(a, b)
             _check_equal(f"or_and {m}x{k}x{n_} d={density}",
-                         or_and_matmul(a, b), or_and_matmul_ref(a, b))
+                         or_and_matmul(a, b), want)
+            # the K-major entry with the dual-write epilogue: C and C^T
+            c, ct = or_and_matmul_nt(a, b.T, with_transpose=True)
+            _check_equal(f"or_and_nt {m}x{k}x{n_} d={density}", c, want)
+            _check_equal(f"or_and_nt C^T {m}x{k}x{n_} d={density}", ct, want.T)
             # strided operands: a transposed view and a column slice
             at = torch.tensor(rng.random((k, m)) < density, device=dev).T
             _check_equal(f"or_and strided {m}x{k}x{n_}",
                          or_and_matmul(at, b[:, ::2]),
                          or_and_matmul_ref(at, b[:, ::2]))
-            n += 2
+            n += 3
         rng = np.random.default_rng([SEED, si, 7])
         a = rng.integers(0, 50, (m, k)).astype(np.int32)
         b = rng.integers(0, 50, (k, n_)).astype(np.int32)
@@ -305,6 +340,27 @@ def _check_reach_dist(g, queries, results, n_check):
     return {k: min(len(v), n_check) for k, v in idx.items()}
 
 
+def _int_mm_ms(A, want):
+    """``torch._int_mm`` as a second yardstick for the or-and squaring:
+    int8 copies of A zero-padded to multiples of 8 (its shape rule), B
+    column-major (cuBLASLt's int8 layout), the int32 product thresholded
+    at > 0.  Returns (ms, None), or (None, the reason) when it refuses;
+    the result must equal ``want``."""
+    import torch
+    n = A.shape[0]
+    n8 = -(-n // 8) * 8
+    a8 = torch.zeros((n, n8), dtype=torch.int8, device=A.device)
+    a8[:, :n] = A
+    bt8 = torch.zeros((n8, n8), dtype=torch.int8, device=A.device)
+    bt8[:n, :n] = A.T
+    try:
+        ms, got = cuda_timed(lambda: torch._int_mm(a8, bt8.T) > 0, 3)
+    except RuntimeError as e:
+        return None, "refused: " + str(e).splitlines()[0]
+    _check_equal("torch._int_mm squaring", got[:, :n], want)
+    return ms, None
+
+
 def phase_main(out: dict):
     import torch
     import repro_torch
@@ -312,7 +368,12 @@ def phase_main(out: dict):
     from repro_torch.core.cache import _gather_boundary_matrix
     from repro_torch.core.fragments import fragment_graph
     from repro_torch.graph import erdos_renyi, random_partition
-    from repro_torch.kernels.bool_matmul import or_and_matmul, or_and_matmul_ref
+    from repro_torch.kernels.bitpack_ops import (bitpack_bool_matmul,
+                                                 bitpack_matmul, pack_cols,
+                                                 pack_rows)
+    from repro_torch.kernels.bool_matmul import (kmajor, kmajor_copy,
+                                                 or_and_matmul_nt,
+                                                 or_and_matmul_ref)
     from repro_torch.kernels.tropical_matmul import (min_plus_matmul,
                                                      min_plus_matmul_ref)
 
@@ -365,11 +426,14 @@ def phase_main(out: dict):
     # real operands: the first squaring of each closure, of D0 | I and of
     # W0 with its zero diagonal (a later squaring of a closed matrix would
     # give back its input), and the compose of one batch, [256, nb] x
-    # [nb, nb].  nb = 16039 = 125 * 128 + 39, so the last row and column
-    # tiles are ragged.  The plain min-plus squaring goes one [1, nb, nb]
-    # broadcast per row, so it is timed once, without warm-up.
+    # [nb, nb].  nb = 16039 = 62 * 256 + 167 = 125 * 128 + 39, so the last
+    # row and column tiles are ragged.  The or-and kernel runs as the
+    # closure and the compose call it: on K-major operands (the closure's
+    # copy C^T), the squaring writing C and C^T.  The plain min-plus
+    # squaring goes one [1, nb, nb] broadcast per row, so it is timed once,
+    # without warm-up.
     cache = fr.rvset_cache
-    C, Cd = cache.closure, cache.dist_closure
+    C, Ct, Cd = cache.closure, cache.closure_t, cache.dist_closure
     eye = torch.eye(nb, dtype=torch.bool, device="cuda")
     A0 = _gather_boundary_matrix(fr, cache.bl_frontier, cache.part_b) | eye
     W0 = torch.where(eye, 0, _gather_boundary_matrix(fr, cache.bl_dist,
@@ -379,12 +443,33 @@ def phase_main(out: dict):
     sb = torch.rand((N_PER_KIND, nb), device="cuda", generator=gen) < 0.01
     sbd = W0[torch.randint(0, nb, (N_PER_KIND,), device="cuda",
                            generator=gen)]
+    # operand preparation on its own: the closure's one transposition of
+    # D0 | I, a padded copy, and the compose's copy of a batch's sb
+    prep_ms = {}
+    prep_ms["transpose_a0"], A0t = cuda_timed(lambda: kmajor_copy(A0.T), 5)
+    prep_ms["copy_a0"], A0k = cuda_timed(lambda: kmajor_copy(A0), 5)
+    prep_ms["copy_sb"], _ = cuda_timed(lambda: kmajor(sb), 20)
     t_or_plain, want = cuda_timed(lambda: or_and_matmul_ref(A0, A0), 2)
-    t_or_sq, got = cuda_timed(lambda: or_and_matmul(A0, A0), 5)
+    t_or_sq, (got, got_t) = cuda_timed(
+        lambda: or_and_matmul_nt(A0k, A0t, with_transpose=True), 5)
     _check_equal("or_and squaring", got, want)
+    _check_equal("or_and squaring C^T", got_t, want.T)
     err_or = _max_abs_err(got, want)
+    del got_t
+    t_or_sq_c, got = cuda_timed(lambda: or_and_matmul_nt(A0k, A0t), 5)
+    _check_equal("or_and squaring, C only", got, want)
+    # the former or-and route on the same A0 as a yardstick: pack both
+    # operands into words, then the bit-packed kernel
+    t_or_old, got = cuda_timed(lambda: bitpack_bool_matmul(A0, A0), 5)
+    _check_equal("pack + bitpack_matmul squaring", got, want)
+    ap, bp = pack_rows(A0), pack_cols(A0)
+    t_or_old_b3, got = cuda_timed(lambda: bitpack_matmul(ap, bp, nb), 5)
+    _check_equal("bitpack_matmul squaring on packed words", got, want)
+    del ap, bp, A0k
+    t_int_mm, int_mm_note = _int_mm_ms(A0, want)
+    del got
     t_or_cp_plain, want = cuda_timed(lambda: or_and_matmul_ref(sb, C), 5)
-    t_or_cp, got = cuda_timed(lambda: or_and_matmul(sb, C), 20)
+    t_or_cp, got = cuda_timed(lambda: or_and_matmul_nt(sb, Ct), 20)
     _check_equal("or_and compose", got, want)
     err_or = max(err_or, _max_abs_err(got, want))
     del got, want
@@ -418,11 +503,16 @@ def phase_main(out: dict):
     b_mp, by_mp = _bound(nb ** 3, dpx_per_s, 3 * 4 * nb * nb)
     b_mp_cp, _ = _bound(N_PER_KIND * nb * nb, dpx_per_s,
                         4 * (nb * nb + 2 * N_PER_KIND * nb))
-    print(f"time or_and_matmul: squaring [{nb}]^2 {t_or_sq:.3f} ms "
-          f"(bound {b_or:.3f} ms, {by_or}), plain {t_or_plain:.3f} ms, "
-          f"cuBLAS fp16 {t_or_lib:.3f} ms; compose [{N_PER_KIND},{nb}]x"
-          f"[{nb},{nb}] {t_or_cp:.3f} ms (bound {b_or_cp:.3f} ms), plain "
-          f"{t_or_cp_plain:.3f} ms")
+    print(f"time or_and_matmul: squaring [{nb}]^2 writing C and C^T "
+          f"{t_or_sq:.3f} ms ({100 * b_or / t_or_sq:.1f} % of the bound "
+          f"{b_or:.3f} ms, {by_or}), C only {t_or_sq_c:.3f} ms, plain "
+          f"{t_or_plain:.3f} ms, cuBLAS fp16 {t_or_lib:.3f} ms, torch._int_mm "
+          f"{int_mm_note if t_int_mm is None else f'{t_int_mm:.3f} ms'}; "
+          f"old route (pack + bitpack_matmul) {t_or_old:.3f} ms, of which "
+          f"bitpack_matmul {t_or_old_b3:.3f} ms; compose [{N_PER_KIND},{nb}]x"
+          f"[{nb},{nb}] through C^T {t_or_cp:.3f} ms (bound {b_or_cp:.3f} ms),"
+          f" plain {t_or_cp_plain:.3f} ms; operand preparation (ms) "
+          f"{prep_ms}")
     print(f"time min_plus_matmul: squaring [{nb}]^2 {t_mp_sq:.3f} ms "
           f"(bound {b_mp:.3f} ms, {by_mp}, at the measured DPX rate), plain "
           f"{t_mp_plain:.3f} ms; compose [{N_PER_KIND},{nb}]x[{nb},{nb}] "
@@ -435,10 +525,14 @@ def phase_main(out: dict):
          "launches": launches["or_and_matmul"], "max_abs_err": err_or,
          "ms": t_or_sq, "plain_ms": t_or_plain, "bound_ms": b_or,
          "bound_by": by_or, "library_ms": t_or_lib,
-         "shape": f"[{nb},{nb}]x[{nb},{nb}]",
+         "shape": f"[{nb},{nb}]x[{nb},{nb}], C and C^T",
+         "c_only_ms": t_or_sq_c, "int_mm_ms": t_int_mm,
+         "int_mm_note": int_mm_note, "old_route_ms": t_or_old,
+         "old_route_bitpack_ms": t_or_old_b3, "prep_ms": prep_ms,
          "compose_ms": t_or_cp, "compose_plain_ms": t_or_cp_plain,
          "compose_bound_ms": b_or_cp,
-         "squarings": squarings["or_and_matmul"]},
+         "squarings": squarings["or_and_matmul"],
+         **out["build"]["or_and_matmul"]},
         {"name": "min_plus_matmul", "route": "cuda",
          "source": ("src/repro_torch/kernels/tropical_matmul/csrc/"
                     "min_plus_matmul.cu"),

@@ -8,10 +8,11 @@ squaring changes nothing (one host sync per squaring).
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
-from ..kernels.bool_matmul.ops import or_and_matmul
+from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
 from ..kernels.tropical_matmul.ops import min_plus_matmul
 
 
@@ -20,23 +21,35 @@ def _ceil_log2(b: int) -> int:
 
 
 def bool_closure(D: torch.Tensor) -> torch.Tensor:
-    """Reflexive-transitive closure of a Boolean matrix [B, B].
+    """Reflexive-transitive closure of a Boolean matrix [B, B]: the first
+    of :func:`bool_closure_kmajor`'s pair."""
+    return bool_closure_kmajor(D)[0]
+
+
+def bool_closure_kmajor(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reflexive-transitive closure C of a Boolean matrix [B, B] and its
+    K-major copy C^T, the form in which the or-and kernel takes a right
+    operand (``or_and_matmul_nt``): a caller composing through C keeps both.
 
     A := A@A over A = D | I, while a squaring changes A and at most
     ceil(log2 B) times: squaring doubles the covered path length, so the
     fixpoint comes after ceil(log2 diam) rounds (worst case diam == B).
-    A holds I, so A@A holds A and equals the reference's A | A@A.
+    A holds I, so A@A holds A and equals the reference's A | A@A.  Each
+    squaring takes (A, A^T) and writes (A@A, (A@A)^T) in one launch, so
+    only the first A is transposed.
     """
     B = D.shape[-1]
-    A = D | torch.eye(B, dtype=torch.bool, device=D.device)
+    A = kmajor_copy(D)
+    A.diagonal().fill_(True)
+    At = kmajor_copy(A.T)
     if B == 0:
-        return A
+        return A, At
     for _ in range(_ceil_log2(B)):
-        A2 = or_and_matmul(A, A)
+        A2, A2t = or_and_matmul_nt(A, At, with_transpose=True)
         if torch.equal(A2, A):
             break
-        A = A2
-    return A
+        A, At = A2, A2t
+    return A, At
 
 
 def tropical_closure(W: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,8 @@ against the *same* fragmentation, and localEval splits cleanly:
 * **query-independent phase** (once per Fragmentation): every fragment's
   all-sources local fixpoint, assembled into the boundary-to-boundary
   dependency matrix ``D0 [|V_f|, |V_f|]`` and closed by repeated squaring
-  (``bes.bool_closure`` / ``tropical_closure``: the or-and and min-plus
-  kernels);
+  (``bes.bool_closure_kmajor`` / ``tropical_closure``: the or-and and
+  min-plus kernels);
 * **per-query phase** (cheap): one single-source propagation from ``s`` in
   its own fragment, a gather of the ``t``-column out of the cached
   frontiers, and one semiring vector-matrix product through the closure.
@@ -22,6 +22,11 @@ the reflexive-transitive closure of D0, and ``tc[v]`` = in-node v locally
 reaches t.  The tropical and product-automaton variants replace (OR, AND)
 with (min, +) and the state-expanded matrix respectively.
 
+Every Boolean closure is kept beside its K-major copy (its transpose,
+rows 16-byte aligned), the form in which the or-and kernel takes the right
+operand of the compose: ``closure_t`` and ``rpq_closures_t``.  That costs
+one more ``side^2`` bytes per closure and saves a transpose per batch.
+
 Every device tensor lives on the cache's ``device``.  Uploads copy
 (``torch.tensor``), never alias a host buffer.
 """
@@ -33,7 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.bool_matmul.ops import or_and_matmul
+from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
 from ..kernels.tropical_matmul.ops import min_plus_matmul
 from . import bes, engine
 from .automaton import QueryAutomaton
@@ -58,11 +63,14 @@ class RvsetCache:
     arrays: Dict[str, torch.Tensor]   # fr.arrays uploaded once to device
     bl_frontier: torch.Tensor         # [nb, n_max+1] bool, in-node -> slot
     closure: torch.Tensor             # [nb, nb] bool, reflexive-transitive
+    closure_t: torch.Tensor           # [nb, nb] bool, closure.T, K-major
     part_b: np.ndarray                # [nb] owning fragment of boundary node
     bl_dist: Optional[torch.Tensor] = None       # [nb, n_max+1] int32
     dist_closure: Optional[torch.Tensor] = None  # [nb, nb] int32, diag 0
     rpq_closures: Dict[Tuple, torch.Tensor] = dataclasses.field(
         default_factory=dict)         # automaton key -> [(nb*Q), (nb*Q)]
+    rpq_closures_t: Dict[Tuple, torch.Tensor] = dataclasses.field(
+        default_factory=dict)         # the same keys -> K-major copies
     version: int = 0                  # snapshot id stamped on results
 
     @property
@@ -131,9 +139,10 @@ def prepare_rvset_cache(fr: Fragmentation, device,
         front = engine.local_frontier_reach(
             arrs["esrc"], arrs["edst"], arrs["src_local"], n_max=fr.n_max)
         bl = _boundary_rows(fr, front, 0, "amax")            # [nb, n+1]
-        C = bes.bool_closure(_gather_boundary_matrix(fr, bl, part_b))
+        C, Ct = bes.bool_closure_kmajor(
+            _gather_boundary_matrix(fr, bl, part_b))
         cache = RvsetCache(fr=fr, device=device, arrays=arrs, bl_frontier=bl,
-                           closure=C, part_b=part_b)
+                           closure=C, closure_t=Ct, part_b=part_b)
         fr.rvset_cache = cache
     if with_dist and cache.bl_dist is None:
         arrs = cache.arrays
@@ -159,13 +168,15 @@ def load_rvset_state(fr: Fragmentation, arrays: Dict[str, np.ndarray],
                      device) -> RvsetCache:
     """Attach a cache built elsewhere: ``arrays`` holds ``bl_frontier`` and
     ``closure`` and, optionally, ``bl_dist`` and ``dist_closure`` as numpy
-    arrays.  Every array is copied onto ``device``."""
+    arrays.  Every array is copied onto ``device``; the closure's K-major
+    copy is made there."""
     device = torch.device(device)
     dist = arrays.get("bl_dist")
+    closure = _upload(arrays["closure"], device)
     cache = RvsetCache(
         fr=fr, device=device, arrays=_upload_arrays(fr, device),
         bl_frontier=_upload(arrays["bl_frontier"], device),
-        closure=_upload(arrays["closure"], device),
+        closure=closure, closure_t=kmajor_copy(closure.T),
         part_b=fr.boundary_owner(),
         bl_dist=None if dist is None else _upload(dist, device),
         dist_closure=(None if dist is None
@@ -178,15 +189,17 @@ def load_rvset_state(fr: Fragmentation, arrays: Dict[str, np.ndarray],
 # combine stage: compose the per-query phase through a closure
 # ---------------------------------------------------------------------------
 
-def combine_bool(direct, sb, tc, C):
-    """``ans = direct | OR_u (sb (or-and) C)[u] & tc[u]``.
+def combine_bool(direct, sb, tc, Ct):
+    """``ans = direct | OR_u (sb (or-and) C)[u] & tc[u]``, composed through
+    the closure's K-major copy ``Ct = C^T``.
 
-    ``sb``/``tc`` [N, side], ``C`` [side, side] with ``side = nb`` for plain
-    reachability or ``nb * |Q|`` for the product-automaton (RPQ) case.
+    ``sb``/``tc`` [N, side], ``Ct`` [side, side] with ``side = nb`` for
+    plain reachability or ``nb * |Q|`` for the product-automaton (RPQ)
+    case.
     """
-    if C.shape[0] == 0:
+    if Ct.shape[0] == 0:
         return direct
-    sbc = or_and_matmul(sb, C)                             # [N, side]
+    sbc = or_and_matmul_nt(sb, Ct)                         # [N, side]
     return direct | (sbc & tc).any(dim=1)
 
 
@@ -407,7 +420,7 @@ def dis_reach_batch(fr: Fragmentation, pairs, device) -> np.ndarray:
     direct, sb = _per_query(fr, cache, frag_s, s_slot, t_slot_sfrag,
                             engine.single_source_reach)
     tc = _t_column(cache.bl_frontier, t_cols)
-    return combine_bool(direct, sb, tc, cache.closure).cpu().numpy()
+    return combine_bool(direct, sb, tc, cache.closure_t).cpu().numpy()
 
 
 def dis_dist_batch(fr: Fragmentation, pairs, device,
@@ -437,7 +450,15 @@ def dis_dist_batch(fr: Fragmentation, pairs, device,
 
 def product_closure(fr: Fragmentation, qa: QueryAutomaton,
                     device) -> torch.Tensor:
-    """Query-independent product-automaton closure [(nb*Q), (nb*Q)].
+    """Query-independent product-automaton closure [(nb*Q), (nb*Q)]: the
+    first of :func:`product_closure_kmajor`'s pair."""
+    return product_closure_kmajor(fr, qa, device)[0]
+
+
+def product_closure_kmajor(fr: Fragmentation, qa: QueryAutomaton, device
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Query-independent product-automaton closure [(nb*Q), (nb*Q)] and
+    its K-major copy, kept together in the cache's LRU.
 
     Sound because the Glushkov automaton's u_s has no incoming and u_t no
     outgoing transitions: neither s-only nor t-only states can occur
@@ -446,13 +467,12 @@ def product_closure(fr: Fragmentation, qa: QueryAutomaton,
     """
     cache = get_rvset_cache(fr, device)
     key = qa.cache_key()
-    C = cache.rpq_closures.get(key)
-    if C is not None:
+    if key in cache.rpq_closures:
         # true LRU: a hit moves the key back to the MRU end of the (insert-
-        # ordered) dict, so a hot automaton is never FIFO-evicted by churn
-        cache.rpq_closures.pop(key)
-        cache.rpq_closures[key] = C
-        return C
+        # ordered) dicts, so a hot automaton is never FIFO-evicted by churn
+        pair = cache.rpq_closures.pop(key), cache.rpq_closures_t.pop(key)
+        cache.rpq_closures[key], cache.rpq_closures_t[key] = pair
+        return pair
     arrs = cache.arrays
     dev = cache.device
     k, n_max, B, Q = fr.k, fr.n_max, fr.B, qa.n_states
@@ -464,21 +484,24 @@ def product_closure(fr: Fragmentation, qa: QueryAutomaton,
         no_slot, no_slot, NO_NODE, NO_NODE, n_max=n_max, B=B)
     nb = fr.n_boundary
     D = D.reshape(B, Q, B, Q)[:nb, :, :nb, :].reshape(nb * Q, nb * Q)
-    C = bes.bool_closure(D)
+    C, Ct = bes.bool_closure_kmajor(D)
     # bound the per-automaton cache; dict order is recency order, so the
     # first key is the least recently used one
     while len(cache.rpq_closures) >= MAX_RPQ_CLOSURES:
-        cache.rpq_closures.pop(next(iter(cache.rpq_closures)))
+        lru = next(iter(cache.rpq_closures))
+        del cache.rpq_closures[lru], cache.rpq_closures_t[lru]
     cache.rpq_closures[key] = C
-    return C
+    cache.rpq_closures_t[key] = Ct
+    return C, Ct
 
 
-def _batch_rpq(fr, cache, qa, C, pairs):
+def _batch_rpq(fr, cache, qa, Ct, pairs):
     """N pairs -> N answers for ONE automaton against its cached product
-    closure: per pair one forward product propagation from (s, u_s) on s's
-    fragment and k reverse product propagations to (t, u_t) (one per
-    fragment — the t-column); then ONE or-and product
-    [N, nb*Q] x [(nb*Q), (nb*Q)] composes them through the closure."""
+    closure, given as its K-major copy ``Ct``: per pair one forward
+    product propagation from (s, u_s) on s's fragment and k reverse product
+    propagations to (t, u_t) (one per fragment — the t-column); then ONE
+    or-and product [N, nb*Q] x [(nb*Q), (nb*Q)] composes them through the
+    closure."""
     dev = cache.device
     arrs = cache.arrays
     k, n_max, Q, nb = fr.k, fr.n_max, qa.n_states, cache.nb
@@ -520,7 +543,7 @@ def _batch_rpq(fr, cache, qa, C, pairs):
     local_b = torch.tensor(fr.boundary_local(), dtype=torch.long, device=dev)
     tc = rev[:, part_b, local_b, :]                        # [N, nb, Q]
     return combine_bool(direct, sb.reshape(N, nb * Q),
-                        tc.reshape(N, nb * Q), C)
+                        tc.reshape(N, nb * Q), Ct)
 
 
 def dis_rpq_batch(fr: Fragmentation, pairs, qa: QueryAutomaton,
@@ -530,8 +553,8 @@ def dis_rpq_batch(fr: Fragmentation, pairs, qa: QueryAutomaton,
     pairs = _as_pairs(pairs)
     if len(pairs) == 0:
         return np.zeros(0, dtype=bool)
-    C = product_closure(fr, qa, device)
+    _, Ct = product_closure_kmajor(fr, qa, device)
     cache = get_rvset_cache(fr, device)
-    ans = _batch_rpq(fr, cache, qa, C, pairs).cpu().numpy().copy()
+    ans = _batch_rpq(fr, cache, qa, Ct, pairs).cpu().numpy().copy()
     ans[pairs[:, 0] == pairs[:, 1]] = bool(qa.nullable)  # s == t is |R|-free
     return ans

@@ -44,7 +44,7 @@ import torch.distributed as dist
 from . import cache as _cache
 from ..kernels.bitpack_ops.ops import pack_payload, unpack_payload
 from .automaton import QueryAutomaton
-from .bes import bool_closure, tropical_closure
+from .bes import bool_closure_kmajor, tropical_closure
 from .engine import INF
 from .fragments import Fragmentation, Placement
 
@@ -210,9 +210,9 @@ def _batch_reach(esrc, edst, src_local, tgt_local, s_slot, t_slot, srcidx,
         _all_reduce(pack_payload(payload), dist.ReduceOp.SUM, group), nb + 1)
     d0_m, sb_m, direct_m, tc_m = _split_merged(merged, nb, N)
     mark("closure")
-    C = bool_closure(d0_m)
+    _, Ct = bool_closure_kmajor(d0_m)
     mark("combine")
-    ans = _cache.combine_bool(direct_m, sb_m, tc_m, C)
+    ans = _cache.combine_bool(direct_m, sb_m, tc_m, Ct)
     mark("end")
     return ans
 
@@ -268,9 +268,9 @@ def _batch_rpq(esrc, edst, src_local, src_row, tgt_local, labels, gids,
         side + 1)
     d0_m, sb_m, direct_m, tc_m = _split_merged(merged, side, N)
     mark("closure")
-    C = bool_closure(d0_m)
+    _, Ct = bool_closure_kmajor(d0_m)
     mark("combine")
-    ans = _cache.combine_bool(direct_m, sb_m, tc_m, C)
+    ans = _cache.combine_bool(direct_m, sb_m, tc_m, Ct)
     mark("end")
     return ans
 

@@ -1,4 +1,7 @@
-from .ops import or_and_matmul
-from .ref import or_and_matmul_ref
+from .ops import (ALIGN, is_kmajor, kmajor, kmajor_copy, or_and_matmul,
+                  or_and_matmul_nt, padded, pitch)
+from .ref import or_and_matmul_nt_ref, or_and_matmul_ref
 
-__all__ = ["or_and_matmul", "or_and_matmul_ref"]
+__all__ = ["ALIGN", "is_kmajor", "kmajor", "kmajor_copy", "or_and_matmul",
+           "or_and_matmul_nt", "or_and_matmul_nt_ref", "or_and_matmul_ref",
+           "padded", "pitch"]

@@ -1,6 +1,5 @@
-// Contraction body shared by the or-and kernels for Hopper (sm_90a):
-// or_and_matmul.cu (bool operands, packed by its own passes first) and
-// bitpack_ops/csrc/bitpack_matmul.cu (operands that arrive packed).
+// Contraction body of the bit-packed or-and kernel for Hopper (sm_90a),
+// bitpack_ops/csrc/bitpack_matmul.cu, its only user.
 //
 //   C[i, j] = (OR_w ap[i, w] AND bp[w, j]) != 0
 //
