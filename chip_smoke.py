@@ -22,7 +22,7 @@ non-zero and prints no result line):
              nodes and 65536 edges over 8 labels, randomly cut into 16
              fragments; ``repro_torch.connect(fr)``, ``warm(with_dist=True)``,
              then one ``run`` of 256 Reach + 256 Dist (half bounded at 6).
-             64 sampled answers per kind are checked against a host BFS, and
+             Every answer is checked against a host BFS (scipy), and
              both kernels must have launched during the run.  The kernels
              are then held against their plain versions on the full
              closure squarings and batch composes of the real operands,
@@ -38,14 +38,36 @@ non-zero and prints no result line):
              time split into local stage, collective, closure and combine.
              The bit-packed kernel is held against its plain version and
              the or-and kernel on ``D0 | I`` taken from the merged wire.
-5. rpq     — regular path queries at a reduced size (2048 nodes, 8
+5. oneshot — the paper's one-shot algorithms on the same graph,
+             ``connect(fr, cache="none")``: 16 Reach and 16 Dist (8 bounded)
+             checked against the host BFS and 4 Rpq ``(0|1)* 2`` (D is a
+             6.4 GB matrix) against a product-graph BFS, both kernels
+             launched; one query of each kind split into local stage, D^T
+             copy and evalDG steps; ``dis_reach_sharded`` and
+             ``dis_rpq_sharded`` on the NCCL group, one collective of
+             ``traffic_bits`` bits each; both kernels held against their
+             plain versions at evalDG's vector-matrix shape, M = 1.
+6. dynamic — graph deltas at full size through ``session.apply`` on a warm
+             amortized session (reserves 64 boundary slots, 256 edges and
+             64 stubs): a stream that reaches repair, repair with new
+             boundary nodes, recompute (wide inserts, then deletions) and
+             rebuild, each delta followed by 256 queries checked against
+             the host BFS on the updated graph and a freshly built
+             session; one delta made to fail inside the repair must roll
+             back with versions, tensors and answers unchanged.  Both
+             kernels are held against their plain versions at the rank
+             update's shapes, on the operands the repair gave them.
+7. rpq     — regular path queries at a reduced size (2048 nodes, 8
              fragments), through the vmap session and then the sharded
              one: the product closure has side nb * |Q|, which at full size
              is a 6.4 GB matrix whose squaring would outlast a smoke run.
              Answers are checked against a host product-graph BFS.
 
 The second-to-last line of output is a JSON object with one entry per
-kernel; the last is ``{"ok": true, "device": {...}}``.  Times come from
+kernel, with its launches on each path (``launches`` on the main path,
+``oneshot_launches``, ``dynamic_launches`` by mode, ...) and its new
+launch shapes (``new_shapes``); the last is ``{"ok": true, "device":
+{...}}``.  Times come from
 CUDA events after a warm-up; bounds are reckoned from the H100 SXM data
 sheet (3.35 TB/s, 1979 TOPS int8, 64 int32 operations per clock per SM
 at the card's maximum SM clock) and, for the SIMT min-plus, from the DPX
@@ -314,30 +336,39 @@ def _parity_bitpack(dev) -> int:
 # ---------------------------------------------------------------------------
 
 N_NODES, N_EDGES, N_LABELS, N_FRAGS = 16384, 65536, 8, 16
-N_PER_KIND, N_CHECK = 256, 64
+N_PER_KIND = 256
 
 
-def _check_reach_dist(g, queries, results, n_check):
-    from repro_torch import Dist, Reach
-    from repro_torch.graph import bfs_distances, bfs_reachable
-    idx = {"reach": [i for i, q in enumerate(queries) if isinstance(q, Reach)],
-           "dist": [i for i, q in enumerate(queries) if isinstance(q, Dist)]}
-    for kind, ids in idx.items():
-        for i in ids[:n_check]:
-            q, r = queries[i], results[i]
-            if kind == "reach":
-                want = bool(bfs_reachable(g, q.s)[q.t])
-                if r.answer != want:
-                    raise AssertionError(f"{q}: got {r.answer}, BFS {want}")
-            else:
-                d = int(bfs_distances(g, q.s)[q.t])
-                dist = None if d < 0 else d
-                want = dist is not None and (q.bound is None or dist <= q.bound)
-                want_d = dist if want else None
-                if (r.answer, r.distance) != (want, want_d):
-                    raise AssertionError(f"{q}: got {(r.answer, r.distance)},"
-                                         f" BFS {(want, want_d)}")
-    return {k: min(len(v), n_check) for k, v in idx.items()}
+def _bfs_distances(g, sources) -> dict:
+    """Host BFS from every distinct source at once (scipy's csgraph, unit
+    weights): {s: [n] int64 hop distances, -1 where unreachable}."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+    adj = csr_matrix((np.ones(g.m, dtype=np.float32), (g.src, g.dst)),
+                     shape=(g.n, g.n))
+    srcs = np.unique(np.asarray(sources, dtype=np.int64))
+    d = shortest_path(adj, method="D", unweighted=True, indices=srcs)
+    d = np.where(np.isinf(d), -1, d).astype(np.int64)
+    return dict(zip(srcs.tolist(), d))
+
+
+def _check_reach_dist(g, queries, results, what: str = "main") -> dict:
+    """Every Reach / Dist answer (and distance) against the host BFS;
+    returns the number checked per kind."""
+    from repro_torch import Reach
+    table = _bfs_distances(g, [q.s for q in queries])
+    for q, r in zip(queries, results):
+        d = int(table[q.s][q.t])
+        if isinstance(q, Reach):
+            want = (d >= 0, None) if q.s != q.t else (True, 0)
+            got = (r.answer, r.distance if q.s == q.t else None)
+        else:
+            ok = d >= 0 and (q.bound is None or d <= q.bound)
+            want, got = (ok, d if ok else None), (r.answer, r.distance)
+        if got != want:
+            raise AssertionError(f"{what}: {q}: got {got}, BFS {want}")
+    reach = sum(isinstance(q, Reach) for q in queries)
+    return {"reach": reach, "dist": len(queries) - reach}
 
 
 def _int_mm_ms(A, want):
@@ -405,7 +436,7 @@ def phase_main(out: dict):
     for name in ("or_and_matmul", "min_plus_matmul"):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
-    checked = _check_reach_dist(g, queries, results, N_CHECK)
+    checked = _check_reach_dist(g, queries, results)
     print(f"main: cache build (warm, reach + dist) {warm_ms:.1f} ms; "
           f"closure squarings or-and {squarings['or_and_matmul']}, "
           f"min-plus {squarings['min_plus_matmul']}")
@@ -664,7 +695,7 @@ def phase_sharded(out: dict, g, fr, queries, vmap_results) -> None:
         if got != [(x.answer, x.distance) for x in vmap_results[part]]:
             raise AssertionError(f"sharded {kind} answers differ from the "
                                  "vmap session's")
-        checked = _check_reach_dist(g, qs, r["results"], N_CHECK)
+        checked = _check_reach_dist(g, qs, r["results"], f"sharded {kind}")
         launches[kind] = r["launches"]
         report[kind] = {k: r[k] for k in ("run_ms", "collectives",
                                            "payload_bits", "launches")}
@@ -725,7 +756,593 @@ def phase_sharded(out: dict, g, fr, queries, vmap_results) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 5. regular path queries at reduced size
+# helpers of the one-shot and dynamic phases
+# ---------------------------------------------------------------------------
+
+def _mixed_queries(n, rng, count):
+    """``count`` Reach and Dist queries (every second Dist bounded at 6)."""
+    from repro_torch import Dist, Reach
+    pairs = rng.integers(0, n, size=(count, 2))
+    return [Reach(int(s), int(t)) if i % 2 == 0 else
+            Dist(int(s), int(t), bound=6 if i % 4 == 1 else None)
+            for i, (s, t) in enumerate(pairs)]
+
+
+def _mm_bound(m, k, n, kind, dpx_per_s, transpose=False):
+    """(ms, bound_by) of one [m, k] x [k, n] product: or-and ("or_and",
+    2mkn int8 tensor-core operations on 1-byte operands, C^T too when
+    ``transpose``) or min-plus ("min_plus", mkn DPX operations on int32)."""
+    if kind == "or_and":
+        return _bound(2 * m * k * n, INT8_TENSOR_OPS_PER_S,
+                      m * k + k * n + m * n * (2 if transpose else 1))
+    return _bound(m * k * n, dpx_per_s, 4 * (m * k + k * n + m * n))
+
+
+def _time_shape(name, kind, run, plain, library, m, k, n, dpx_per_s,
+                transpose=False, reps=20) -> dict:
+    """One launch shape of a kernel: its time on the given operands beside
+    its plain version's (bit-equal), its bound and a library call's."""
+    ms, got = cuda_timed(run, reps)
+    plain_ms, want = cuda_timed(plain, 1, warmup=False)
+    got_c = got[0] if transpose else got
+    _check_equal(name, got_c, want)
+    if transpose:
+        _check_equal(name + " C^T", got[1], want.T)
+    del got, want
+    lib_ms = None if library is None else cuda_timed(library, 3)[0]
+    bound_ms, by = _mm_bound(m, k, n, kind, dpx_per_s, transpose)
+    print(f"time {name} [{m},{k}]x[{k},{n}]: {ms:.4f} ms (bound "
+          f"{bound_ms:.4f} ms, {by}, {100 * bound_ms / ms:.1f} %), plain "
+          f"{plain_ms:.3f} ms, library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    return {"shape": f"[{m},{k}]x[{k},{n}]" + (", C and C^T" if transpose
+                                                else ""),
+            "path": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms, "max_abs_err": 0.0}
+
+
+# ---------------------------------------------------------------------------
+# 5. the one-shot algorithms at full size
+# ---------------------------------------------------------------------------
+
+N_ONESHOT, N_ONESHOT_RPQ = 32, 4
+ONESHOT_REGEX = "(0|1)* 2"
+
+
+def _split_one_shot(fr, s, t, kind, qa=None):
+    """One one-shot query taken apart as ``session.exec_*`` runs it, with
+    CUDA events around its stages: the local stage (localEval on every
+    fragment and the assembly of D), the K-major copy of D (Boolean kinds)
+    and the evalDG steps (counted by the kernel's launches).  Returns the
+    split, the answer and the operands of one evalDG step."""
+    import torch
+    from repro_torch.core import engine, session as S
+    from repro_torch.kernels.bool_matmul import kmajor_copy
+    from repro_torch.kernels.bool_matmul import ops as bops
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    clock = _PhaseClock()
+    clock("local")
+    arrs, s_local, t_local = S._query_inputs(fr, s, t, dev)
+    a = [arrs[name] for name in ("esrc", "edst", "src_local", "src_row",
+                                 "tgt_local")]
+    Q, start, final = 1, 0, 0
+    if kind == "reach":
+        rows, block = engine.local_eval_reach(*a, s_local, t_local,
+                                              n_max=fr.n_max, B=fr.B)
+        D = torch.zeros((fr.B, fr.B), dtype=torch.bool, device=dev)
+        D[rows] = block
+        del block
+    elif kind == "dist":
+        rows, block = engine.local_eval_dist(*a, s_local, t_local,
+                                             n_max=fr.n_max, B=fr.B)
+        D = torch.full((fr.B, fr.B), engine.INF, dtype=torch.int32,
+                       device=dev)
+        D[rows] = block
+        del block
+    else:
+        Q, start, final = qa.n_states, qa.start, qa.final
+        D = engine.regular_rvset(
+            *a, arrs["labels"], arrs["gids"],
+            torch.tensor(qa.state_labels, device=dev),
+            torch.tensor(qa.trans, device=dev), s_local, t_local, s, t,
+            n_max=fr.n_max, B=fr.B, side=fr.B * Q)
+    src = S._src_rows(fr, dev, Q, start)
+    tgt = S._tgt_cols(fr, t, dev, Q, final)
+    Dt = None
+    if kind != "dist":
+        clock("kmajor_copy")
+        Dt = kmajor_copy(D.T)
+    clock("evaldg")
+    counter = tops if kind == "dist" else bops
+    before = counter.launches
+    if kind == "dist":
+        ans = engine.evaldg_dist(D, src, tgt)
+    else:
+        ans = engine.evaldg_reach(D, src, tgt, Dt=Dt)
+    steps = counter.launches - before
+    clock("end")
+    split = clock.ms()
+    split["steps"] = steps
+    split["ms_per_step"] = split["evaldg"] / max(steps, 1)
+    return split, ans, D, Dt, src
+
+
+def _rpq_targets(g, s: int, qa) -> np.ndarray:
+    """[n] bool: every t that (s, t) answers True for the automaton ``qa``,
+    from one product-graph BFS in which the t-only state matches every
+    node (it has no outgoing transition, so no path goes on from it)."""
+    lq = qa.state_labels
+    nodes = np.arange(g.n)
+    match = ((lq[None, :] >= 0) & (g.labels[:, None] == lq[None, :])) \
+        | (lq[None, :] == -3) | (lq[None, :] == -2) \
+        | ((lq[None, :] == -1) & (nodes[:, None] == s))
+    trans = qa.trans.astype(np.int64)
+    seen = np.zeros((g.n, qa.n_states), dtype=bool)
+    seen[s, qa.start] = match[s, qa.start]
+    frontier = seen.copy()
+    while frontier.any():
+        adv = (frontier.astype(np.int64) @ trans) > 0
+        nxt = np.zeros_like(seen)
+        rows, qs = np.nonzero(adv[g.src])
+        nxt[g.dst[rows], qs] = True
+        nxt &= match
+        frontier = nxt & ~seen
+        seen |= nxt
+    hit = seen[:, qa.final].copy()
+    hit[s] = False
+    return hit
+
+
+def _rpq_pairs(g, qa, rng, count: int) -> np.ndarray:
+    """``count`` (s, t) pairs, every second one a pair that the automaton
+    accepts (found by :func:`_rpq_targets` from seeded sources), the
+    others drawn at random, so that the answers are not all False."""
+    pairs = rng.integers(0, g.n, size=(count, 2))
+    for i in range(0, count, 2):
+        for s in rng.integers(0, g.n, size=64):
+            hit = np.nonzero(_rpq_targets(g, int(s), qa))[0]
+            if hit.size:
+                pairs[i] = (s, rng.choice(hit))
+                break
+    return pairs
+
+
+def phase_oneshot(out: dict, g, fr) -> None:
+    """``connect(fr, cache="none")`` at full size: 16 Reach and 16 Dist (8
+    bounded) and 4 Rpq, each a one-shot evaluation, checked against the
+    host BFS; the per-query split; the two single-query sharded functions
+    on the one-rank NCCL group; and the new launch shapes of both kernels,
+    M = 1, held against their plain versions."""
+    import torch
+    import repro_torch
+    from repro_torch import Rpq
+    from repro_torch.core import distributed as Dd
+    from repro_torch.kernels.bool_matmul import (or_and_matmul_nt,
+                                                 or_and_matmul_ref)
+    from repro_torch.kernels.tropical_matmul import (min_plus_matmul,
+                                                     min_plus_matmul_ref)
+
+    rng = np.random.default_rng(SEED + 2)
+    from repro_torch import Dist, Reach
+    pairs = rng.integers(0, g.n, size=(N_ONESHOT, 2))
+    half = N_ONESHOT // 2
+    queries = [Reach(int(s), int(t)) for s, t in pairs[:half]]
+    queries += [Dist(int(s), int(t), bound=6 if i % 2 else None)
+                for i, (s, t) in enumerate(pairs[half:])]
+    sess = repro_torch.connect(fr, cache="none")
+    sess.run(queries[:1])                                # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = sess.run(queries)
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches()
+    for name in ("or_and_matmul", "min_plus_matmul"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on the one-shot "
+                                 "path")
+    if any(r.cache_version is not None for r in results):
+        raise AssertionError("an uncached result carries a cache version")
+    for q, r in zip(queries, results):
+        if q.s != q.t and r.stats.payload_bits != fr.traffic_bits(q.kind):
+            raise AssertionError(f"{q}: {r.stats} is not traffic_bits")
+    checked = _check_reach_dist(g, queries, results, "oneshot")
+    print(f"oneshot: run of {len(queries)} one-shot queries "
+          f"({half} Reach, {half} Dist, {half // 2} bounded) {run_ms:.1f} ms;"
+          f" launches {launches}; {checked} answers match the host BFS")
+
+    qa = sess._resolve_automaton(Rpq(0, 1, regex=ONESHOT_REGEX))
+    rpq_pairs = _rpq_pairs(g, qa, rng, N_ONESHOT_RPQ)
+    rpqs = [Rpq(int(s), int(t), regex=ONESHOT_REGEX) for s, t in rpq_pairs]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    rpq_results = sess.run(rpqs)
+    rpq_ms = (time.perf_counter() - t0) * 1e3
+    rpq_launches = _launches()
+    if rpq_launches["or_and_matmul"] == 0:
+        raise AssertionError("or_and_matmul never launched on the one-shot "
+                             "RPQ path")
+    for q, r in zip(rpqs, rpq_results):
+        want = _rpq_oracle(g, q.s, q.t, qa)
+        if r.answer != want:
+            raise AssertionError(f"oneshot {q}: got {r.answer}, product "
+                                 f"BFS {want}")
+    if not any(r.answer for r in rpq_results):
+        raise AssertionError("no one-shot RPQ answered True")
+    side = fr.B * qa.n_states
+    print(f"oneshot: {len(rpqs)} Rpq {ONESHOT_REGEX!r} at full size (D "
+          f"[{side}]^2, {side * side / 1e9:.2f} GB, and its K-major copy) "
+          f"{rpq_ms:.1f} ms; launches {rpq_launches}; answers "
+          f"{[r.answer for r in rpq_results]} match the product-graph BFS")
+
+    # the per-query time split, one query of each kind
+    split = {}
+    s, t = int(pairs[0, 0]), int(pairs[0, 1])
+    split["reach"], ans, D, Dt, src = _split_one_shot(fr, s, t, "reach")
+    x = src | or_and_matmul_nt(src[None, :], Dt)[0]    # one step's vector
+    sd, td = int(pairs[half, 0]), int(pairs[half, 1])
+    split["dist"], _, W, _, srcd = _split_one_shot(fr, sd, td, "dist")
+    from repro_torch.core.engine import INF
+    d = torch.where(srcd, 0, INF).to(torch.int32)
+    d = torch.minimum(d, min_plus_matmul(d[None, :], W)[0])
+    sr, tr = int(rpq_pairs[0, 0]), int(rpq_pairs[0, 1])
+    split["rpq"], _, Dq, Dqt, _ = _split_one_shot(fr, sr, tr, "rpq", qa)
+    del Dq, Dqt
+    torch.cuda.empty_cache()
+    for kind, sp in split.items():
+        print(f"oneshot: {kind} query split (ms) "
+              + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                          f"{k} {v}" for k, v in sp.items()))
+
+    # the single-query sharded functions on the one-rank NCCL group
+    sharded = {}
+    Dd.collectives = Dd.payload_bits = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ans_s, D_host = Dd.dis_reach_sharded(fr, s, t)
+    sharded["reach_ms"] = (time.perf_counter() - t0) * 1e3
+    if (Dd.collectives, Dd.payload_bits) != (1, fr.traffic_bits("reach")):
+        raise AssertionError(f"dis_reach_sharded: {Dd.collectives} "
+                             f"collectives of {Dd.payload_bits} bits")
+    if ans_s != results[0].answer or not np.array_equal(D_host,
+                                                        D.cpu().numpy()):
+        raise AssertionError("dis_reach_sharded disagrees with exec_reach")
+    sharded["reach_bits"] = Dd.payload_bits
+    del D_host
+    Dd.collectives = Dd.payload_bits = 0
+    t0 = time.perf_counter()
+    ans_q = Dd.dis_rpq_sharded(fr, sr, tr, qa)
+    sharded["rpq_ms"] = (time.perf_counter() - t0) * 1e3
+    if (Dd.collectives, Dd.payload_bits) != (
+            1, fr.traffic_bits("rpq", states=qa.n_states)):
+        raise AssertionError(f"dis_rpq_sharded: {Dd.collectives} "
+                             f"collectives of {Dd.payload_bits} bits")
+    if ans_q != rpq_results[0].answer:
+        raise AssertionError("dis_rpq_sharded disagrees with exec_rpq")
+    sharded["rpq_bits"] = Dd.payload_bits
+    torch.cuda.empty_cache()
+    print(f"oneshot: dis_reach_sharded {sharded['reach_ms']:.1f} ms and "
+          f"dis_rpq_sharded {sharded['rpq_ms']:.1f} ms on the one-rank "
+          f"NCCL group, one collective each of {sharded['reach_bits']} and "
+          f"{sharded['rpq_bits']} bits (traffic_bits); answers equal to "
+          "exec_reach / exec_rpq, D bit-equal")
+
+    # the new launch shapes: evalDG's vector-matrix steps, M = 1
+    B = fr.B
+    dpx = out["kernels"][1]["dpx_ops_per_s"]
+    Dh = D.half()
+    xr = x[None, :]
+    shapes = {"or_and_matmul": [_time_shape(
+        "evaldg_reach step", "or_and",
+        lambda: or_and_matmul_nt(xr, Dt), lambda: or_and_matmul_ref(xr, D),
+        lambda: (xr.half() @ Dh) > 0, 1, B, B, dpx)],
+        "min_plus_matmul": [_time_shape(
+            "evaldg_dist step", "min_plus",
+            lambda: min_plus_matmul(d[None, :], W),
+            lambda: min_plus_matmul_ref(d[None, :], W), None, 1, B, B,
+            dpx)]}
+    del Dh, D, Dt, W
+    torch.cuda.empty_cache()
+    out["oneshot"] = {"run_ms": run_ms, "launches": launches,
+                      "rpq_ms": rpq_ms, "rpq_launches": rpq_launches,
+                      "split": split, "sharded": sharded, "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# 6. graph deltas on a warm amortized session at full size
+# ---------------------------------------------------------------------------
+
+RESERVE = dict(reserve_boundary=64, reserve_edges=256, reserve_stubs=64)
+N_DYNAMIC = 256
+
+
+def _dynamic_stream(fr, rng):
+    """(label, delta) pairs that walk through every mode of ``apply``:
+    32 inserts inside one fragment (repair); 8 cross inserts onto nodes
+    that are not boundary nodes yet, out of one fragment and into the two
+    that hold the most such nodes (repair with new boundary nodes); one insert in each of 3/4 of the fragments
+    (recompute); 16 deletions (recompute); and more inserts into one
+    fragment than its edge reserve holds (rebuild)."""
+    from repro_torch import GraphDelta
+    part = fr.part
+    members = [np.nonzero(part == f)[0] for f in range(fr.k)]
+    pick = lambda xs: int(rng.choice(xs))
+    f = int(rng.integers(fr.k))
+    yield "intra", GraphDelta.insert(
+        [(pick(members[f]), pick(members[f])) for _ in range(32)])
+    fresh = np.nonzero(fr.b_index < 0)[0]
+    hosts = np.argsort(-np.bincount(part[fresh], minlength=fr.k),
+                       kind="stable")[:2]
+    targets = fresh[np.isin(part[fresh], hosts)]
+    targets = rng.choice(targets, size=min(8, len(targets)), replace=False)
+    f = int(rng.choice(np.setdiff1d(np.arange(fr.k), hosts)))
+    yield "cross", GraphDelta.insert(
+        [(pick(members[f]), int(w)) for w in targets])
+    yield "wide", GraphDelta.insert(
+        [(pick(members[f]), pick(members[f]))
+         for f in rng.choice(fr.k, size=3 * fr.k // 4, replace=False)])
+    e = rng.choice(fr.g.m, size=16, replace=False)
+    yield "delete", GraphDelta.delete(
+        [(int(fr.g.src[i]), int(fr.g.dst[i])) for i in e])
+    f = int(np.argmax(fr.n_edges))
+    yield "overflow", GraphDelta.insert(
+        [(pick(members[f]), pick(members[f]))
+         for _ in range(fr.e_max - int(fr.n_edges[f]) + 1)])
+
+
+class _RankUpdateProbe:
+    """Wraps ``incremental._rank_update_bool`` / ``_tropical`` to keep the
+    operands of their first call (the shapes the repair gives the
+    kernels), without launching anything itself."""
+
+    def __init__(self, inc):
+        self.inc, self.args = inc, {}
+        self.orig = (inc._rank_update_bool, inc._rank_update_tropical)
+
+    def __enter__(self):
+        def keep(name, fn):
+            def wrapped(*args):
+                self.args.setdefault(name, args)
+                return fn(*args)
+            return wrapped
+        self.inc._rank_update_bool = keep("bool", self.orig[0])
+        self.inc._rank_update_tropical = keep("tropical", self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.inc._rank_update_bool, self.inc._rank_update_tropical = self.orig
+
+
+def _rank_update_shapes(args: dict, dpx_per_s) -> dict:
+    """The or-and and min-plus products of the rank-style update, each on
+    the operands the repair gave it: T = rows (x) C [r, nb] x [nb, nb];
+    left = C[:, R] (x) M* [nb, r] x [r, r]; P = left (x) T [nb, r] x [r, nb]
+    (or-and writing P and P^T)."""
+    import torch
+    from repro_torch.core import bes
+    from repro_torch.kernels.bool_matmul import (kmajor_copy,
+                                                 or_and_matmul_nt,
+                                                 or_and_matmul_ref)
+    from repro_torch.kernels.tropical_matmul import (min_plus_matmul,
+                                                     min_plus_matmul_ref)
+    C, Ct, rows, idx = args["bool"]
+    idx = torch.as_tensor(idx, dtype=torch.long, device=C.device)
+    r, nb = rows.shape
+    T = or_and_matmul_nt(rows, Ct)
+    Mc, Mct = bes.bool_closure_kmajor(T[:, idx])
+    Ck = kmajor_copy(Ct[idx].T)
+    left = or_and_matmul_nt(Ck, Mct)
+    Tt = kmajor_copy(T.T)
+    half = lambda a: a.half()
+    rows_h, C_h, Ck_h, Mc_h, left_h, T_h = map(half, (rows, C, Ck, Mc, left,
+                                                      T))
+    b1 = [_time_shape("rank update T", "or_and",
+                      lambda: or_and_matmul_nt(rows, Ct),
+                      lambda: or_and_matmul_ref(rows, C),
+                      lambda: (rows_h @ C_h) > 0, r, nb, nb, dpx_per_s),
+          _time_shape("rank update left", "or_and",
+                      lambda: or_and_matmul_nt(Ck, Mct),
+                      lambda: or_and_matmul_ref(Ck, Mc),
+                      lambda: (Ck_h @ Mc_h) > 0, nb, r, r, dpx_per_s),
+          _time_shape("rank update P", "or_and",
+                      lambda: or_and_matmul_nt(left, Tt, with_transpose=True),
+                      lambda: or_and_matmul_ref(left, T),
+                      lambda: (left_h @ T_h) > 0, nb, r, nb, dpx_per_s,
+                      transpose=True)]
+    del rows_h, C_h, Ck_h, Mc_h, left_h, T_h
+    Cd, rows_d, idx_d = args["tropical"]
+    idx_d = torch.as_tensor(idx_d, dtype=torch.long, device=Cd.device)
+    Td = min_plus_matmul(rows_d, Cd)
+    Mcd = bes.tropical_closure(Td[:, idx_d])
+    Cdr = Cd[:, idx_d]
+    left_d = min_plus_matmul(Cdr, Mcd)
+    b2 = [_time_shape("rank update T", "min_plus",
+                      lambda: min_plus_matmul(rows_d, Cd),
+                      lambda: min_plus_matmul_ref(rows_d, Cd), None,
+                      r, nb, nb, dpx_per_s),
+          _time_shape("rank update left", "min_plus",
+                      lambda: min_plus_matmul(Cdr, Mcd),
+                      lambda: min_plus_matmul_ref(Cdr, Mcd), None,
+                      nb, r, r, dpx_per_s),
+          _time_shape("rank update P", "min_plus",
+                      lambda: min_plus_matmul(left_d, Td),
+                      lambda: min_plus_matmul_ref(left_d, Td), None,
+                      nb, r, nb, dpx_per_s)]
+    return {"or_and_matmul": b1, "min_plus_matmul": b2}
+
+
+CACHE_TENSORS = ("bl_frontier", "closure", "closure_t", "bl_dist",
+                 "dist_closure")
+
+
+def _cache_state(cache) -> dict:
+    """The cache's tensors (the objects) and clones of their contents."""
+    return {n: (getattr(cache, n), getattr(cache, n).clone())
+            for n in CACHE_TENSORS}
+
+
+def phase_dynamic(out: dict, g) -> None:
+    """Graph deltas at full size through ``session.apply`` on a warm
+    amortized session: every mode, each delta checked by 256 mixed queries
+    against the host BFS on the updated graph and against a session on a
+    freshly built fragmentation; one delta made to fail mid-repair, after
+    which versions, tensors and answers are unchanged."""
+    import torch
+    import repro_torch
+    from repro_torch import DeltaApplyFailed, GraphDelta
+    from repro_torch.core import incremental
+    from repro_torch.core.fragments import fragment_graph
+    from repro_torch.graph import random_partition
+
+    part = random_partition(g, N_FRAGS, seed=SEED)
+    fr = fragment_graph(g, part, N_FRAGS, **RESERVE)
+    sess = repro_torch.connect(fr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.warm(with_dist=True)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(SEED + 3)
+    print(f"dynamic: n={g.n} k={fr.k} nb={fr.n_boundary} (active "
+          f"{fr.nb_active}) n_max={fr.n_max} e_max={fr.e_max} "
+          f"s_max={fr.s_max}, reserves {RESERVE}; warm {warm_ms:.1f} ms")
+
+    def check(label, fr=fr, sess=sess):
+        queries = _mixed_queries(fr.g.n, rng, N_DYNAMIC)
+        results = sess.run(queries)
+        _check_reach_dist(fr.g, queries, results, f"dynamic {label}")
+        fresh = fragment_graph(fr.g, fr.part, fr.k, **RESERVE)
+        want = repro_torch.connect(fresh).run(queries)
+        if [(r.answer, r.distance) for r in results] != \
+                [(r.answer, r.distance) for r in want]:
+            raise AssertionError(f"dynamic {label}: the maintained session "
+                                 "disagrees with a freshly built one")
+        del fresh, want
+        return queries, results
+
+    applies = []
+    launches_by_mode = {}
+
+    def timed_apply(label, delta, sess=sess):
+        """One ``apply`` with the launch counts set to 0 just before it
+        and read just after, and its host-clock time."""
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        stats = sess.apply(delta)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _launches()
+        applies.append({"delta": label, "mode": stats.mode, "ms": ms,
+                        "changed_rows": stats.changed_rows,
+                        "new_boundary": stats.new_boundary,
+                        "dirty_fragments": stats.dirty_fragments,
+                        "n_add": delta.n_add, "n_del": delta.n_del,
+                        "launches": launches, "reason": stats.reason})
+        mode = launches_by_mode.setdefault(stats.mode, {})
+        for name, n in launches.items():
+            mode[name] = mode.get(name, 0) + n
+        print(f"dynamic: {label} delta (+{delta.n_add} -{delta.n_del}) -> "
+              f"{stats.mode} in {ms:.1f} ms; changed rows "
+              f"{stats.changed_rows}, new boundary {stats.new_boundary}, "
+              f"dirty {stats.dirty_fragments}; launches {launches}")
+        return stats
+
+    check("warm")
+    # an empty delta is a strict no-op: the same tensors, the same versions
+    held = {n: getattr(fr.rvset_cache, n) for n in CACHE_TENSORS}
+    versions = (fr.arrays_version, sess.cache_version)
+    timed_apply("empty", GraphDelta())
+    if (fr.arrays_version, sess.cache_version) != versions or any(
+            getattr(fr.rvset_cache, n) is not t for n, t in held.items()):
+        raise AssertionError("the empty delta changed the cache")
+    del held
+    probe = _RankUpdateProbe(incremental)
+    for label, delta in _dynamic_stream(fr, rng):
+        with probe:
+            timed_apply(label, delta)
+        check(label)
+        print(f"dynamic: {N_DYNAMIC} answers after the {label} delta match "
+              "BFS and a fresh session")
+        torch.cuda.empty_cache()
+    applies_stream = applies[1:]
+    want = ["repair", "repair", "recompute", "recompute", "rebuild"]
+    if [a["mode"] for a in applies_stream] != want:
+        raise AssertionError(f"modes {[a['mode'] for a in applies_stream]}"
+                             f", expected {want}")
+    if not applies_stream[1]["new_boundary"]:
+        raise AssertionError("the cross delta activated no boundary node")
+    for name in ("or_and_matmul", "min_plus_matmul"):
+        if any(launches_by_mode[m][name] == 0
+               for m in ("recompute", "rebuild")):
+            raise AssertionError(f"{name} not launched by every mode")
+
+    # one delta made to fail inside the repair, after the frontiers and
+    # the Boolean closure were rebound: everything rolls back
+    queries, before = check("before the failed delta")
+    versions = (fr.arrays_version, sess.cache_version)
+    held = _cache_state(fr.rvset_cache)
+    f = int(rng.integers(fr.k))
+    mine = np.nonzero(fr.part == f)[0]
+    delta = GraphDelta.insert([(int(rng.choice(mine)), int(rng.choice(mine)))
+                               for _ in range(32)])
+
+    def broken(*args):
+        raise RuntimeError("injected failure in the tropical rank update")
+
+    orig = incremental._rank_update_tropical
+    incremental._rank_update_tropical = broken
+    t0 = time.perf_counter()
+    try:
+        sess.apply(delta)
+        raise AssertionError("the failing delta did not raise")
+    except DeltaApplyFailed:
+        pass
+    finally:
+        incremental._rank_update_tropical = orig
+    rollback_ms = (time.perf_counter() - t0) * 1e3
+    if (fr.arrays_version, sess.cache_version) != versions:
+        raise AssertionError("the failed delta moved a version")
+    for name, (obj, copy) in held.items():
+        if getattr(fr.rvset_cache, name) is not obj or not torch.equal(obj,
+                                                                        copy):
+            raise AssertionError(f"the failed delta changed {name}")
+    after = sess.run(queries)
+    if [(r.answer, r.distance) for r in after] != \
+            [(r.answer, r.distance) for r in before]:
+        raise AssertionError("answers changed after the failed delta")
+    del held
+    print(f"dynamic: a delta failing inside the repair rolled back in "
+          f"{rollback_ms:.1f} ms (rollbacks {sess.stats.rollbacks}): "
+          f"arrays_version and cache_version {versions}, every cache tensor "
+          f"and {len(queries)} answers unchanged")
+
+    # a delta on a fragmentation with no cache yet changes host structures
+    # only; the session then builds its caches on the updated graph
+    bare = fragment_graph(g, part, N_FRAGS, **RESERVE)
+    bare_sess = repro_torch.connect(bare)
+    timed_apply("uncached", GraphDelta.insert(
+        rng.integers(0, g.n, size=(8, 2))), sess=bare_sess)
+    if bare.rvset_cache is not None:
+        raise AssertionError("a structural delta built a cache")
+    check("structural", fr=bare, sess=bare_sess)
+    del bare, bare_sess
+    modes = {a["mode"] for a in applies}
+    if modes != {"noop", "structural", "repair", "recompute", "rebuild"}:
+        raise AssertionError(f"the deltas reached the modes {modes}")
+
+    shapes = _rank_update_shapes(probe.args, out["kernels"][1]["dpx_ops_per_s"])
+    torch.cuda.empty_cache()
+    out["dynamic"] = {"warm_ms": warm_ms, "applies": applies,
+                      "launches_by_mode": launches_by_mode,
+                      "rollback_ms": rollback_ms, "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# 7. regular path queries at reduced size
 # ---------------------------------------------------------------------------
 
 RPQ_NODES, RPQ_EDGES, RPQ_FRAGS = 2048, 8192, 8
@@ -857,14 +1474,28 @@ def main() -> int:
     _nccl_rank()
     try:
         phase_sharded(out, g, fr, queries, results)
-        del g, fr, queries, results
+        del queries, results
+        phase_oneshot(out, g, fr)
+        fr.rvset_cache = None
+        del fr
+        phase_dynamic(out, g)
+        del g
         phase_rpq(out)
     finally:
         dist.destroy_process_group()
     kernels = out["kernels"]
     for k in kernels:
-        k["rpq_launches"] = out["rpq"]["launches"][k["name"]]
-        k["rpq_sharded_launches"] = out["rpq"]["sharded"]["launches"][k["name"]]
+        name = k["name"]
+        k["rpq_launches"] = out["rpq"]["launches"][name]
+        k["rpq_sharded_launches"] = out["rpq"]["sharded"]["launches"][name]
+        k["oneshot_launches"] = {
+            "reach_dist": out["oneshot"]["launches"][name],
+            "rpq": out["oneshot"]["rpq_launches"][name]}
+        k["dynamic_launches"] = {
+            mode: n[name]
+            for mode, n in out["dynamic"]["launches_by_mode"].items()}
+        k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
+                           + out["dynamic"]["shapes"].get(name, []))
     print(out["card"])            # nvidia-smi: name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,20 @@ The front door is :func:`repro_torch.connect`::
 
 The session runs on the CUDA device; pass ``device="cpu"`` to run the
 plain PyTorch versions of the kernels on the CPU instead.
+``connect(fr, cache="none")`` answers with the paper's one-shot
+algorithms, as do the shims ``dis_reach`` / ``dis_dist`` / ``dis_rpq`` /
+``dis_rpq_regex``; ``session.apply(GraphDelta.insert([(u, v)]))`` changes
+the graph and repairs the caches, or rolls back and raises
+:class:`DeltaApplyFailed`.
 """
-from .core.fragments import Placement
+from .core.api import dis_dist, dis_reach, dis_rpq, dis_rpq_regex
+from .core.fragments import GraphDelta, Placement
+from .core.incremental import apply_delta
 from .core.plan import Dist, Query, QueryResult, Reach, Rpq
 from .core.session import QuerySession, connect
-from .errors import NoCudaDevice, Status
+from .errors import DeltaApplyFailed, NoCudaDevice, Status
 
 __all__ = ["connect", "QuerySession", "QueryResult", "Status", "Reach",
-           "Dist", "Rpq", "Query", "NoCudaDevice", "Placement"]
+           "Dist", "Rpq", "Query", "NoCudaDevice", "Placement", "GraphDelta",
+           "DeltaApplyFailed", "apply_delta", "dis_reach", "dis_dist",
+           "dis_rpq", "dis_rpq_regex"]

@@ -71,11 +71,58 @@ class RvsetCache:
         default_factory=dict)         # automaton key -> [(nb*Q), (nb*Q)]
     rpq_closures_t: Dict[Tuple, torch.Tensor] = dataclasses.field(
         default_factory=dict)         # the same keys -> K-major copies
-    version: int = 0                  # snapshot id stamped on results
+    # incremental-maintenance state (core.incremental)
+    version: int = 0                  # snapshot id stamped on results,
+                                      # bumped on every repair / recompute
+    repair_debt: float = 0.0          # deletion-recompute cost accumulator
 
     @property
     def nb(self) -> int:
         return self.fr.n_boundary
+
+    def refresh_device_arrays(self, touched=None) -> None:
+        """Upload the fragment arrays a delta mutated on the host, and drop
+        the cached product closures (they bake in the old arrays; they
+        rebuild on the next regular query).
+
+        ``touched`` names the ``fr.arrays`` keys the delta changed
+        (``incremental.touched_arrays``); the rest keep their device
+        tensors (``None`` uploads all).  A new dict is bound, and every
+        upload copies (never aliases the host buffer, which
+        ``Fragmentation.apply_delta`` mutates in place), so a snapshot
+        taken before the refresh keeps seeing the old tensors."""
+        names = self.fr.arrays.keys() if touched is None else touched
+        arrays = dict(self.arrays)
+        for name in names:
+            arrays[name] = _upload(self.fr.arrays[name], self.device)
+        self.arrays = arrays
+        self.part_b = self.fr.boundary_owner()
+        self.rpq_closures, self.rpq_closures_t = {}, {}
+        self.version += 1
+
+    # -- rollback snapshots (failed-delta recovery) --------------------------
+
+    _SNAP_FIELDS = ("arrays", "bl_frontier", "closure", "closure_t",
+                    "part_b", "bl_dist", "dist_closure", "rpq_closures",
+                    "rpq_closures_t", "version", "repair_debt")
+
+    def snapshot(self) -> dict:
+        """State capture for rollback.  References suffice for the tensors:
+        every repair (``core.incremental``) binds new tensors and never
+        writes into one the cache holds, so a snapshot's tensors keep
+        their contents.  The dicts are copied."""
+        snap = {name: getattr(self, name) for name in self._SNAP_FIELDS}
+        snap["arrays"] = dict(self.arrays)
+        snap["rpq_closures"] = dict(self.rpq_closures)
+        snap["rpq_closures_t"] = dict(self.rpq_closures_t)
+        return snap
+
+    def restore(self, snap: dict) -> None:
+        for name in self._SNAP_FIELDS:
+            setattr(self, name, snap[name])
+        self.arrays = dict(snap["arrays"])
+        self.rpq_closures = dict(snap["rpq_closures"])
+        self.rpq_closures_t = dict(snap["rpq_closures_t"])
 
 
 def _upload(x, device) -> torch.Tensor:
@@ -307,10 +354,10 @@ def local_stage_rpq_packed(esrc, edst, src_local, src_row, tgt_local, labels,
     N = s_slot.shape[1]
     dev = esrc.device
     no_slot = torch.full((fpd,), n_max, dtype=torch.int32, device=dev)
-    D = engine.local_eval_regular(
+    d0 = engine.regular_rvset(
         esrc, edst, src_local, src_row, tgt_local, labels, gids, q_labels,
-        q_trans, no_slot, no_slot, NO_NODE, NO_NODE, n_max=n_max, B=B)
-    d0 = D.reshape(B, Q, B, Q)[:nb, :, :nb, :].reshape(nb * Q, nb * Q)
+        q_trans, no_slot, no_slot, NO_NODE, NO_NODE, n_max=n_max, B=B,
+        side=nb * Q)
     direct = torch.zeros(N, dtype=torch.bool, device=dev)
     sb = torch.zeros((N, nb, Q), dtype=torch.bool, device=dev)
     tc = torch.zeros((N, nb, Q), dtype=torch.bool, device=dev)
@@ -477,13 +524,12 @@ def product_closure_kmajor(fr: Fragmentation, qa: QueryAutomaton, device
     dev = cache.device
     k, n_max, B, Q = fr.k, fr.n_max, fr.B, qa.n_states
     no_slot = torch.full((k,), n_max, dtype=torch.int32, device=dev)
-    D = engine.local_eval_regular(
+    D = engine.regular_rvset(
         arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
         arrs["tgt_local"], arrs["labels"], arrs["gids"],
         _upload(qa.state_labels, dev), _upload(qa.trans, dev),
-        no_slot, no_slot, NO_NODE, NO_NODE, n_max=n_max, B=B)
-    nb = fr.n_boundary
-    D = D.reshape(B, Q, B, Q)[:nb, :, :nb, :].reshape(nb * Q, nb * Q)
+        no_slot, no_slot, NO_NODE, NO_NODE, n_max=n_max, B=B,
+        side=fr.n_boundary * Q)
     C, Ct = bes.bool_closure_kmajor(D)
     # bound the per-automaton cache; dict order is recency order, so the
     # first key is the least recently used one

@@ -27,9 +27,15 @@ set is negative and loses to the zero words of the other ranks, and NCCL
 has no bitwise-OR reduce.  The tropical wire is merged with MIN, exact
 because non-owners ship INF, the tropical zero.
 
-Left for later slices (ROADMAP queue A): the single-query
-``dis_reach_sharded``/``dis_rpq_sharded`` (item 5b), ``lower_*_hlo``
-(item 10), ``update_rows_sharded``/``apply_delta_sharded`` (item 6).
+The single-query :func:`dis_reach_sharded` / :func:`dis_rpq_sharded` are
+the paper's one-shot algorithms over the same group: each rank assembles
+its owned fragments' rvset row blocks into one dependency matrix, ONE
+bitpacked collective merges them (``traffic_bits("reach")`` or
+``traffic_bits("rpq", states=Q)`` bits), and evalDG runs replicated.
+
+Left for later slices (ROADMAP queue A): ``lower_*_hlo`` (item 10) and
+``update_rows_sharded``/``apply_delta_sharded`` (item 6b: a session on
+this backend repairs its caches on the host path).
 """
 from __future__ import annotations
 
@@ -42,11 +48,12 @@ import torch
 import torch.distributed as dist
 
 from . import cache as _cache
+from . import engine
 from ..kernels.bitpack_ops.ops import pack_payload, unpack_payload
 from .automaton import QueryAutomaton
 from .bes import bool_closure_kmajor, tropical_closure
 from .engine import INF
-from .fragments import Fragmentation, Placement
+from .fragments import Fragmentation, Placement, query_slots
 
 #: collectives issued by :func:`_all_reduce` since the count was set to 0
 collectives = 0
@@ -375,3 +382,81 @@ def dis_rpq_batch_sharded(fr: Fragmentation, pairs, qa: QueryAutomaton,
     ans = run(*args).cpu().numpy().copy()
     ans[pairs[:, 0] == pairs[:, 1]] = bool(qa.nullable)
     return ans
+
+
+# ---------------------------------------------------------------------------
+# single-query one-shot algorithms: local stage -> ONE collective ->
+# replicated evalDG
+# ---------------------------------------------------------------------------
+
+def _one_shot_inputs(fr: Fragmentation, s: int, t: int, group,
+                     placement: Optional[Placement], device):
+    """This rank's packed fragment arrays and its [fpd] slots of s and t."""
+    placement = _resolve_placement(fr, group, placement)
+    device = torch.device("cuda" if device is None else device)
+    inp = _device_inputs(fr, placement, dist.get_rank(group), device)
+    perm, rows = inp["perm"], inp["rows"]
+    qs = query_slots(fr, s, t)
+    s_local, t_local = (
+        torch.tensor(_pack_rows(qs[name], perm, fr.n_max)[rows],
+                     device=device) for name in ("s_local", "t_local"))
+    return inp["arrs"], s_local, t_local, device
+
+
+def _merge_boolean(D: torch.Tensor, group) -> torch.Tensor:
+    """The ONE collective: every rank's row-disjoint Boolean matrix,
+    bitpacked and merged with SUM (== OR, see the module docstring)."""
+    words = pack_payload(D)
+    return unpack_payload(_all_reduce(words, dist.ReduceOp.SUM, group),
+                          D.shape[1])
+
+
+def dis_reach_sharded(fr: Fragmentation, s: int, t: int, group=None,
+                      placement: Optional[Placement] = None, device=None):
+    """disReach over the process group (paper Fig. 3); returns ``(answer,
+    D)`` with D the assembled [B, B] dependency matrix as a numpy array,
+    the same on every rank (``None`` for s == t: nothing is evaluated).
+
+    Each rank runs localEval on its owned fragments (all at once) and
+    writes their row blocks into one [B, B] buffer; ONE bitpacked SUM
+    merges the ranks' buffers, ``traffic_bits("reach")`` bits; evalDG runs
+    replicated through the or-and kernel."""
+    if s == t:
+        return True, None
+    arrs, s_local, t_local, dev = _one_shot_inputs(fr, s, t, group,
+                                                   placement, device)
+    rows, block = engine.local_eval_reach(
+        arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
+        arrs["tgt_local"], s_local, t_local, n_max=fr.n_max, B=fr.B)
+    D = torch.zeros((fr.B, fr.B), dtype=torch.bool, device=dev)
+    D[rows] = block
+    del block
+    D = _merge_boolean(D, group)
+    from .session import _src_rows, _tgt_cols     # session imports us
+    ans = engine.evaldg_reach(D, _src_rows(fr, dev), _tgt_cols(fr, t, dev))
+    return ans, D.cpu().numpy()
+
+
+def dis_rpq_sharded(fr: Fragmentation, s: int, t: int, qa: QueryAutomaton,
+                    group=None, placement: Optional[Placement] = None,
+                    device=None) -> bool:
+    """disRPQ over the process group (paper Sec. 5); returns the answer
+    (the nullability of the automaton for s == t).  Each rank assembles
+    its owned fragments' product rvset rows into one [(B*Q), (B*Q)]
+    buffer, one fragment at a time; ONE bitpacked SUM merges them,
+    ``traffic_bits("rpq", states=Q)`` bits; evalDG_r runs replicated."""
+    if s == t:
+        return bool(qa.nullable)
+    Q = qa.n_states
+    arrs, s_local, t_local, dev = _one_shot_inputs(fr, s, t, group,
+                                                   placement, device)
+    D = engine.regular_rvset(
+        arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
+        arrs["tgt_local"], arrs["labels"], arrs["gids"],
+        torch.tensor(qa.state_labels, device=dev),
+        torch.tensor(qa.trans, device=dev), s_local, t_local, s, t,
+        n_max=fr.n_max, B=fr.B, side=fr.B * Q)
+    D = _merge_boolean(D, group)
+    from .session import _src_rows, _tgt_cols     # session imports us
+    return engine.evaldg_reach(D, _src_rows(fr, dev, Q, qa.start),
+                               _tgt_cols(fr, t, dev, Q, qa.final))

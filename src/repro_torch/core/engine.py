@@ -1,7 +1,10 @@
-"""Partial-evaluation engine: the local fixpoints of localEval in PyTorch.
+"""Partial-evaluation engine: localEval and evalDG in PyTorch.
 
 The paper's localEval (Sections 3-5) as batched frontier propagation over
-each fragment's padded edge list.  Every function takes the fragment axis
+each fragment's padded edge list, and its evalDG as a single-source
+fixpoint on the assembled dependency matrix, one or-and or min-plus
+vector-matrix product (the hand-written kernels, M = 1) per step.  Every
+localEval function takes the fragment axis
 written out as the leading dimension (one row per fragment, or one row per
 query with that query's fragment gathered in), so one ``gather`` and one
 ``scatter_reduce_`` per step cover every fragment at once.  A fixpoint
@@ -21,6 +24,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
+from ..kernels.tropical_matmul.ops import min_plus_matmul
 
 INF = 1 << 29          # with int32 tensors; INF + INF still fits in int32
 
@@ -70,8 +76,11 @@ def _propagate_bool(esrc, edst, frontier):
         seen = new
 
 
-def _propagate_dist(esrc, edst, dist):
-    """Fixpoint of dist[f, j, v'] = min(dist, min_{(v,v') in E_f} dist[v] + 1).
+def _propagate_dist(esrc, edst, dist, cap: int = INF):
+    """Fixpoint of dist[f, j, v'] = min(dist, min_{(v,v') in E_f} dist[v] + 1),
+    with every entry above ``cap`` snapped to INF after each step (paper
+    Sec. 4 keeps only distances within the query bound; the default INF
+    keeps every distance).
 
     dist [F, S, n_max+1] int32 in [0, INF].  The ``amin`` keeps each entry
     at most its old value, so nothing rises above INF.  Returns a new
@@ -85,6 +94,8 @@ def _propagate_dist(esrc, edst, dist):
     while True:
         msgs = torch.gather(d, 2, src) + 1
         new = d.scatter_reduce(2, dst, msgs, "amin", include_self=True)
+        if cap < INF:
+            new = torch.where(new > cap, INF, new)
         if torch.equal(new, d):
             return d
         d = new
@@ -129,6 +140,27 @@ def local_frontier_dist(esrc, edst, src_local, *, n_max: int):
     return _propagate_dist(esrc, edst, dist)
 
 
+def resume_frontier_reach(esrc, edst, frontier, *, n_max: int):
+    """Continue a Boolean all-sources fixpoint from a warm state.
+
+    Used by incremental cache repair: after edge insertions the old
+    converged frontier is a valid under-approximation, so the fixpoint run
+    from it converges in O(new-path length) steps instead of O(diam).
+    ``frontier`` [F, S, n_max+1] bool with each row's own source bit set."""
+    frontier = frontier.clone()
+    frontier[:, :, n_max] = False
+    return _propagate_bool(esrc, edst, frontier)
+
+
+def resume_frontier_dist(esrc, edst, dist, *, n_max: int):
+    """Tropical twin of :func:`resume_frontier_reach`: the old distances
+    are realizable upper bounds after insertions, so relaxation from them
+    converges to the new exact distances."""
+    dist = dist.clone()
+    dist[:, :, n_max] = INF
+    return _propagate_dist(esrc, edst, dist)
+
+
 # ---------------------------------------------------------------------------
 # per-query propagation (the cheap phase against the cache)
 # ---------------------------------------------------------------------------
@@ -155,6 +187,123 @@ def single_source_dist(esrc, edst, src, *, n_max: int):
     dist.scatter_(2, src.long()[:, None, None], start[:, None, None])
     dist[:, :, n_max] = INF
     return _propagate_dist(esrc, edst, dist)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# localEval of the one-shot algorithms (paper Fig. 3 and Sec. 4): one row
+# block of the dependency matrix per call
+# ---------------------------------------------------------------------------
+#
+# Each local_eval_* takes F fragments along a leading axis (all k, or a
+# rank's own, or one) and returns ``(rows, block)``: the dependency-matrix
+# rows its sources own, and their row block.  Every row is owned by exactly
+# one fragment (an in-node by its owner, the s row by s's fragment), so a
+# caller assembles the matrix by writing each block into one buffer that
+# holds the semiring zero elsewhere (``D[rows] = block``): the elementwise
+# OR / min of the per-fragment matrices, without stacking them.
+
+def _target_cols(tgt_local, t_local, n_max: int, B: int):
+    """[F, B] local slot read for each dependency-matrix column: the stub
+    of each boundary node, nothing (the pad) for the s column, and t."""
+    F = tgt_local.shape[0]
+    return torch.cat([tgt_local[:, : B - 2].long(),
+                      torch.full((F, 1), n_max, dtype=torch.long,
+                                 device=tgt_local.device),
+                      t_local.long()[:, None]], dim=1)
+
+
+def _owned_rows(src_row, B: int):
+    """Flat indices of the source slots that own a row (< B), and rows."""
+    flat = src_row.reshape(-1).long()
+    keep = torch.nonzero(flat < B)[:, 0]
+    return keep, flat[keep]
+
+
+def local_eval_reach(esrc, edst, src_local, src_row, tgt_local, s_local,
+                     t_local, *, n_max: int, B: int):
+    """localEval (paper Fig. 3) on F fragments: rvset rows of the
+    dependency matrix.  ``rows`` [r] and ``block`` [r, B] bool with
+    ``block[i, col(w)] = 1`` iff source ``rows[i]`` (an owned in-node, or s
+    at row B-2) reaches virtual node w (or t, column B-1) inside its
+    fragment.  Fragment arguments carry a leading [F] axis; s_local and
+    t_local are [F] (``n_max`` where absent)."""
+    src_local, src_row = _with_query_source(src_local, src_row, s_local,
+                                            n_max, B)
+    F, S = src_local.shape
+    frontier = torch.zeros((F, S, n_max + 1), dtype=torch.bool,
+                           device=src_local.device)
+    frontier.scatter_(2, src_local.long()[:, :, None], True)
+    frontier[:, :, n_max] = False          # the pad node is never seen
+    frontier = _propagate_bool(esrc, edst, frontier)
+    cols = _target_cols(tgt_local, t_local, n_max, B)
+    out = torch.gather(frontier, 2, cols[:, None, :].expand(F, S, B))
+    out &= (cols != n_max)[:, None, :]
+    keep, rows = _owned_rows(src_row, B)
+    return rows, out.reshape(F * S, B)[keep]
+
+
+def local_eval_dist(esrc, edst, src_local, src_row, tgt_local, s_local,
+                    t_local, cap: int = INF, *, n_max: int, B: int):
+    """localEval_d (paper Sec. 4) on F fragments: the tropical rows
+    ``(rows [r], block [r, B] int32)``, block entries the local hop
+    distance from source to virtual node (INF where absent).  Distances
+    above ``cap`` (the query bound) are snapped to INF during the
+    propagation, as the paper keeps only dist < l."""
+    src_local, src_row = _with_query_source(src_local, src_row, s_local,
+                                            n_max, B)
+    F, S = src_local.shape
+    dist = torch.full((F, S, n_max + 1), INF, dtype=torch.int32,
+                      device=src_local.device)
+    dist.scatter_(2, src_local.long()[:, :, None], 0)
+    dist[:, :, n_max] = INF
+    dist = _propagate_dist(esrc, edst, dist, cap)
+    cols = _target_cols(tgt_local, t_local, n_max, B)
+    out = torch.gather(dist, 2, cols[:, None, :].expand(F, S, B))
+    out = torch.where((cols == n_max)[:, None, :], INF, out)
+    keep, rows = _owned_rows(src_row, B)
+    return rows, out.reshape(F * S, B)[keep]
+
+
+# ---------------------------------------------------------------------------
+# evalDG: assembling at the coordinator (paper Fig. 4, Secs. 4-5)
+# ---------------------------------------------------------------------------
+
+def evaldg_reach(D, src_rows, tgt_cols, Dt=None) -> bool:
+    """Single-source fixpoint on the dependency matrix D [B, B] bool:
+    x := x | x (or-and) D until nothing changes (at most diam(G_f) steps,
+    one host sync each), then whether any column in ``tgt_cols`` is
+    reached.  src_rows / tgt_cols: bool masks [B].
+
+    Each step is one or-and vector-matrix product, M = 1, which takes D
+    K-major: ``Dt`` = D^T as :func:`~repro_torch.kernels.bool_matmul.ops.
+    kmajor_copy` makes it, copied here once when not given and reused by
+    every step."""
+    if Dt is None:
+        Dt = kmajor_copy(D.T)
+    x = src_rows.clone()
+    if bool(x.any()):
+        while True:
+            nxt = x | or_and_matmul_nt(x[None, :], Dt)[0]
+            if torch.equal(nxt, x):
+                break
+            x = nxt
+    return bool((x & tgt_cols).any())
+
+
+def evaldg_dist(W, src_rows, tgt_cols) -> int:
+    """Single-source tropical fixpoint on W [B, B] int32 (Bellman-Ford on
+    the dependency graph: the paper uses Dijkstra, Bellman-Ford is its
+    matrix form): d := min(d, d (min-plus) W) until nothing changes, one
+    min-plus vector-matrix product (M = 1) a step.  Returns the least
+    distance onto ``tgt_cols`` (INF if none is reached)."""
+    d = torch.where(src_rows, 0, INF).to(torch.int32)
+    if bool((d < INF).any()):
+        while True:
+            nxt = torch.minimum(d, min_plus_matmul(d[None, :], W)[0])
+            if torch.equal(nxt, d):
+                break
+            d = nxt
+    return int(torch.where(tgt_cols, d, INF).min())
 
 
 # ---------------------------------------------------------------------------
@@ -252,15 +401,16 @@ def reverse_target_regular(esrc, edst, labels, gids, q_labels, q_trans,
 def local_eval_regular(esrc, edst, src_local, src_row, tgt_local, labels,
                        gids, q_labels, q_trans, s_local, t_local, s_gid,
                        t_gid, *, n_max: int, B: int):
-    """Product-automaton rvset of every fragment, assembled:
-    D [(B*Q), (B*Q)] bool.
+    """localEval_r (paper Fig. 7) on F fragments: the product-automaton
+    rvset rows ``(rows [r], block [r, B*Q] bool)`` of the dependency matrix
+    [(B*Q), (B*Q)].
 
-    Row (v, q0): the source pair "in-node v occupying state q0"; column
-    (w, q'): "a path leaves the owning fragment arriving at virtual node w
-    in state q'" (or arrives at t in q').  Each row is computed by the one
-    fragment that owns it, so the assembly of the per-fragment blocks is
-    an elementwise OR.  All fragment arguments carry a leading [k] axis;
-    s_local/t_local are [k].
+    Row (v, q0) = v*Q + q0: the source pair "in-node v occupying state q0";
+    column (w, q') = w*Q + q': "a path leaves the fragment arriving at
+    virtual node w in state q'" (or arrives at t in q').  Each row is
+    computed by the one fragment that owns it (see the note above
+    :func:`local_eval_reach`).  All fragment arguments carry a leading [F]
+    axis; s_local/t_local are [F]; s_gid/t_gid are [F] or scalars.
     """
     k = esrc.shape[0]
     Q = q_labels.shape[0]
@@ -299,18 +449,34 @@ def local_eval_regular(esrc, edst, src_local, src_row, tgt_local, labels,
                 break
             frontier = new
 
-    cols = torch.cat([tgt_local[:, : B - 2].long(),
-                      torch.full((k, 1), n_max, dtype=torch.long, device=dev),
-                      t_local.long()[:, None]], dim=1)        # [k, B]
+    cols = _target_cols(tgt_local, t_local, n_max, B)         # [k, B]
     out = torch.gather(frontier, 2,
                        cols[:, None, :, None].expand(k, S * Q, B, Q))
     out = out & (cols != n_max)[:, None, :, None]
     out = out.reshape(k * S * Q, B * Q)
-
     q = torch.arange(Q, device=dev)
-    rows = src_row.long()[:, :, None] * Q + q                 # [k, S, Q]
-    rows = torch.where(src_row.long()[:, :, None] >= B, B * Q, rows)
-    D = torch.zeros((B * Q + 1, B * Q), dtype=torch.uint8, device=dev)
-    D.scatter_reduce_(0, rows.reshape(-1, 1).expand(-1, B * Q),
-                      out.view(torch.uint8), "amax")
-    return D[: B * Q].view(torch.bool)                         # drop row
+    rows = (src_row.long()[:, :, None] * Q + q).reshape(-1)
+    owned = (src_row.long() < B)[:, :, None].expand(k, S, Q).reshape(-1)
+    keep = torch.nonzero(owned)[:, 0]
+    return rows[keep], out[keep]
+
+
+def regular_rvset(esrc, edst, src_local, src_row, tgt_local, labels, gids,
+                  q_labels, q_trans, s_local, t_local, s_gid, t_gid, *,
+                  n_max: int, B: int, side: int):
+    """The product rvset of F fragments assembled into one bool matrix
+    [side, side]: the first ``side`` rows and columns of the [(B*Q), (B*Q)]
+    dependency matrix (``side = nb*Q`` cuts off the query slots).  Built
+    one fragment at a time, so the product frontier of only one fragment
+    is alive at once; arguments as for :func:`local_eval_regular`, with
+    s_gid/t_gid scalars."""
+    D = torch.zeros((side, side), dtype=torch.bool, device=esrc.device)
+    for f in range(esrc.shape[0]):
+        one = slice(f, f + 1)
+        rows, block = local_eval_regular(
+            esrc[one], edst[one], src_local[one], src_row[one],
+            tgt_local[one], labels[one], gids[one], q_labels, q_trans,
+            s_local[one], t_local[one], s_gid, t_gid, n_max=n_max, B=B)
+        keep = torch.nonzero(rows < side)[:, 0]
+        D[rows[keep]] = block[keep, :side]
+    return D

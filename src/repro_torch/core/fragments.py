@@ -17,16 +17,86 @@ incoming cross edge, plus two reserved slots for the query endpoints: row
 ``B-2`` is ``s`` and column ``B-1`` is ``t``.  ``reserve_*`` headroom adds
 spare boundary positions ``nb_active .. nb_cap-1`` that stay inert (no
 source row maps to them and their target columns point at the pad node).
+
+Dynamic graphs: a fragmentation built with ``reserve_*`` headroom also
+carries spare edge slots, virtual-stub slots and source rows, so
+:meth:`Fragmentation.apply_delta` absorbs edge insertions and deletions
+without changing any array shape; when a reserve runs out it rebuilds the
+whole fragmentation with the same headroom.  Cache repair is the job of
+:mod:`repro_torch.core.incremental`, which calls it first.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..graph.graph import Graph
 from ..kernels.bitpack_ops.ops import packed_bits
+
+
+@dataclasses.dataclass
+class GraphDelta:
+    """A batch of edge insertions and deletions against a fragmented graph.
+
+    Node set and partition are fixed; only edges change (the paper's
+    fragmentation is node-partitioned, so edge churn never moves a node
+    between sites).  Deletions must name existing edges; one (u, v) entry
+    removes one occurrence (multi-edges are deleted one at a time).
+    """
+
+    add_src: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    add_dst: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    del_src: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    del_dst: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+
+    def __post_init__(self):
+        for name in ("add_src", "add_dst", "del_src", "del_dst"):
+            setattr(self, name, np.asarray(getattr(self, name),
+                                           dtype=np.int64).reshape(-1))
+        if self.add_src.shape != self.add_dst.shape:
+            raise ValueError("add_src and add_dst differ in length")
+        if self.del_src.shape != self.del_dst.shape:
+            raise ValueError("del_src and del_dst differ in length")
+
+    @property
+    def n_add(self) -> int:
+        return int(self.add_src.size)
+
+    @property
+    def n_del(self) -> int:
+        return int(self.del_src.size)
+
+    def is_empty(self) -> bool:
+        return self.n_add == 0 and self.n_del == 0
+
+    @classmethod
+    def insert(cls, edges) -> "GraphDelta":
+        e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        return cls(add_src=e[:, 0], add_dst=e[:, 1])
+
+    @classmethod
+    def delete(cls, edges) -> "GraphDelta":
+        e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        return cls(del_src=e[:, 0], del_dst=e[:, 1])
+
+
+@dataclasses.dataclass
+class DeltaReport:
+    """What :meth:`Fragmentation.apply_delta` changed (drives cache repair)."""
+
+    dirty: np.ndarray            # [k] bool: fragments with local changes
+    new_boundary: List[int]      # global ids activated into spare slots
+    n_add_intra: int = 0
+    n_add_cross: int = 0
+    n_del: int = 0
+    rebuilt: bool = False        # a reserve ran out: rebuilt from scratch
+    reason: str = ""
 
 
 @dataclasses.dataclass
@@ -45,8 +115,17 @@ class Fragmentation:
     frag_sizes: np.ndarray    # [k] |F_i| = n_i + e_i  (paper's |F_i|)
     owner_local: np.ndarray   # [n] local index of a node in its own fragment
     nb_cap: int = -1          # boundary slot capacity (-1: len(bnodes))
-    # bumped on every in-place mutation of the host arrays (graph deltas,
-    # a later slice); consumers that memoize device uploads key on it
+    # --- dynamic-graph bookkeeping (host-side; see apply_delta) ------------
+    n_edges: np.ndarray = dataclasses.field(default=None, repr=False,
+                                            compare=False)   # [k] used slots
+    src_fill: np.ndarray = dataclasses.field(default=None, repr=False,
+                                             compare=False)  # [k] used rows
+    stubs: List[dict] = dataclasses.field(default=None, repr=False,
+                                          compare=False)  # gid -> stub slot
+    reserve: Dict[str, int] = dataclasses.field(default=None, repr=False,
+                                                compare=False)
+    # bumped on every in-place mutation of the host arrays (apply_delta,
+    # rebuild); consumers that memoize device uploads key on it
     arrays_version: int = 0
     # amortized rvset cache (built lazily by core.cache.get_rvset_cache)
     rvset_cache: object = dataclasses.field(default=None, repr=False,
@@ -60,11 +139,19 @@ class Fragmentation:
         ``dst``, ``labels`` (and optionally ``label_names``) of the graph,
         then ``part``, ``k``, ``bnodes``, ``b_index``, ``n_max``, ``e_max``,
         ``s_max``, ``arrays`` (a dict), ``frag_sizes``, ``owner_local``,
-        ``nb_cap`` and optionally ``arrays_version``.  Every array is copied, so the caller's buffers are
-        never shared."""
+        ``nb_cap`` and optionally ``arrays_version`` and the dynamic
+        bookkeeping ``n_edges``, ``src_fill``, ``stubs`` (a list of dicts)
+        and ``reserve`` (a dict).  Every array is copied, so the caller's
+        buffers are never shared."""
         g = Graph(int(fields["n"]), np.array(fields["src"]),
                   np.array(fields["dst"]), np.array(fields["labels"]),
                   fields.get("label_names"))
+
+        def copied(name):
+            v = fields.get(name)
+            return None if v is None else np.array(v)
+
+        stubs, reserve = fields.get("stubs"), fields.get("reserve")
         return cls(g=g, part=np.array(fields["part"], dtype=np.int32),
                    k=int(fields["k"]), bnodes=np.array(fields["bnodes"]),
                    b_index=np.array(fields["b_index"]),
@@ -75,6 +162,9 @@ class Fragmentation:
                    frag_sizes=np.array(fields["frag_sizes"]),
                    owner_local=np.array(fields["owner_local"]),
                    nb_cap=int(fields["nb_cap"]),
+                   n_edges=copied("n_edges"), src_fill=copied("src_fill"),
+                   stubs=None if stubs is None else [dict(m) for m in stubs],
+                   reserve=None if reserve is None else dict(reserve),
                    arrays_version=int(fields.get("arrays_version", 0)))
 
     @property
@@ -158,6 +248,210 @@ class Fragmentation:
             return packed_bits(rows, cols)
         return rows * cols * 32
 
+    def largest_fragment(self) -> int:
+        return int(self.frag_sizes.max())
+
+    # -- rollback snapshots (failed-delta recovery) -------------------------
+
+    def snapshot(self) -> dict:
+        """Capture every piece of host state a delta (apply + cache repair)
+        can touch, so a failed update can roll back to a consistent
+        pre-delta point.  Arrays that :meth:`apply_delta` mutates in place
+        are copied; fields that are only ever rebound wholesale (``g``,
+        ``bnodes``, the rebinds of :meth:`_rebuild_in_place`) are captured
+        by reference.  The attached rvset cache is snapshotted too: its
+        repairs bind new tensors and never write into old ones, so its
+        snapshot holds references."""
+        snap = {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+        snap["arrays"] = {k: v.copy() for k, v in self.arrays.items()}
+        snap["b_index"] = self.b_index.copy()
+        snap["frag_sizes"] = self.frag_sizes.copy()
+        for name in ("n_edges", "src_fill", "_slot_of"):
+            v = getattr(self, name)
+            if v is not None:
+                snap[name] = v.copy()
+        if self.stubs is not None:
+            snap["stubs"] = [dict(m) for m in self.stubs]
+        snap["_cache_state"] = (None if self.rvset_cache is None
+                                else self.rvset_cache.snapshot())
+        return snap
+
+    def restore(self, snap: dict) -> None:
+        """Roll back to a :meth:`snapshot`: ``arrays_version`` and the
+        attached cache's ``version`` return to their pre-delta values and
+        all host arrays to their pre-delta contents.  The memoized sharded
+        device uploads (``core.distributed._device_inputs``) are dropped:
+        they are keyed on ``arrays_version``, which a later delta can bump
+        back to a value already used, so a stale entry must never survive
+        a rollback."""
+        cache_state = snap["_cache_state"]
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, snap[f.name])
+        if self.rvset_cache is not None and cache_state is not None:
+            self.rvset_cache.restore(cache_state)
+        self.__dict__.pop("_sharded_device_inputs", None)
+
+    # -- dynamic updates -----------------------------------------------------
+
+    def apply_delta(self, delta: GraphDelta) -> DeltaReport:
+        """Apply a :class:`GraphDelta` to the fragmentation in place.
+
+        Insertions land in pre-allocated padded slots (edges, virtual stubs,
+        source rows, boundary positions), so no array changes shape;
+        deletions compact the owning fragment's edge list.  When any
+        reserve runs out, the whole fragmentation is rebuilt from the
+        updated graph (``report.rebuilt``) with the same headroom.  Only
+        host structures change here."""
+        g_new = self._updated_graph(delta)
+        report = DeltaReport(dirty=np.zeros(self.k, dtype=bool),
+                             new_boundary=[], n_del=delta.n_del)
+        if delta.is_empty():
+            return report
+        try:
+            self._apply_insertions(delta, report)
+            self._apply_deletions(delta, report)
+        except _CapacityExceeded as exc:
+            self._rebuild_in_place(g_new)
+            report.dirty[:] = True
+            report.rebuilt = True
+            report.reason = str(exc)
+            return report
+        self.g = g_new
+        self.arrays_version += 1
+        return report
+
+    def _updated_graph(self, delta: GraphDelta) -> Graph:
+        """The post-delta graph; raises ValueError for a deletion of a
+        missing edge or an endpoint out of range, and leaves ``self.g``
+        untouched.  One sort of the edge keys: O((m + n_del) log m)."""
+        g = self.g
+        keep = np.ones(g.m, dtype=bool)
+        if delta.n_del:
+            key = g.src * np.int64(g.n) + g.dst
+            order = np.argsort(key, kind="stable")
+            skey = key[order]
+            taken: Dict[int, int] = {}      # duplicate deletes take distinct ids
+            for u, v in zip(delta.del_src, delta.del_dst):
+                kk = int(u) * g.n + int(v)
+                lo = int(np.searchsorted(skey, kk, "left"))
+                hi = int(np.searchsorted(skey, kk, "right"))
+                j = lo + taken.get(kk, 0)
+                if j >= hi:
+                    raise ValueError(
+                        f"delta deletes nonexistent edge {u}->{v}")
+                taken[kk] = taken.get(kk, 0) + 1
+                keep[order[j]] = False
+        if delta.n_add:
+            ends = np.concatenate([delta.add_src, delta.add_dst])
+            if ends.min(initial=0) < 0 or ends.max(initial=-1) >= g.n:
+                raise ValueError("delta inserts edge with out-of-range "
+                                 f"node id (n={g.n})")
+        src = np.concatenate([g.src[keep], delta.add_src])
+        dst = np.concatenate([g.dst[keep], delta.add_dst])
+        return Graph(g.n, src, dst, g.labels, g.label_names)
+
+    def _apply_insertions(self, delta: GraphDelta, report: DeltaReport):
+        esrc, edst = self.arrays["esrc"], self.arrays["edst"]
+        for u, w in zip(delta.add_src, delta.add_dst):
+            i = int(self.part[u])
+            if self.part[w] == i:                      # intra-fragment edge
+                dst_slot = int(self.owner_local[w])
+                report.n_add_intra += 1
+            else:                                      # cross edge -> stub
+                self._ensure_boundary(int(w), report)
+                dst_slot = self._ensure_stub(i, int(w))
+                report.n_add_cross += 1
+            slot = int(self.n_edges[i])
+            if slot >= self.e_max:
+                raise _CapacityExceeded(f"edge slots of fragment {i}")
+            esrc[i, slot] = self.owner_local[u]
+            edst[i, slot] = dst_slot
+            self.n_edges[i] += 1
+            self.frag_sizes[i] += 1
+            report.dirty[i] = True
+
+    def _apply_deletions(self, delta: GraphDelta, report: DeltaReport):
+        esrc, edst = self.arrays["esrc"], self.arrays["edst"]
+        for u, w in zip(delta.del_src, delta.del_dst):
+            i = int(self.part[u])
+            if self.part[w] == i:
+                dst_slot = int(self.owner_local[w])
+            else:
+                dst_slot = self.stubs[i].get(int(w), -1)
+            ne = int(self.n_edges[i])
+            hits = np.nonzero((esrc[i, :ne] == self.owner_local[u])
+                              & (edst[i, :ne] == dst_slot))[0]
+            if dst_slot < 0 or hits.size == 0:
+                raise _CapacityExceeded(   # stale bookkeeping: rebuild
+                    f"deleted edge {u}->{w} not found in fragment {i}")
+            j = int(hits[0])
+            esrc[i, j], edst[i, j] = esrc[i, ne - 1], edst[i, ne - 1]
+            esrc[i, ne - 1] = edst[i, ne - 1] = self.n_max     # pad self-loop
+            self.n_edges[i] -= 1
+            self.frag_sizes[i] -= 1
+            report.dirty[i] = True
+        # boundary membership and stubs stay as they are on deletion: a
+        # boundary node with no in-edges left is inert (sound, it costs one
+        # slot) until the repair debt in core.incremental forces a rebuild
+
+    def _ensure_boundary(self, w: int, report: DeltaReport):
+        """Activate node ``w`` as a boundary in-node in a spare slot."""
+        if self.b_index[w] >= 0:
+            return
+        pos = self.nb_active
+        if pos >= self.n_boundary:
+            raise _CapacityExceeded("boundary slots")
+        j = int(self.part[w])                 # the owner gains a source row
+        row = int(self.src_fill[j])
+        if row >= self.s_max - 1:             # the last row is kept for s
+            raise _CapacityExceeded(f"source rows of fragment {j}")
+        self.arrays["src_local"][j, row] = self.owner_local[w]
+        self.arrays["src_row"][j, row] = pos
+        self.src_fill[j] += 1
+        self.b_index[w] = pos
+        self.bnodes = np.append(self.bnodes, w)
+        report.dirty[j] = True
+        report.new_boundary.append(w)
+
+    def _ensure_stub(self, i: int, w: int) -> int:
+        """Virtual-stub slot of global node ``w`` inside fragment ``i``."""
+        slot = self.stubs[i].get(w)
+        if slot is not None:
+            return slot
+        slot = int(self.arrays["n_local"][i])
+        if slot >= self.n_max:
+            raise _CapacityExceeded(f"local slots of fragment {i}")
+        self.stubs[i][w] = slot
+        self.arrays["gids"][i, slot] = w
+        self.arrays["labels"][i, slot] = self.g.labels[w]
+        self.arrays["n_local"][i] = slot + 1
+        self.arrays["tgt_local"][i, self.b_index[w]] = slot
+        if self._slot_of is not None:
+            self._slot_of[w, i] = slot
+        return slot
+
+    def rebuild(self) -> None:
+        """Re-fragment the current graph from scratch (compacts the stale
+        boundary slots and stubs that deletions leave behind, and restores
+        the full reserve headroom).  Drops the attached cache."""
+        self._rebuild_in_place(self.g)
+
+    def _rebuild_in_place(self, g_new: Graph):
+        """Re-fragment the updated graph with the same reserves and adopt
+        the result, keeping this object's identity (callers hold it)."""
+        version = self.arrays_version
+        fresh = fragment_graph(g_new, self.part, self.k,
+                               **(self.reserve or {}))
+        for field in dataclasses.fields(self):
+            setattr(self, field.name, getattr(fresh, field.name))
+        self.rvset_cache = None
+        self.arrays_version = version + 1
+
+
+class _CapacityExceeded(Exception):
+    """A delta outgrew the pre-allocated padded slots: rebuild instead."""
+
 
 def _round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
@@ -169,9 +463,10 @@ def fragment_graph(g: Graph, part: np.ndarray, k: int,
                    reserve_sources: Optional[int] = None) -> Fragmentation:
     """Build the padded fragmentation (host, numpy).
 
-    ``reserve_*`` pre-allocate headroom for dynamic updates (spare boundary
-    positions, edge slots, virtual-node slots and source rows per
-    fragment); ``reserve_sources`` defaults to ``reserve_boundary``.
+    ``reserve_*`` pre-allocate headroom for :meth:`Fragmentation.apply_delta`
+    (spare boundary positions, edge slots, virtual-node slots and source
+    rows per fragment); ``reserve_sources`` defaults to ``reserve_boundary``
+    (the worst case is every new in-node landing in one fragment).
     """
     part = np.asarray(part, dtype=np.int32)
     if part.shape != (g.n,):
@@ -255,10 +550,18 @@ def fragment_graph(g: Graph, part: np.ndarray, k: int,
     arrays = dict(esrc=esrc, edst=edst, gids=gids, labels=labels,
                   src_local=src_local, src_row=src_row, tgt_local=tgt_local,
                   n_local=np.array(n_locals, dtype=np.int32))
+    reserve = dict(pad_multiple=pad_multiple,
+                   reserve_boundary=reserve_boundary,
+                   reserve_edges=reserve_edges, reserve_stubs=reserve_stubs,
+                   reserve_sources=reserve_sources)
     return Fragmentation(g=g, part=part, k=k, bnodes=bnodes, b_index=b_index,
                          n_max=n_max, e_max=e_max, s_max=s_maxr,
                          arrays=arrays, frag_sizes=frag_sizes,
-                         owner_local=g2l, nb_cap=nb_cap)
+                         owner_local=g2l, nb_cap=nb_cap,
+                         n_edges=np.array([len(frag_src[i])
+                                           for i in range(k)], np.int64),
+                         src_fill=np.array(in_counts[:k] or [0], np.int64),
+                         stubs=stub_maps, reserve=reserve)
 
 
 # ---------------------------------------------------------------------------

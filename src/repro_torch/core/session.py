@@ -19,6 +19,14 @@ The session runs on the CUDA device unless the caller passes
 the ranks of an initialized torch.distributed process group (one rank per
 device; ``d = 1`` with every fragment on one card), with ONE collective per
 fused group.
+
+``cache="none"`` runs the paper's one-shot algorithms instead, one query
+at a time (:func:`exec_reach`, :func:`exec_dist`, :func:`exec_rpq`:
+localEval on every fragment, one assembly of the dependency matrix, then
+evalDG), and leaves no state behind.  ``session.apply(delta)`` changes the
+graph and repairs the caches (:mod:`repro_torch.core.incremental`), or
+rolls both back when it fails.  The ``core.api`` shims run on per-
+fragmentation default sessions (:func:`default_session`).
 """
 from __future__ import annotations
 
@@ -26,15 +34,16 @@ import dataclasses
 import threading
 from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from . import cache as _cache
-from . import distributed
-from ..errors import NoCudaDevice, Status
+from . import distributed, engine, incremental
+from ..errors import DeltaApplyFailed, NoCudaDevice, Status
 from .automaton import QueryAutomaton, build_query_automaton
-from .engine import QueryStats
-from .fragments import Fragmentation, Placement
+from .engine import INF, QueryStats
+from .fragments import Fragmentation, GraphDelta, Placement, query_slots
 from .plan import (Dist, ExecutionGroup, Query, QueryPlan, QueryResult,
                    Reach, Rpq, plan_queries)
 
@@ -48,11 +57,14 @@ class SessionStats:
 
     queries: int = 0         # queries answered
     batches: int = 0         # run() calls
-    executions: int = 0      # batched executions issued (one per group)
+    executions: int = 0      # executions issued (one per group, or one
+                             # per query with cache="none")
+    updates: int = 0         # deltas applied (or attempted)
     # sharded groups served by a fallback engine; stays 0: a sharded
     # engine failure raises (the degrade-on-failure route is ROADMAP
     # queue A, item 9)
     degraded_groups: int = 0
+    rollbacks: int = 0       # failed deltas rolled back to their snapshot
 
 
 def _resolve_device(device) -> torch.device:
@@ -69,7 +81,7 @@ def _resolve_device(device) -> torch.device:
 def connect(fr: Fragmentation, backend: str = "auto",
             cache: str = "amortized", group=None,
             placement: Optional[Placement] = None,
-            device=None) -> "QuerySession":
+            device=None, chaos=None) -> "QuerySession":
     """Open a :class:`QuerySession` over ``fr`` — the front door of the
     package (also exported as ``repro_torch.connect``).
 
@@ -91,12 +103,19 @@ def connect(fr: Fragmentation, backend: str = "auto",
     ``Placement.balanced`` over the group's ranks.  ``cache``:
     ``"amortized"`` serves vmap batches from the rvset/product caches
     (built lazily, shared with every other session on the same
-    fragmentation).  ``device``: where the caches live and the kernels
-    run; ``None`` means the current CUDA device, and raises
+    fragmentation); ``"none"`` answers each query with the paper's
+    one-shot algorithm on ``device`` and builds no cache, whatever the
+    backend.  ``device``: where the caches live and the kernels run;
+    ``None`` means the current CUDA device, and raises
     :class:`~repro_torch.errors.NoCudaDevice` when there is none.
+
+    ``chaos``: an optional fault injector, any object with a
+    ``maybe_fail(site)`` method, consulted at the ``"delta.repair"`` site
+    of :meth:`QuerySession.apply` (after the host arrays have mutated), so
+    that tests can drive the rollback path.  ``None`` costs nothing.
     """
     return QuerySession(fr, backend=backend, cache=cache, group=group,
-                        placement=placement, device=device)
+                        placement=placement, device=device, chaos=chaos)
 
 
 class QuerySession:
@@ -104,17 +123,14 @@ class QuerySession:
 
     def __init__(self, fr: Fragmentation, backend: str = "auto",
                  cache: str = "amortized", group=None,
-                 placement: Optional[Placement] = None, device=None):
+                 placement: Optional[Placement] = None, device=None,
+                 chaos=None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{BACKENDS}")
         if cache not in CACHE_MODES:
             raise ValueError(f"unknown cache mode {cache!r}; expected one "
                              f"of {CACHE_MODES}")
-        if cache == "none":
-            raise NotImplementedError(
-                "cache='none' is not ported yet (ROADMAP queue A, item 5b: "
-                "uncached one-shot engine)")
         if placement is not None and placement.k != fr.k:
             raise ValueError(f"placement maps {placement.k} fragments but "
                              f"the fragmentation has {fr.k}")
@@ -145,36 +161,64 @@ class QuerySession:
         self.group = group
         self.placement = placement
         self.device = _resolve_device(device)
+        self.chaos = chaos
         self.stats = SessionStats()
         self.last_plan: Optional[QueryPlan] = None
         self._regex_cache: Dict[str, QueryAutomaton] = {}
-        # serializes group execution so several threads can share one
-        # session over the same caches; an RLock because run() resolves
-        # automatons (also locked) inline
+        # serializes group execution and delta application so several
+        # threads can share one session over the same caches; an RLock
+        # because run() resolves automatons (also locked) inline
         self._lock = threading.RLock()
 
     # -- cache lifecycle ---------------------------------------------------
 
     def warm(self, with_dist: bool = False) -> "QuerySession":
-        """Eagerly build the amortized caches."""
+        """Eagerly build the amortized caches (no-op for cache='none')."""
         with self._lock:
-            _cache.prepare_rvset_cache(self.fr, self.device,
-                                       with_dist=with_dist)
+            if self.cache_mode == "amortized":
+                _cache.prepare_rvset_cache(self.fr, self.device,
+                                           with_dist=with_dist)
         return self
 
     @property
     def cache_version(self) -> Optional[int]:
         """Snapshot id of the attached rvset cache (None before the first
-        build)."""
+        build); bumped by every delta repair."""
         c = self.fr.rvset_cache
         return None if c is None else c.version
 
-    # -- dynamic graphs (later slices) -------------------------------------
+    # -- dynamic graphs ----------------------------------------------------
 
-    def apply(self, delta):
-        raise NotImplementedError(
-            "graph deltas are not ported yet (ROADMAP queue A, item 6: "
-            "incremental repair)")
+    def apply(self, delta: GraphDelta) -> incremental.UpdateStats:
+        """Apply a :class:`GraphDelta` and repair the fragmentation's caches
+        in place (:func:`repro_torch.core.incremental.apply_delta`, on the
+        cache's device).  Queries run after this see the new graph, and
+        ``cache_version`` is bumped.
+
+        On ``backend="shard_map"`` this is the same host repair: every rank
+        holds the whole fragmentation, and the sharded batches recompute
+        from its arrays (their device uploads are keyed on
+        ``arrays_version``, which the delta bumps).  The sharded repair,
+        which would ship only the changed rows, is not ported (ROADMAP
+        queue A, item 6b).
+
+        A delta that fails mid-apply (bad input, a kernel failure, an
+        injected fault) is rolled back: the fragmentation and its caches
+        return to the pre-delta snapshot (``arrays_version`` and
+        ``cache_version`` unchanged, later queries answer on the pre-delta
+        graph), ``stats.rollbacks`` counts it, and a typed
+        :class:`~repro_torch.errors.DeltaApplyFailed` wrapping the cause
+        is raised."""
+        with self._lock:
+            self.stats.updates += 1
+            snap = self.fr.snapshot()
+            try:
+                return incremental.apply_delta(self.fr, delta,
+                                               chaos=self.chaos)
+            except Exception as exc:
+                self.fr.restore(snap)
+                self.stats.rollbacks += 1
+                raise DeltaApplyFailed(exc) from exc
 
     def repair_on(self, fr, delta):
         raise NotImplementedError(
@@ -188,9 +232,11 @@ class QuerySession:
         """Answer a heterogeneous batch; results in submission order.
 
         The batch is grouped by (kind, automaton) and each group is served
-        by one batched execution.  Every result is stamped with the cache
-        snapshot it was computed against.  Thread-safe: the whole batch
-        runs under the session lock.
+        by one batched execution (``cache='amortized'``) or by one one-shot
+        evaluation per query (``cache='none'``).  Every result is stamped
+        with the cache snapshot it was computed against (``None`` for
+        uncached execution).  Thread-safe: the whole batch runs under the
+        session lock.
         """
         if version is not None:
             raise NotImplementedError(
@@ -205,9 +251,15 @@ class QuerySession:
             self.last_plan = plan
             results: List[Optional[QueryResult]] = [None] * len(queries)
             for group in plan.groups:
-                self._run_group_cached(fr, group, results)
+                if self.cache_mode == "amortized":
+                    self._run_group_cached(fr, group, results)
+                else:
+                    self._run_group_uncached(fr, group, results)
+            # uncached execution never consults the cache: stamp None even
+            # if a cache happens to exist on the shared fragmentation
             c = fr.rvset_cache
-            stamp = None if c is None else c.version
+            stamp = (None if c is None or self.cache_mode != "amortized"
+                     else c.version)
         for r in results:
             r.cache_version = stamp
             r.status = Status.DONE
@@ -282,6 +334,24 @@ class QuerySession:
             return _cache.dis_dist_batch(fr, pairs, self.device)
         return _cache.dis_rpq_batch(fr, pairs, qa, self.device)
 
+    def _run_group_uncached(self, fr: Fragmentation, group: ExecutionGroup,
+                            results) -> None:
+        """The one-shot engine, one evaluation per query (cache='none')."""
+        dev = self.device
+        for i, q in zip(group.indices, group.queries):
+            if group.kind == "reach":
+                results[i] = exec_reach(fr, q.s, q.t,
+                                        return_matrix=q.return_matrix,
+                                        device=dev)
+            elif group.kind == "dist":
+                results[i] = exec_dist(fr, q.s, q.t, bound=q.bound,
+                                       device=dev)
+            else:
+                results[i] = exec_rpq(fr, q.s, q.t, group.automaton,
+                                      return_matrix=q.return_matrix,
+                                      device=dev)
+            self.stats.executions += 1
+
     def _group_stats(self, fr: Fragmentation,
                      group: ExecutionGroup) -> List[QueryStats]:
         """Per-query stats whose SUM over the group is exact: a fused group
@@ -320,3 +390,133 @@ class QuerySession:
         if q.s == q.t:
             return QueryResult(bool(qa.nullable), 0, stats)
         return QueryResult(bool(ans), None, stats)
+
+
+# ---------------------------------------------------------------------------
+# per-fragmentation default sessions (what the core.api shims delegate to)
+# ---------------------------------------------------------------------------
+
+def default_session(fr: Fragmentation, cache: str = "amortized",
+                    device=None) -> QuerySession:
+    """Memoized vmap-backend session attached to ``fr``, one per cache mode
+    and device (``None``: the current CUDA device, raising
+    :class:`~repro_torch.errors.NoCudaDevice` without one).  Cache state
+    lives on the fragmentation itself, so default sessions and explicitly
+    connected ones share it."""
+    dev = _resolve_device(device)
+    key = f"_default_session_{cache}_{dev}"
+    sess = fr.__dict__.get(key)
+    if sess is None:
+        sess = QuerySession(fr, backend="vmap", cache=cache, device=dev)
+        fr.__dict__[key] = sess
+    return sess
+
+
+# ---------------------------------------------------------------------------
+# the one-shot engine (paper Figs. 3-7): full localEval + evalDG per query
+# ---------------------------------------------------------------------------
+#
+# Answer extraction (coordinator side):
+#   * source row  = reserved row B-2 (s), in automaton state u_s for RPQs;
+#   * target cols = reserved col B-1 (t reached inside t's fragment) plus
+#     the column b_index[t] when t is itself a boundary in-node (t reached
+#     through a cross edge that lands on it).
+
+def _tgt_cols(fr: Fragmentation, t: int, device, states: int = 1,
+              final: int = 0) -> torch.Tensor:
+    cols = np.zeros(fr.B * states, dtype=bool)
+    cols[fr.T_COL * states + final] = True
+    bt = int(fr.b_index[t])
+    if bt >= 0:
+        cols[bt * states + final] = True
+    return torch.tensor(cols, device=device)
+
+
+def _src_rows(fr: Fragmentation, device, states: int = 1,
+              start: int = 0) -> torch.Tensor:
+    rows = np.zeros(fr.B * states, dtype=bool)
+    rows[fr.S_ROW * states + start] = True
+    return torch.tensor(rows, device=device)
+
+
+def _query_inputs(fr: Fragmentation, s: int, t: int, device):
+    """The fragment arrays (copied onto ``device``, never aliasing the host
+    buffers that ``apply_delta`` mutates) and the [k] slots of s and t."""
+    arrs = _cache._upload_arrays(fr, device)
+    qs = query_slots(fr, s, t)
+    return (arrs, _cache._upload(qs["s_local"], device),
+            _cache._upload(qs["t_local"], device))
+
+
+def exec_reach(fr: Fragmentation, s: int, t: int,
+               return_matrix: bool = False, device=None) -> QueryResult:
+    """disReach (paper Fig. 3): localEval on every fragment, one assembly
+    of the dependency matrix D [B, B] (each fragment's row block written
+    into one buffer), then evalDG through the or-and kernel."""
+    if s == t:
+        return QueryResult(True, 0, QueryStats(0, 0, fr.B, 1))
+    dev = _resolve_device(device)
+    arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
+    rows, block = engine.local_eval_reach(
+        arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
+        arrs["tgt_local"], s_local, t_local, n_max=fr.n_max, B=fr.B)
+    D = torch.zeros((fr.B, fr.B), dtype=torch.bool, device=dev)
+    D[rows] = block
+    del block
+    ans = engine.evaldg_reach(D, _src_rows(fr, dev), _tgt_cols(fr, t, dev))
+    stats = QueryStats(payload_bits=fr.traffic_bits("reach"),
+                       collective_rounds=1, boundary=fr.B, states=1)
+    return QueryResult(ans, None, stats,
+                       D.cpu().numpy() if return_matrix else None)
+
+
+def exec_dist(fr: Fragmentation, s: int, t: int,
+              bound: Optional[int] = None, device=None) -> QueryResult:
+    """disDist (paper Sec. 4): bounded reachability q_br(s, t, l), with the
+    local propagations capped at the bound; with ``bound=None`` the exact
+    dist(s, t) (unreachable: distance None).  evalDG runs through the
+    min-plus kernel."""
+    if s == t:
+        ok = bound is None or 0 <= bound
+        return QueryResult(ok, 0, QueryStats(0, 0, fr.B, 1))
+    cap = INF if bound is None else int(bound)
+    dev = _resolve_device(device)
+    arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
+    rows, block = engine.local_eval_dist(
+        arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
+        arrs["tgt_local"], s_local, t_local, cap, n_max=fr.n_max, B=fr.B)
+    W = torch.full((fr.B, fr.B), INF, dtype=torch.int32, device=dev)
+    W[rows] = block
+    del block
+    d = engine.evaldg_dist(W, _src_rows(fr, dev), _tgt_cols(fr, t, dev))
+    reachable = d < INF
+    answer = reachable if bound is None else (reachable and d <= bound)
+    stats = QueryStats(payload_bits=fr.traffic_bits("dist"),
+                       collective_rounds=1, boundary=fr.B, states=1)
+    # a failed bounded query reports no distance: with the propagation
+    # capped at the bound, d is not the true distance past it
+    return QueryResult(answer, d if (reachable and answer) else None, stats)
+
+
+def exec_rpq(fr: Fragmentation, s: int, t: int, qa: QueryAutomaton,
+             return_matrix: bool = False, device=None) -> QueryResult:
+    """disRPQ (paper Sec. 5): product-automaton localEval_r, assembled one
+    fragment at a time into D [(B*Q), (B*Q)], then evalDG_r through the
+    or-and kernel."""
+    Q = qa.n_states
+    if s == t:
+        return QueryResult(bool(qa.nullable), 0,
+                           QueryStats(0, 0, fr.B, Q))
+    dev = _resolve_device(device)
+    arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
+    D = engine.regular_rvset(
+        arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
+        arrs["tgt_local"], arrs["labels"], arrs["gids"],
+        _cache._upload(qa.state_labels, dev), _cache._upload(qa.trans, dev),
+        s_local, t_local, s, t, n_max=fr.n_max, B=fr.B, side=fr.B * Q)
+    ans = engine.evaldg_reach(D, _src_rows(fr, dev, Q, qa.start),
+                              _tgt_cols(fr, t, dev, Q, qa.final))
+    stats = QueryStats(payload_bits=fr.traffic_bits("rpq", states=Q),
+                       collective_rounds=1, boundary=fr.B, states=Q)
+    return QueryResult(ans, None, stats,
+                       D.cpu().numpy() if return_matrix else None)

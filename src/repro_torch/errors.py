@@ -47,3 +47,29 @@ class NoCudaDevice(RuntimeError):
             "repro_torch runs on a CUDA device by default and "
             "torch.cuda.is_available() is False; pass device=\"cpu\" to "
             "run on the CPU")
+
+
+class ServingError(Exception):
+    """Base class of every typed serving failure.  ``permanent`` is the
+    retry contract: retrying the same operation cannot succeed when True.
+    ``status`` is the terminal :class:`Status` a future resolves to when
+    this error is its outcome."""
+
+    permanent = False
+    status = Status.FAILED
+
+
+class DeltaApplyFailed(ServingError):
+    """A graph delta failed mid-apply and the fragmentation and its caches
+    were rolled back to the pre-delta snapshot (``arrays_version`` and
+    ``cache_version`` unchanged; queries keep answering against the
+    pre-delta graph).  ``cause`` is the underlying failure."""
+
+    status = Status.FAILED
+
+    def __init__(self, cause: BaseException):
+        self.cause = cause
+        self.rolled_back = True
+        self.permanent = getattr(cause, "permanent", False)
+        super().__init__("graph delta failed and was rolled back "
+                         f"(pre-delta cache intact): {cause!r}")

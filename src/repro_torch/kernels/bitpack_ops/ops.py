@@ -32,21 +32,40 @@ def packed_bits(rows: int, cols: int) -> int:
     return rows * ((cols + 31) // 32) * 32
 
 
+#: elements of the widest temporary per chunk of rows in the packing
+#: helpers (2^27: 512 MiB of int32), so that packing the wire of a
+#: product-automaton matrix (6.4 GB at full size) needs no 26 GB temporary
+CHUNK_ELEMENTS = 1 << 27
+
+
+def _row_chunks(rows: int, per_row: int):
+    """Row slices of at most ``CHUNK_ELEMENTS // per_row`` rows (one at
+    least) covering ``rows``."""
+    step = max(1, CHUNK_ELEMENTS // max(1, per_row))
+    return [slice(r, r + step) for r in range(0, rows, step)]
+
+
 def pack_rows(a: torch.Tensor) -> torch.Tensor:
     """[M, K] bool -> [M, ceil(K/32)] int32 (bit b of word w = a[:, 32w+b]).
 
     Bytes first (eight bits each, summed in uint8), then words built in
     int64 from four bytes and cut to their low 32 bits, so that bit 31
-    lands as the sign bit without an int32 overflow."""
+    lands as the sign bit without an int32 overflow.  Rows go in chunks
+    (:data:`CHUNK_ELEMENTS`)."""
     M, K = a.shape
     W = (K + 31) // 32
-    bits = torch.zeros((M, W * 32), dtype=torch.uint8, device=a.device)
-    bits[:, :K] = a
+    out = torch.empty((M, W), dtype=torch.int32, device=a.device)
     shift8 = torch.arange(8, dtype=torch.uint8, device=a.device)
-    octets = (bits.view(M, W, 4, 8) << shift8).sum(-1, dtype=torch.uint8)
     shift32 = torch.tensor(_SHIFTS8, dtype=torch.int64, device=a.device)
-    words = (octets.long() << shift32).sum(-1)
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    for rows in _row_chunks(M, W * 32):
+        block = a[rows]
+        n = block.shape[0]
+        bits = torch.zeros((n, W * 32), dtype=torch.uint8, device=a.device)
+        bits[:, :K] = block
+        octets = (bits.view(n, W, 4, 8) << shift8).sum(-1, dtype=torch.uint8)
+        words = (octets.long() << shift32).sum(-1)
+        out[rows] = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return out
 
 
 def pack_cols(b: torch.Tensor) -> torch.Tensor:
@@ -57,11 +76,15 @@ def pack_cols(b: torch.Tensor) -> torch.Tensor:
 
 def unpack_rows(ap: torch.Tensor, K: int) -> torch.Tensor:
     """Inverse of :func:`pack_rows`.  ``(w >> b) & 1`` reads bit 31 right
-    even though int32 shifts are arithmetic."""
+    even though int32 shifts are arithmetic.  Rows go in chunks
+    (:data:`CHUNK_ELEMENTS`)."""
     M, W = ap.shape
+    out = torch.empty((M, K), dtype=torch.bool, device=ap.device)
     shifts = torch.arange(32, dtype=torch.int32, device=ap.device)
-    bits = (ap[:, :, None] >> shifts) & 1
-    return bits.reshape(M, W * 32)[:, :K].bool()
+    for rows in _row_chunks(M, W * 32):
+        bits = (ap[rows, :, None] >> shifts) & 1
+        out[rows] = bits.reshape(bits.shape[0], W * 32)[:, :K]
+    return out
 
 
 def pack_payload(m: torch.Tensor) -> torch.Tensor:

@@ -49,8 +49,11 @@ def test_fragment_graph_matches_reference(case):
     for name in ("k", "n_max", "e_max", "s_max", "nb_cap", "B", "n_boundary",
                  "nb_active", "S_ROW", "T_COL", "arrays_version"):
         assert getattr(tfr, name) == getattr(jfr, name), name
-    for name in ("part", "bnodes", "b_index", "frag_sizes", "owner_local"):
+    for name in ("part", "bnodes", "b_index", "frag_sizes", "owner_local",
+                 "n_edges", "src_fill"):
         np.testing.assert_array_equal(getattr(tfr, name), getattr(jfr, name))
+    assert tfr.stubs == jfr.stubs and tfr.reserve == jfr.reserve
+    assert tfr.largest_fragment() == jfr.largest_fragment()
     np.testing.assert_array_equal(tfr.boundary_owner(), jfr.boundary_owner())
     np.testing.assert_array_equal(tfr.boundary_local(), jfr.boundary_local())
     np.testing.assert_array_equal(tfr.slot_index(), jfr.slot_index())
@@ -83,6 +86,41 @@ def test_from_numpy_copies_the_fields():
         assert not np.shares_memory(fr.arrays[name], arr), name
     assert not np.shares_memory(fr.g.src, g.src)
     np.testing.assert_array_equal(fr.slot_index(), jfr.slot_index())
+
+
+def test_from_numpy_takes_the_dynamic_bookkeeping():
+    """A fragmentation carried over with its delta bookkeeping (n_edges,
+    src_fill, stubs, reserve) takes the same delta as the JAX original,
+    array for array, and owns copies of what it was given."""
+    from repro.core import GraphDelta as JDelta
+    jfr, _ = _pair(CASES[3])
+    g = jfr.g
+    fields = dict(n=g.n, src=g.src, dst=g.dst, labels=g.labels,
+                  part=jfr.part, k=jfr.k, bnodes=jfr.bnodes,
+                  b_index=jfr.b_index, n_max=jfr.n_max, e_max=jfr.e_max,
+                  s_max=jfr.s_max, arrays=jfr.arrays,
+                  frag_sizes=jfr.frag_sizes, owner_local=jfr.owner_local,
+                  nb_cap=jfr.nb_cap, n_edges=jfr.n_edges,
+                  src_fill=jfr.src_fill, stubs=jfr.stubs,
+                  reserve=jfr.reserve)
+    fr = tfrag.Fragmentation.from_numpy(fields)
+    assert not np.shares_memory(fr.n_edges, jfr.n_edges)
+    assert fr.stubs == jfr.stubs and fr.stubs[0] is not jfr.stubs[0]
+    other = np.nonzero(jfr.part != jfr.part[0])[0]
+    edges = [(0, int(other[0])), (1, 2), (int(g.src[0]), int(g.dst[0]))]
+    kw = dict(add_src=[u for u, _ in edges[:2]],
+              add_dst=[v for _, v in edges[:2]],
+              del_src=[edges[2][0]], del_dst=[edges[2][1]])
+    want = jfr.apply_delta(JDelta(**kw))
+    got = fr.apply_delta(tfrag.GraphDelta(**kw))
+    np.testing.assert_array_equal(got.dirty, want.dirty)
+    assert (got.new_boundary, got.n_add_intra, got.n_add_cross, got.n_del,
+            got.rebuilt) == (want.new_boundary, want.n_add_intra,
+                             want.n_add_cross, want.n_del, want.rebuilt)
+    for name, arr in jfr.arrays.items():
+        np.testing.assert_array_equal(fr.arrays[name], arr, err_msg=name)
+    np.testing.assert_array_equal(fr.bnodes, jfr.bnodes)
+    assert fr.stubs == jfr.stubs and fr.arrays_version == jfr.arrays_version
 
 
 def test_fragment_graph_rejects_bad_partition():

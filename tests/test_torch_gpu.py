@@ -7,12 +7,15 @@ port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch
-from repro_torch import Dist, Reach, Rpq
+from repro_torch import Dist, GraphDelta, Reach, Rpq
+from repro_torch.core import engine, incremental
 from repro_torch.core.fragments import fragment_graph
 from repro_torch.graph import erdos_renyi, random_partition
 from repro_torch.kernels.bitpack_ops import ops as pops
@@ -21,7 +24,8 @@ from repro_torch.kernels.bitpack_ops import (bitpack_matmul,
                                              pack_rows, pack_rows_ref)
 from repro_torch.core.bes import bool_closure_kmajor
 from repro_torch.kernels.bool_matmul import ops as bops
-from repro_torch.kernels.bool_matmul import (or_and_matmul, or_and_matmul_nt,
+from repro_torch.kernels.bool_matmul import (is_kmajor, kmajor_copy,
+                                             or_and_matmul, or_and_matmul_nt,
                                              or_and_matmul_ref, pitch)
 from repro_torch.kernels.tropical_matmul import ops as tops
 from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
@@ -191,3 +195,201 @@ def test_session_on_card_matches_cpu(cuda):
     assert on_card.rvset_cache.closure.is_cuda
     assert [(r.answer, r.distance, r.stats) for r in got] == \
         [(r.answer, r.distance, r.stats) for r in want]
+
+
+# ---------------------------------------------------------------------------
+# the one-shot engine and incremental repair on the card
+# ---------------------------------------------------------------------------
+
+def _dist_matrix(rng, m, n, density):
+    w = rng.integers(0, 6, (m, n)).astype(np.int32)
+    w[rng.random((m, n)) >= density] = INF
+    return w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2, 300, 1037])
+def test_evaldg_on_card_matches_cpu(cuda, B):
+    """evalDG's vector-matrix steps (M = 1) on the card: the or-and steps
+    through one K-major copy of D, given or made, and the min-plus steps,
+    equal to the CPU; one launch per step."""
+    rng = np.random.default_rng(B)
+    D = rng.random((B, B)) < 3.0 / B
+    W = _dist_matrix(rng, B, B, 3.0 / B)
+    for trial in range(3):
+        src = np.zeros(B, dtype=bool)
+        src[rng.integers(B)] = True
+        tgt = rng.random(B) < 0.1
+        args = [torch.tensor(x) for x in (D, src, tgt)]
+        want = engine.evaldg_reach(*args)
+        Dc = args[0].to(cuda)
+        Dt = kmajor_copy(Dc.T)
+        for given in (None, Dt):
+            before = bops.launches
+            got = engine.evaldg_reach(Dc, args[1].to(cuda), args[2].to(cuda),
+                                      Dt=given)
+            assert got is want
+            assert bops.launches > before
+        args = [torch.tensor(x) for x in (W, src, tgt)]
+        before = tops.launches
+        got = engine.evaldg_dist(*(a.to(cuda) for a in args))
+        assert got == engine.evaldg_dist(*args) and tops.launches > before
+
+
+def _closure_pair(rng, nb, cuda):
+    from repro_torch.core import bes
+    D = rng.random((nb, nb)) < 1.5 / nb
+    C, Ct = bes.bool_closure_kmajor(torch.tensor(D, device=cuda))
+    return C, Ct
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,r", [(300, 64), (1037, 128), (50, 50)])
+def test_rank_update_bool_keeps_the_pair_kmajor(cuda, nb, r):
+    """_rank_update_bool on the card: (C', C'^T) equal the CPU's update,
+    stay transposes of each other, and both live in padded K-major
+    storage; the old pair is left as it was."""
+    rng = np.random.default_rng(nb)
+    C, Ct = _closure_pair(rng, nb, cuda)
+    rows = torch.tensor(rng.random((r, nb)) < 2.0 / nb, device=cuda)
+    idx = rng.choice(nb, size=r, replace=r > nb)
+    old = (C.clone(), Ct.clone())
+    before = bops.launches
+    C2, C2t = incremental._rank_update_bool(C, Ct, rows, idx)
+    assert bops.launches - before >= 4
+    want, want_t = incremental._rank_update_bool(C.cpu(), Ct.cpu(),
+                                                 rows.cpu(), idx)
+    assert torch.equal(C2.cpu(), want) and torch.equal(C2t.cpu(), want_t)
+    assert torch.equal(C2.T, C2t)
+    assert is_kmajor(C2) and is_kmajor(C2t)
+    assert not _storage(C2)[:, nb:].any()
+    assert torch.equal(C, old[0]) and torch.equal(Ct, old[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,r", [(300, 64), (1037, 128)])
+def test_rank_update_tropical_matches_cpu(cuda, nb, r):
+    rng = np.random.default_rng(nb + 1)
+    from repro_torch.core import bes
+    Cd = bes.tropical_closure(torch.tensor(_dist_matrix(rng, nb, nb,
+                                                        2.0 / nb)))
+    rows = torch.tensor(_dist_matrix(rng, r, nb, 3.0 / nb))
+    idx = rng.choice(nb, size=r, replace=False)
+    want = incremental._rank_update_tropical(Cd, rows, idx)
+    before = tops.launches
+    got = incremental._rank_update_tropical(Cd.to(cuda), rows.to(cuda), idx)
+    assert tops.launches - before >= 3
+    assert torch.equal(got.cpu(), want)
+
+
+def _stream(fr, rng):
+    """Inserts in one fragment, a cross insert, a wide insert, a deletion,
+    and a delta past the edge reserve: repair, repair, recompute,
+    recompute, rebuild."""
+    part, n = fr.part, fr.g.n
+    f = int(rng.integers(fr.k))
+    mine, other = np.nonzero(part == f)[0], np.nonzero(part != f)[0]
+    pick = lambda xs: int(rng.choice(xs))
+    yield GraphDelta.insert([(pick(mine), pick(mine)) for _ in range(3)])
+    yield GraphDelta.insert([(pick(mine), pick(other))])
+    yield GraphDelta.insert([(int(rng.integers(n)), int(rng.integers(n)))
+                             for _ in range(4 * fr.k)])
+    e = rng.choice(fr.g.m, size=3, replace=False)
+    yield GraphDelta.delete([(int(fr.g.src[i]), int(fr.g.dst[i]))
+                             for i in e])
+    yield GraphDelta.insert([(pick(mine), pick(other))
+                             for _ in range(fr.e_max)])
+
+
+@pytest.mark.gpu
+def test_delta_stream_on_card_matches_cpu(cuda):
+    """The same delta stream through session.apply on the card and on the
+    CPU: equal UpdateStats, cache tensors and answers after every delta,
+    reaching repair, recompute and rebuild."""
+    g = erdos_renyi(400, 1400, n_labels=3, seed=8)
+    part = random_partition(g, 4, seed=8)
+    reserve = dict(reserve_boundary=16, reserve_edges=32, reserve_stubs=16)
+    on_cpu, on_card = (fragment_graph(g, part, 4, **reserve)
+                       for _ in range(2))
+    cpu = repro_torch.connect(on_cpu, device="cpu").warm(with_dist=True)
+    card = repro_torch.connect(on_card).warm(with_dist=True)
+    rng = np.random.default_rng(8)
+    modes = []
+    for delta in _stream(on_cpu, np.random.default_rng(9)):
+        want = cpu.apply(delta)
+        bops.launches = tops.launches = 0
+        got = card.apply(delta)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        modes.append(got.mode)
+        if got.mode != "repair" or got.changed_rows:
+            assert bops.launches > 0 and tops.launches > 0, got
+        for name in ("bl_frontier", "closure", "closure_t", "bl_dist",
+                     "dist_closure"):
+            t = getattr(on_card.rvset_cache, name)
+            assert t.is_cuda and torch.equal(
+                t.cpu(), getattr(on_cpu.rvset_cache, name)), name
+        assert is_kmajor(on_card.rvset_cache.closure_t)
+        pairs = rng.integers(0, g.n, size=(24, 2))
+        queries = [q for s, t in pairs for q in
+                   (Reach(int(s), int(t)), Dist(int(s), int(t), bound=3))]
+        assert [(r.answer, r.distance) for r in card.run(queries)] == \
+            [(r.answer, r.distance) for r in cpu.run(queries)]
+    assert modes == ["repair", "repair", "recompute", "recompute", "rebuild"]
+
+
+@pytest.mark.gpu
+def test_uncached_session_on_card_matches_cpu(cuda):
+    """connect(fr, cache="none") on the card: the one-shot engine through
+    both kernels, equal to the CPU."""
+    g = erdos_renyi(300, 1200, n_labels=3, seed=6)
+    fr = fragment_graph(g, random_partition(g, 4, seed=6), 4)
+    rng = np.random.default_rng(6)
+    queries = []
+    for i, (s, t) in enumerate(rng.integers(0, g.n, size=(12, 2))):
+        s, t = int(s), int(t)
+        queries.append([Reach(s, t), Dist(s, t), Dist(s, t, bound=2),
+                        Rpq(s, t, regex="(0|1)* 2")][i % 4])
+    want = repro_torch.connect(fr, cache="none", device="cpu").run(queries)
+    bops.launches = tops.launches = 0
+    got = repro_torch.connect(fr, cache="none").run(queries)
+    assert bops.launches > 0 and tops.launches > 0
+    assert fr.rvset_cache is None
+    assert [(r.answer, r.distance, r.stats) for r in got] == \
+        [(r.answer, r.distance, r.stats) for r in want]
+
+
+@pytest.mark.gpu
+def test_failed_delta_rolls_back_on_card(cuda, monkeypatch):
+    """A delta that fails inside the tropical rank update, after the
+    frontiers and the Boolean closure were rebound on the card, rolls
+    back: versions, answers and every cache tensor (the same objects,
+    their contents held against clones) are as before."""
+    from repro_torch import DeltaApplyFailed
+    g = erdos_renyi(400, 1400, n_labels=3, seed=11)
+    fr = fragment_graph(g, random_partition(g, 4, seed=11), 4,
+                        reserve_boundary=16, reserve_edges=32,
+                        reserve_stubs=16)
+    sess = repro_torch.connect(fr).warm(with_dist=True)
+    rng = np.random.default_rng(11)
+    queries = [Dist(int(s), int(t)) for s, t in rng.integers(0, g.n, (32, 2))]
+    before = [(r.answer, r.distance) for r in sess.run(queries)]
+    cache = fr.rvset_cache
+    names = ("bl_frontier", "closure", "closure_t", "bl_dist", "dist_closure")
+    held = {n: (getattr(cache, n), getattr(cache, n).clone()) for n in names}
+    versions = (fr.arrays_version, sess.cache_version)
+
+    def broken(*args):
+        raise RuntimeError("injected")
+
+    monkeypatch.setattr(incremental, "_rank_update_tropical", broken)
+    monkeypatch.setattr(incremental, "changed_row_ids",
+                        lambda fr, dirty: np.arange(fr.nb_active))
+    mine = np.nonzero(fr.part == 0)[0]
+    with pytest.raises(DeltaApplyFailed):
+        sess.apply(GraphDelta.insert([(int(mine[i]), int(mine[-1 - i]))
+                                      for i in range(8)]))
+    assert (fr.arrays_version, sess.cache_version) == versions
+    assert fr.rvset_cache is cache and sess.stats.rollbacks == 1
+    for n, (obj, copy) in held.items():
+        assert getattr(cache, n) is obj and torch.equal(obj, copy), n
+    assert [(r.answer, r.distance) for r in sess.run(queries)] == before

@@ -92,6 +92,24 @@ def test_packing_matches_reference(k):
         words.numel() * 32
 
 
+@pytest.mark.parametrize("shape", [(5, 0), (0, 7), (1, 1), (40, 65)])
+def test_packing_in_row_chunks_and_empty(shape, monkeypatch):
+    """The packing helpers go by row chunks (CHUNK_ELEMENTS) so that a
+    6.4 GB wire needs no 26 GB temporary: chunks of a few rows give the
+    same words as the plain version, and K = 0 or M = 0 give empty
+    words."""
+    m, k = shape
+    rng = np.random.default_rng(m + k)
+    ta = torch.tensor(rng.random((m, k)) < 0.5)
+    want = tpack.pack_rows_ref(ta)
+    for chunk in (pops.CHUNK_ELEMENTS, 64, 1):
+        monkeypatch.setattr(pops, "CHUNK_ELEMENTS", chunk)
+        words = tpack.pack_rows(ta)
+        assert words.shape == (m, (k + 31) // 32)
+        assert torch.equal(words, want)
+        assert torch.equal(tpack.unpack_rows(words, k), ta)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("density", [0.02, 0.3])
 def test_bitpack_matmul_matches_pallas(shape, density):

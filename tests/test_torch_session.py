@@ -14,7 +14,7 @@ from repro.core import build_query_automaton as j_automaton
 from repro.core import fragment_graph as j_fragment
 from repro.graph import erdos_renyi as j_er
 from repro.graph import random_partition as j_random_partition
-from repro_torch import Dist, NoCudaDevice, Reach, Rpq, Status
+from repro_torch import Dist, GraphDelta, NoCudaDevice, Reach, Rpq, Status
 from repro_torch.core.fragments import fragment_graph
 from repro_torch.graph import erdos_renyi, random_partition
 
@@ -133,14 +133,17 @@ def test_unported_paths_raise():
     # the sharded backend is ported, but needs the caller's process group
     with pytest.raises(RuntimeError, match="init_process_group"):
         repro_torch.connect(tfr, backend="shard_map", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        repro_torch.connect(tfr, cache="none", device="cpu")
     with pytest.raises(ValueError):
         repro_torch.connect(tfr, backend="mesh", device="cpu")
+    with pytest.raises(ValueError):
+        repro_torch.connect(tfr, cache="lazy", device="cpu")
+    # the one-shot engine and graph deltas are ported (item 5b and item 6)
+    uncached = repro_torch.connect(tfr, cache="none", device="cpu")
+    assert uncached.run([Reach(0, 1)])[0].answer == oracle_reach(tfr.g, 0, 1)
     sess = repro_torch.connect(tfr, backend="vmap", device="cpu")
     assert sess.backend == "vmap"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sess.apply(None)
+    assert sess.apply(GraphDelta()).mode == "noop"
+    # MVCC (item 8) is not
     with pytest.raises(NotImplementedError, match="item 8"):
         sess.repair_on(tfr, None)
     with pytest.raises(NotImplementedError, match="item 8"):

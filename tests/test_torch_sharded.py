@@ -390,6 +390,7 @@ dist.init_process_group("gloo", init_method="file://" + __STORE__,
 import repro_torch
 from repro_torch import Dist, Reach, Rpq
 from repro_torch.core import distributed as D
+from repro_torch.core import session as QS
 from repro_torch.core.fragments import fragment_graph
 from repro_torch.graph import erdos_renyi, random_partition
 
@@ -419,11 +420,27 @@ for k, n, m in __SCALEOUT__:
             stats_bits=sum(res[i].stats.payload_bits for i in grp.indices),
             rounds=sum(res[i].stats.collective_rounds for i in grp.indices)))
     answers = [[r.answer, r.distance] for r in res]
+    # the single-query one-shot functions: one collective of traffic_bits
+    qa = sess._resolve_automaton(queries[-1])
+    one_shot = []
+    for s, t in pairs[:3]:
+        D.collectives = D.payload_bits = 0
+        ans, mat = D.dis_reach_sharded(fr, s, t, device="cpu")
+        wire = [D.collectives, D.payload_bits]
+        rpq = D.dis_rpq_sharded(fr, s, t, qa, device="cpu")
+        wire += [D.collectives, D.payload_bits]
+        one = QS.exec_reach(fr, s, t, return_matrix=True, device="cpu")
+        one_shot.append(dict(
+            reach=ans, rpq=rpq, wire=wire,
+            d_equal=bool(mat is None or (mat == one.dependency_matrix).all()),
+            traffic=[fr.traffic_bits("reach"),
+                     fr.traffic_bits("rpq", states=qa.n_states)]))
+    answers.append(one_shot)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, answers)
     report[str(k)] = dict(
         backend=sess.backend, d=sess.placement.d, fpd=sess.placement.fpd,
-        pairs=pairs, answers=answers,
+        pairs=pairs, answers=answers[:-1], one_shot=one_shot,
         same_on_every_rank=all(a == answers for a in every),
         n_groups=plan.n_groups, mixed=mixed, groups=groups)
 g4 = erdos_renyi(32, 80, n_labels=3, seed=4)
@@ -505,6 +522,27 @@ def test_scaleout_wire_unchanged_by_packing(ranks_report, k):
     for g in rep["groups"]:
         assert g["bits"] == g["traffic_bits"] == g["stats_bits"], g
     assert rep["mixed"][1] == sum(g["traffic_bits"] for g in rep["groups"])
+
+
+@pytest.mark.parametrize("k", ["16", "32"])
+def test_scaleout_single_query_functions(ranks_report, k):
+    """dis_reach_sharded / dis_rpq_sharded on 8 ranks: the same answer on
+    every rank, equal to the oracles; D equal to the one-rank exec_reach's;
+    exactly one collective each, of traffic_bits bits."""
+    rep = ranks_report[k]
+    assert rep["same_on_every_rank"], rep
+    _, n, m = next(c for c in SCALEOUT if c[0] == int(k))
+    g = erdos_renyi(n, m, n_labels=3, seed=int(k))
+    qa = j_automaton("(0|1)* 2", int)
+    for (s, t), one in zip(rep["pairs"], rep["one_shot"]):
+        assert one["reach"] == oracle_reach(g, s, t)
+        assert one["rpq"] == oracle_rpq(g, s, t, qa)
+        assert one["d_equal"]
+        reach_bits, rpq_bits = one["traffic"]
+        if s == t:
+            assert one["wire"] == [0, 0, 0, 0]
+        else:
+            assert one["wire"] == [1, reach_bits, 2, reach_bits + rpq_bits]
 
 
 def test_scaleout_refuses_more_ranks_than_fragments(ranks_report):
