@@ -15,15 +15,19 @@ non-zero and prints no result line):
 2. parity  — hold each kernel bit-equal to its plain PyTorch version on the
              card over a sweep of shapes and densities (and K = 0), the
              or-and kernel also through its K-major entry with C^T written
-             by the same launch; the bit-packed product also against the
-             or-and kernel, with K = 31, 32, 33 and words whose bit 31 is
-             set.
+             by the same launch; the min-plus kernel also on both of its
+             routes (skinny split-K up to 64 rows, tiles above) with and
+             without a floor (``init=``), twice each; the bit-packed
+             product also against the or-and kernel, with K = 31, 32, 33
+             and words whose bit 31 is set.
 3. main    — the query path at full size: an Erdos-Renyi graph of 16384
              nodes and 65536 edges over 8 labels, randomly cut into 16
              fragments; ``repro_torch.connect(fr)``, ``warm(with_dist=True)``,
              then one ``run`` of 256 Reach + 256 Dist (half bounded at 6).
-             Every answer is checked against a host BFS (scipy), and
-             both kernels must have launched during the run.  The kernels
+             Every answer is checked against a host BFS (scipy), both
+             kernels must have launched during the run, and the min-plus
+             wrapper must have copied no operand (its operands live in
+             16-byte-pitched storage).  The kernels
              are then held against their plain versions on the full
              closure squarings and batch composes of the real operands,
              and timed at those shapes; the or-and squaring also beside
@@ -63,6 +67,12 @@ non-zero and prints no result line):
              is a 6.4 GB matrix whose squaring would outlast a smoke run.
              Answers are checked against a host product-graph BFS.
 
+The min-plus wrapper's operand copies are asserted 0 on the main,
+one-shot and dynamic paths as well.  When the source of an earlier
+min-plus kernel is put at ``build/former/min_plus_matmul.cu``, it is
+built in the build phase and timed beside the current kernel at every
+min-plus shape (``former_ms``).
+
 The second-to-last line of output is a JSON object with one entry per
 kernel, with its launches on each path (``launches`` on the main path,
 ``oneshot_launches``, ``dynamic_launches`` by mode, ...) and its new
@@ -76,6 +86,7 @@ rate that the probe ``csrc/dpx_rate.cu`` measures in the same run.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -129,6 +140,33 @@ def cuda_timed(fn, reps: int, warmup: bool = True):
     return start.elapsed_time(end) / reps, result
 
 
+def graph_timed(fn, reps: int = 50) -> float:
+    """Milliseconds per call of ``fn`` replayed from a CUDA graph: the
+    device's time for its launches without the host's per-call overhead
+    (Python, ctypes, the launch itself), which bounds a call that takes
+    tens of microseconds on the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def dpx_rate() -> float:
     """__viaddmin_s32 operations per second over the whole card, from the
     probe ``csrc/dpx_rate.cu``: 8 blocks of 256 threads per SM (full
@@ -152,6 +190,88 @@ def dpx_rate() -> float:
                                          blocks, iters, stream))
     ms, _ = cuda_timed(launch, 3)
     return blocks * 256 * iters * 8 / (ms * 1e-3)
+
+
+# An earlier version of the min-plus kernel, timed beside the current one at
+# every shape when its source is put here (the directory is not part of the
+# checkout; nothing in the package calls it).  Its C entry point is
+# min_plus_matmul(a, b, c, M, K, N, sa0, sa1, sb0, sb1, ldc, stream).
+FORMER_MIN_PLUS = ROOT / "build" / "former" / "min_plus_matmul.cu"
+
+
+def _start_former_build():
+    """Start nvcc on the former min-plus source, if there is one; returns
+    the process (or None) and the library path."""
+    from repro_torch.kernels import _build
+    if not FORMER_MIN_PLUS.is_file():
+        return None, None
+    lib = FORMER_MIN_PLUS.with_suffix(".so")
+    return subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+         str(FORMER_MIN_PLUS)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True), lib
+
+
+_former = None
+
+
+def former_min_plus(a, b, init=None):
+    """The former kernel on the same operands, through the steps of the
+    wrapper that called it (its checks, the device context, the stream
+    object), so that a launch-bound shape is timed as that path paid for
+    it; a floor is folded in by one ``torch.minimum`` pass, as the paths
+    did before the kernel took it.  Returns None when no former source was
+    built."""
+    import torch
+    if _former is None:
+        return None
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError("former min_plus_matmul takes int32 tensors")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError("former min_plus_matmul shapes do not chain")
+    if a.device != b.device or a.device.type != "cuda":
+        raise ValueError("former min_plus_matmul runs on one CUDA device")
+    lib, fn = _former
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    ints = (M, K, N, *a.stride(), *b.stride(), out.stride(0))
+    if max(ints) >= 2 ** 31:
+        raise ValueError("sizes and strides must fit in int32")
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), *ints, stream)
+    if code:
+        raise RuntimeError(f"former min_plus_matmul launch failed: {code}")
+    return out if init is None else torch.minimum(out, init)
+
+
+def _load_former(proc, lib) -> None:
+    import ctypes
+    global _former
+    if proc is None:
+        print("former min-plus kernel: no source at "
+              f"{FORMER_MIN_PLUS.relative_to(ROOT)}; not timed")
+        return
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"former min-plus kernel build failed:\n{out}")
+    cdll = ctypes.CDLL(str(lib))
+    fn = cdll.min_plus_matmul
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _former = (cdll, fn)
+    print(f"former min-plus kernel built from "
+          f"{FORMER_MIN_PLUS.relative_to(ROOT)}; timed beside the current one")
+
+
+def _time_former(name, want, a, b, init=None, reps=5):
+    """ms of the former kernel computing ``want`` (checked), or None."""
+    if _former is None:
+        return None
+    ms, got = cuda_timed(lambda: former_min_plus(a, b, init), reps)
+    _check_equal(f"former {name}", got, want)
+    return ms
 
 
 def _sass_opcodes(lib: Path):
@@ -186,8 +306,23 @@ def _counted():
 
 
 def _reset_launches():
+    """Set every kernel's launch count, and the min-plus wrapper's operand
+    copy count, to 0."""
     for ops in _counted().values():
         ops.launches = 0
+    _counted()["min_plus_matmul"].copies = 0
+
+
+def _copies() -> int:
+    """Operand copies the min-plus wrapper made since the last reset: the
+    paths hand it padded operands, so a run of them must make none."""
+    return _counted()["min_plus_matmul"].copies
+
+
+def _assert_no_copies(what: str) -> None:
+    if _copies():
+        raise AssertionError(f"{what}: the min-plus wrapper copied "
+                             f"{_copies()} operands into padded storage")
 
 
 def _launches():
@@ -205,7 +340,9 @@ def phase_build() -> dict:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} nvcc {_build.nvcc()}")
     t0 = time.perf_counter()
+    former = _start_former_build()
     paths = _build.build()
+    _load_former(*former)
     print(f"build: {len(paths)} libraries in "
           f"{time.perf_counter() - t0:.1f} s -> {_build.BUILD_DIR}")
     report = {}
@@ -297,8 +434,44 @@ def phase_parity() -> None:
                      min_plus_matmul(a, b[:, ::2]),
                      min_plus_matmul_ref(a, b[:, ::2]))
         n += 2
+    n += _parity_min_plus_routes(dev)
     n += _parity_bitpack(dev)
     print(f"parity: {n} kernel calls bit-equal to their plain versions")
+
+
+# min-plus shapes on both routes with K split over many blocks (skinny) and
+# ragged tiles, each with and without a floor
+MIN_PLUS_ROUTES = [(1, 20011, 3001), (2, 4099, 1037), (33, 1000, 517),
+                   (64, 4099, 1037), (65, 1000, 517), (300, 1000, 261)]
+
+
+def _parity_min_plus_routes(dev) -> int:
+    import torch
+    from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
+                                                     min_plus_matmul_ref)
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    n = 0
+    for si, (m, k, n_) in enumerate(MIN_PLUS_ROUTES):
+        rng = np.random.default_rng([SEED, si, 11])
+        a = rng.integers(0, 1000, (m, k)).astype(np.int32)
+        b = rng.integers(0, 1000, (k, n_)).astype(np.int32)
+        f = rng.integers(0, 3000, (m, n_)).astype(np.int32)
+        a[rng.random((m, k)) < 0.5] = INF
+        b[rng.random((k, n_)) < 0.5] = INF
+        f[rng.random((m, n_)) < 0.5] = INF
+        a, b, f = (tops.padded_i32(*x.shape, dev).copy_(
+            torch.tensor(x, device=dev)) for x in (a, b, f))
+        route = tops._card_route(dev.index or 0, m, k, n_)
+        for floor in (None, f):
+            got = min_plus_matmul(a, b, init=floor)
+            _check_equal(f"min_plus {route.kind} {m}x{k}x{n_} "
+                         f"split {route.split} floor {floor is not None}",
+                         got, min_plus_matmul_ref(a, b, floor))
+            again = min_plus_matmul(a, b, init=floor)
+            _check_equal(f"min_plus {route.kind} {m}x{k}x{n_} twice", again,
+                         got)
+            n += 2
+    return n
 
 
 def _parity_bitpack(dev) -> int:
@@ -407,6 +580,7 @@ def phase_main(out: dict):
                                                  or_and_matmul_ref)
     from repro_torch.kernels.tropical_matmul import (min_plus_matmul,
                                                      min_plus_matmul_ref)
+    from repro_torch.kernels.tropical_matmul import ops as tops
 
     t0 = time.perf_counter()
     g = erdos_renyi(N_NODES, N_EDGES, n_labels=N_LABELS, seed=SEED)
@@ -436,6 +610,7 @@ def phase_main(out: dict):
     for name in ("or_and_matmul", "min_plus_matmul"):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
+    _assert_no_copies("main path")
     checked = _check_reach_dist(g, queries, results)
     print(f"main: cache build (warm, reach + dist) {warm_ms:.1f} ms; "
           f"closure squarings or-and {squarings['or_and_matmul']}, "
@@ -467,13 +642,18 @@ def phase_main(out: dict):
     C, Ct, Cd = cache.closure, cache.closure_t, cache.dist_closure
     eye = torch.eye(nb, dtype=torch.bool, device="cuda")
     A0 = _gather_boundary_matrix(fr, cache.bl_frontier, cache.part_b) | eye
-    W0 = torch.where(eye, 0, _gather_boundary_matrix(fr, cache.bl_dist,
-                                                     cache.part_b))
     del eye
+    # the min-plus operands in padded storage, as the closure and the
+    # per-query phase make them
+    W0 = tops.padded_i32(nb, nb, "cuda").copy_(
+        _gather_boundary_matrix(fr, cache.bl_dist, cache.part_b))
+    W0.diagonal().fill_(0)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sb = torch.rand((N_PER_KIND, nb), device="cuda", generator=gen) < 0.01
-    sbd = W0[torch.randint(0, nb, (N_PER_KIND,), device="cuda",
-                           generator=gen)]
+    sbd = torch.index_select(
+        W0, 0, torch.randint(0, nb, (N_PER_KIND,), device="cuda",
+                             generator=gen),
+        out=tops.padded_i32(N_PER_KIND, nb, "cuda"))
     # operand preparation on its own: the closure's one transposition of
     # D0 | I, a padded copy, and the compose's copy of a batch's sb
     prep_ms = {}
@@ -507,16 +687,28 @@ def phase_main(out: dict):
     Ch = A0.half()
     t_or_lib, _ = cuda_timed(lambda: (Ch @ Ch) > 0, 3)
     del Ch
+    # the library call for the compose: cuBLAS fp16 on the same batch
+    sbh, Cch = sb.half(), C.half()
+    t_or_cp_lib, got = cuda_timed(lambda: (sbh @ Cch) > 0, 5)
+    _check_equal("cuBLAS fp16 compose", got, or_and_matmul_ref(sb, C))
+    del sbh, Cch, got
+    copies = _copies()
     t_mp_plain, want = cuda_timed(lambda: min_plus_matmul_ref(W0, W0), 1,
                                   warmup=False)
     t_mp_sq, got = cuda_timed(lambda: min_plus_matmul(W0, W0), 2)
     _check_equal("min_plus squaring", got, want)
     err_mp = _max_abs_err(got, want)
+    del got
+    t_mp_former = _time_former("min_plus squaring", want, W0, W0, reps=2)
     t_mp_cp_plain, want = cuda_timed(lambda: min_plus_matmul_ref(sbd, Cd), 1)
     t_mp_cp, got = cuda_timed(lambda: min_plus_matmul(sbd, Cd), 5)
     _check_equal("min_plus compose", got, want)
     err_mp = max(err_mp, _max_abs_err(got, want))
+    t_mp_cp_former = _time_former("min_plus compose", want, sbd, Cd)
     del got, want
+    if _copies() != copies:
+        raise AssertionError("the min-plus timings copied an operand")
+    routes = _route_threshold(W0)
     print("main: both kernels bit-equal to their plain versions on the "
           "full squarings and composes")
 
@@ -544,11 +736,15 @@ def phase_main(out: dict):
           f"[{nb},{nb}] through C^T {t_or_cp:.3f} ms (bound {b_or_cp:.3f} ms),"
           f" plain {t_or_cp_plain:.3f} ms; operand preparation (ms) "
           f"{prep_ms}")
+    fmt = lambda ms: "not timed" if ms is None else f"{ms:.3f} ms"
+    print(f"time or_and_matmul compose: cuBLAS fp16 {t_or_cp_lib:.3f} ms")
     print(f"time min_plus_matmul: squaring [{nb}]^2 {t_mp_sq:.3f} ms "
-          f"(bound {b_mp:.3f} ms, {by_mp}, at the measured DPX rate), plain "
-          f"{t_mp_plain:.3f} ms; compose [{N_PER_KIND},{nb}]x[{nb},{nb}] "
-          f"{t_mp_cp:.3f} ms (bound {b_mp_cp:.3f} ms), plain "
-          f"{t_mp_cp_plain:.3f} ms")
+          f"(bound {b_mp:.3f} ms, {by_mp}, at the measured DPX rate, "
+          f"{100 * b_mp / t_mp_sq:.1f} %), plain {t_mp_plain:.3f} ms, former "
+          f"kernel {fmt(t_mp_former)}; compose [{N_PER_KIND},{nb}]x[{nb},{nb}]"
+          f" {t_mp_cp:.3f} ms (bound {b_mp_cp:.3f} ms, "
+          f"{100 * b_mp_cp / t_mp_cp:.1f} %), plain {t_mp_cp_plain:.3f} ms, "
+          f"former kernel {fmt(t_mp_cp_former)}")
     out["kernels"] = [
         {"name": "or_and_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/bool_matmul/csrc/or_and_matmul.cu",
@@ -561,7 +757,7 @@ def phase_main(out: dict):
          "int_mm_note": int_mm_note, "old_route_ms": t_or_old,
          "old_route_bitpack_ms": t_or_old_b3, "prep_ms": prep_ms,
          "compose_ms": t_or_cp, "compose_plain_ms": t_or_cp_plain,
-         "compose_bound_ms": b_or_cp,
+         "compose_bound_ms": b_or_cp, "compose_library_ms": t_or_cp_lib,
          "squarings": squarings["or_and_matmul"],
          **out["build"]["or_and_matmul"]},
         {"name": "min_plus_matmul", "route": "cuda",
@@ -574,11 +770,56 @@ def phase_main(out: dict):
          "shape": f"[{nb},{nb}]x[{nb},{nb}]",
          "compose_ms": t_mp_cp, "compose_plain_ms": t_mp_cp_plain,
          "compose_bound_ms": b_mp_cp, "dpx_ops_per_s": dpx_per_s,
+         "former_ms": t_mp_former, "compose_former_ms": t_mp_cp_former,
+         "route_threshold": routes,
+         "dispatch": {
+             "squaring": tops._card_route(0, nb, nb, nb)._asdict(),
+             "compose": tops._card_route(0, N_PER_KIND, nb, nb)._asdict()},
          "squarings": squarings["min_plus_matmul"]},
     ]
     out["main"] = {"warm_ms": warm_ms, "run_ms": run_ms,
                    "per_query_us": per_query_us, "nb": nb}
     return g, fr, queries, results
+
+
+ROUTE_ROWS = (1, 8, 16, 32, 64)
+
+
+def _route_threshold(W0) -> dict:
+    """The min-plus kernel's two routes side by side at the products the
+    skinny route takes, ``W0[:M] (x) W0`` for M in ``ROUTE_ROWS``: the
+    wrapper (skinny) against the tile entry called directly on the same
+    operands, bit-equal; and the skinny blocks an SM holds by rows per
+    thread.  Evidence for ``ops.SKINNY_MAX_M``."""
+    import torch
+    from repro_torch.kernels.tropical_matmul import min_plus_matmul
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    lib, tile, _, per_sm, check = tops._entries()
+    nb = W0.shape[0]
+    occupancy = {rows: per_sm(rows, 2 if rows > 32 else 4)
+                 for rows in tops.PER_SM_GUESS}
+    times = {}
+    for m in ROUTE_ROWS:
+        a = W0[:m]
+        out = tops.padded_i32(m, nb, W0.device)
+
+        def tiled():
+            check(lib, "min_plus_tile", tile(
+                a.data_ptr(), W0.data_ptr(), None, out.data_ptr(), m, nb,
+                nb, a.stride(0), W0.stride(0), 0, out.stride(0),
+                torch.cuda.current_stream().cuda_stream))
+            return out
+        skinny_ms, got = cuda_timed(lambda: min_plus_matmul(a, W0), 5)
+        tile_ms, want = cuda_timed(tiled, 5)
+        _check_equal(f"min_plus skinny vs tile, M = {m}", got, want)
+        times[m] = {"skinny_ms": skinny_ms, "tile_ms": tile_ms,
+                    "route": tops._card_route(0, m, nb, nb)._asdict()}
+    print(f"time min_plus_matmul routes at [M,{nb}]x[{nb},{nb}] (ms, skinny "
+          f"/ tile): " + ", ".join(f"M={m} {t['skinny_ms']:.4f} / "
+                                   f"{t['tile_ms']:.4f}"
+                                   for m, t in times.items())
+          + f"; skinny blocks per SM by rows {occupancy}")
+    return {"times": times, "skinny_blocks_per_sm": occupancy}
 
 
 # ---------------------------------------------------------------------------
@@ -768,37 +1009,82 @@ def _mixed_queries(n, rng, count):
             for i, (s, t) in enumerate(pairs)]
 
 
-def _mm_bound(m, k, n, kind, dpx_per_s, transpose=False):
+def _mm_bound(m, k, n, kind, dpx_per_s, transpose=False, floor=False):
     """(ms, bound_by) of one [m, k] x [k, n] product: or-and ("or_and",
     2mkn int8 tensor-core operations on 1-byte operands, C^T too when
-    ``transpose``) or min-plus ("min_plus", mkn DPX operations on int32)."""
+    ``transpose``) or min-plus ("min_plus", mkn DPX operations on int32,
+    an [m, n] floor read too when ``floor``)."""
     if kind == "or_and":
         return _bound(2 * m * k * n, INT8_TENSOR_OPS_PER_S,
                       m * k + k * n + m * n * (2 if transpose else 1))
-    return _bound(m * k * n, dpx_per_s, 4 * (m * k + k * n + m * n))
+    return _bound(m * k * n, dpx_per_s,
+                  4 * (m * k + k * n + m * n * (2 if floor else 1)))
+
+
+#: a min-plus call faster than this (ms) is launch-bound: it is timed in
+#: LAUNCH_BOUND_TURNS turns with the former kernel, and from a CUDA graph
+LAUNCH_BOUND_MS = 0.1
+LAUNCH_BOUND_TURNS = 7
 
 
 def _time_shape(name, kind, run, plain, library, m, k, n, dpx_per_s,
-                transpose=False, reps=20) -> dict:
+                transpose=False, reps=20, former=None, floor=False) -> dict:
     """One launch shape of a kernel: its time on the given operands beside
-    its plain version's (bit-equal), its bound and a library call's."""
+    its plain version's (bit-equal), its bound and a library call's; for
+    the min-plus kernel also its route and, when ``former`` is given and a
+    former kernel was built, that kernel's time on the same function."""
     ms, got = cuda_timed(run, reps)
     plain_ms, want = cuda_timed(plain, 1, warmup=False)
     got_c = got[0] if transpose else got
     _check_equal(name, got_c, want)
     if transpose:
         _check_equal(name + " C^T", got[1], want.T)
-    del got, want
+    del got
+    former_ms = None if former is None else _time_former(name, want, *former)
+    del want
     lib_ms = None if library is None else cuda_timed(library, 3)[0]
-    bound_ms, by = _mm_bound(m, k, n, kind, dpx_per_s, transpose)
+    bound_ms, by = _mm_bound(m, k, n, kind, dpx_per_s, transpose, floor)
+    entry = {"shape": f"[{m},{k}]x[{k},{n}]" + (", C and C^T" if transpose
+                                                 else "")
+             + (", floor" if floor else ""),
+             "path": name, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+             "max_abs_err": 0.0}
+    if kind == "min_plus":
+        from repro_torch.kernels.tropical_matmul import ops as tops
+        entry["dispatch"] = tops._card_route(0, m, k, n)._asdict()
+        entry["former_ms"] = former_ms
+        if ms < LAUNCH_BOUND_MS:
+            # launch-bound: host time, which spreads from run to run, so
+            # the two kernels take turns and each reports its median; and
+            # the device's time alone, from a CUDA graph
+            if former_ms is not None:
+                old = lambda: former_min_plus(*former[:3])
+                turns = []                 # (new ms, former ms), in turns
+                for i in range(LAUNCH_BOUND_TURNS):
+                    order = (run, old) if i % 2 == 0 else (old, run)
+                    first, second = (cuda_timed(f, reps)[0] for f in order)
+                    turns.append((first, second) if i % 2 == 0
+                                 else (second, first))
+                ms = statistics.median(t[0] for t in turns)
+                former_ms = statistics.median(t[1] for t in turns)
+                entry.update(ms=ms, former_ms=former_ms, turns_ms=turns)
+            entry["graph_ms"] = graph_timed(run)
+            entry["former_graph_ms"] = (
+                None if former_ms is None
+                else graph_timed(lambda: former_min_plus(*former[:3])))
+            fg = entry["former_graph_ms"]
+            print(f"time {name}: launch-bound; from a CUDA graph "
+                  f"{entry['graph_ms']:.4f} ms, former kernel "
+                  f"{'not timed' if fg is None else f'{fg:.4f} ms'}")
     print(f"time {name} [{m},{k}]x[{k},{n}]: {ms:.4f} ms (bound "
           f"{bound_ms:.4f} ms, {by}, {100 * bound_ms / ms:.1f} %), plain "
           f"{plain_ms:.3f} ms, library "
-          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-    return {"shape": f"[{m},{k}]x[{k},{n}]" + (", C and C^T" if transpose
-                                                else ""),
-            "path": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": lib_ms, "max_abs_err": 0.0}
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+          + ("" if kind != "min_plus" else
+             f", route {entry['dispatch']}, former kernel "
+             f"{'not timed' if former_ms is None else f'{former_ms:.4f} ms'}"))
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -837,8 +1123,7 @@ def _split_one_shot(fr, s, t, kind, qa=None):
     elif kind == "dist":
         rows, block = engine.local_eval_dist(*a, s_local, t_local,
                                              n_max=fr.n_max, B=fr.B)
-        D = torch.full((fr.B, fr.B), engine.INF, dtype=torch.int32,
-                       device=dev)
+        D = tops.padded_i32(fr.B, fr.B, dev).fill_(engine.INF)
         D[rows] = block
         del block
     else:
@@ -943,6 +1228,7 @@ def phase_oneshot(out: dict, g, fr) -> None:
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the one-shot "
                                  "path")
+    _assert_no_copies("one-shot path")
     if any(r.cache_version is not None for r in results):
         raise AssertionError("an uncached result carries a cache version")
     for q, r in zip(queries, results):
@@ -986,8 +1272,11 @@ def phase_oneshot(out: dict, g, fr) -> None:
     sd, td = int(pairs[half, 0]), int(pairs[half, 1])
     split["dist"], _, W, _, srcd = _split_one_shot(fr, sd, td, "dist")
     from repro_torch.core.engine import INF
-    d = torch.where(srcd, 0, INF).to(torch.int32)
-    d = torch.minimum(d, min_plus_matmul(d[None, :], W)[0])
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    # one step's vector, in padded storage as evaldg_dist keeps it
+    d = tops.padded_i32(1, fr.B, "cuda")[0].fill_(INF)
+    d.masked_fill_(srcd, 0)
+    d = min_plus_matmul(d[None, :], W, init=d[None, :])[0]
     sr, tr = int(rpq_pairs[0, 0]), int(rpq_pairs[0, 1])
     split["rpq"], _, Dq, Dqt, _ = _split_one_shot(fr, sr, tr, "rpq", qa)
     del Dq, Dqt
@@ -1041,9 +1330,10 @@ def phase_oneshot(out: dict, g, fr) -> None:
         lambda: (xr.half() @ Dh) > 0, 1, B, B, dpx)],
         "min_plus_matmul": [_time_shape(
             "evaldg_dist step", "min_plus",
-            lambda: min_plus_matmul(d[None, :], W),
-            lambda: min_plus_matmul_ref(d[None, :], W), None, 1, B, B,
-            dpx)]}
+            lambda: min_plus_matmul(d[None, :], W, init=d[None, :]),
+            lambda: min_plus_matmul_ref(d[None, :], W, d[None, :]), None,
+            1, B, B, dpx, former=(d[None, :], W, d[None, :], 20),
+            floor=True)]}
     del Dh, D, Dt, W
     torch.cuda.empty_cache()
     out["oneshot"] = {"run_ms": run_ms, "launches": launches,
@@ -1153,24 +1443,31 @@ def _rank_update_shapes(args: dict, dpx_per_s) -> dict:
                       lambda: (left_h @ T_h) > 0, nb, r, nb, dpx_per_s,
                       transpose=True)]
     del rows_h, C_h, Ck_h, Mc_h, left_h, T_h
+    from repro_torch.kernels.tropical_matmul import ops as tops
     Cd, rows_d, idx_d = args["tropical"]
     idx_d = torch.as_tensor(idx_d, dtype=torch.long, device=Cd.device)
     Td = min_plus_matmul(rows_d, Cd)
     Mcd = bes.tropical_closure(Td[:, idx_d])
-    Cdr = Cd[:, idx_d]
+    Cdr = torch.index_select(Cd, 1, idx_d,
+                             out=tops.padded_i32(nb, r, Cd.device))
     left_d = min_plus_matmul(Cdr, Mcd)
+    copies = _copies()
     b2 = [_time_shape("rank update T", "min_plus",
                       lambda: min_plus_matmul(rows_d, Cd),
                       lambda: min_plus_matmul_ref(rows_d, Cd), None,
-                      r, nb, nb, dpx_per_s),
+                      r, nb, nb, dpx_per_s, former=(rows_d, Cd)),
           _time_shape("rank update left", "min_plus",
                       lambda: min_plus_matmul(Cdr, Mcd),
                       lambda: min_plus_matmul_ref(Cdr, Mcd), None,
-                      nb, r, r, dpx_per_s),
+                      nb, r, r, dpx_per_s, former=(Cdr, Mcd, None, 20)),
+          # the last product takes C as its floor, as the repair calls it
           _time_shape("rank update P", "min_plus",
-                      lambda: min_plus_matmul(left_d, Td),
-                      lambda: min_plus_matmul_ref(left_d, Td), None,
-                      nb, r, nb, dpx_per_s)]
+                      lambda: min_plus_matmul(left_d, Td, init=Cd),
+                      lambda: min_plus_matmul_ref(left_d, Td, Cd), None,
+                      nb, r, nb, dpx_per_s, former=(left_d, Td, Cd),
+                      floor=True)]
+    if _copies() != copies:
+        raise AssertionError("the rank-update timings copied an operand")
     return {"or_and_matmul": b1, "min_plus_matmul": b2}
 
 
@@ -1236,6 +1533,7 @@ def phase_dynamic(out: dict, g) -> None:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = _launches()
+        _assert_no_copies(f"dynamic {label} delta")
         applies.append({"delta": label, "mode": stats.mode, "ms": ms,
                         "changed_rows": stats.changed_rows,
                         "new_boundary": stats.new_boundary,
@@ -1496,6 +1794,14 @@ def main() -> int:
             for mode, n in out["dynamic"]["launches_by_mode"].items()}
         k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
                            + out["dynamic"]["shapes"].get(name, []))
+        if name == "min_plus_matmul":
+            shapes = {s["path"]: s for s in k["new_shapes"]}
+            k["skinny_ms"] = shapes["evaldg_dist step"]["ms"]
+            k["p_ms"] = shapes["rank update P"]["ms"]
+            k["dispatch"].update({path: s["dispatch"]
+                                  for path, s in shapes.items()})
+            # asserted 0 on each path: main, one-shot, every delta
+            k["copies"] = {"main": 0, "oneshot": 0, "dynamic": 0}
     print(out["card"])            # nvidia-smi: name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ from typing import Tuple
 import torch
 
 from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
-from ..kernels.tropical_matmul.ops import min_plus_matmul
+from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 
 
 def _ceil_log2(b: int) -> int:
@@ -58,10 +58,12 @@ def tropical_closure(W: torch.Tensor) -> torch.Tensor:
     W := W (min,+) W, clipped at INF by the product, with the stop rule of
     :func:`bool_closure`.  The zero diagonal makes the product at most W,
     so it equals the reference's min(W, W (min,+) W).  Entries of W lie
-    in [0, INF], the product's precondition."""
+    in [0, INF], the product's precondition.  W is copied once into padded
+    storage (rows 16 bytes apart), as are the products, so no squaring
+    copies an operand."""
     B = W.shape[-1]
-    W = torch.where(torch.eye(B, dtype=torch.bool, device=W.device), 0,
-                    W).to(torch.int32)
+    W = padded_i32(B, B, W.device).copy_(W)
+    W.diagonal().fill_(0)
     if B == 0:
         return W
     for _ in range(_ceil_log2(B)):

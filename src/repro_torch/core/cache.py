@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
-from ..kernels.tropical_matmul.ops import min_plus_matmul
+from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 from . import bes, engine
 from .automaton import QueryAutomaton
 from .engine import INF
@@ -128,6 +128,13 @@ class RvsetCache:
 def _upload(x, device) -> torch.Tensor:
     """Copy a host array onto ``device`` (never an alias of ``x``)."""
     return torch.tensor(np.asarray(x), device=device)
+
+
+def _upload_padded(x, device) -> torch.Tensor:
+    """An int32 host matrix copied onto ``device`` into padded storage (rows
+    16 bytes apart), the min-plus kernel's operand layout."""
+    x = np.asarray(x, dtype=np.int32)
+    return padded_i32(*x.shape, device).copy_(torch.tensor(x))
 
 
 def _upload_arrays(fr: Fragmentation, device) -> Dict[str, torch.Tensor]:
@@ -226,8 +233,8 @@ def load_rvset_state(fr: Fragmentation, arrays: Dict[str, np.ndarray],
         closure=closure, closure_t=kmajor_copy(closure.T),
         part_b=fr.boundary_owner(),
         bl_dist=None if dist is None else _upload(dist, device),
-        dist_closure=(None if dist is None
-                      else _upload(arrays["dist_closure"], device)))
+        dist_closure=(None if dist is None else _upload_padded(
+            arrays["dist_closure"], device)))
     fr.rvset_cache = cache
     return cache
 
@@ -421,13 +428,16 @@ def local_stage_rpq(esrc, edst, src_local, src_row, tgt_local, labels, gids,
 
 def _per_query(fr, cache, frag_s, s_slot, t_slot_sfrag, single_source):
     """Single-source propagation of every pair on its source's fragment;
-    returns (direct [N], sb [N, nb])."""
+    returns (direct [N], sb [N, nb]).  An int32 sb is gathered into padded
+    storage, the min-plus compose's operand layout."""
     arrs = cache.arrays
     f = single_source(arrs["esrc"][frag_s], arrs["edst"][frag_s], s_slot,
                       n_max=fr.n_max)                      # [N, n+1]
     direct = torch.gather(f, 1, t_slot_sfrag[:, None])[:, 0]
     tgt_s = arrs["tgt_local"][frag_s][:, : cache.nb].long()
-    return direct, torch.gather(f, 1, tgt_s)
+    out = (padded_i32(*tgt_s.shape, f.device) if f.dtype == torch.int32
+           else None)
+    return direct, torch.gather(f, 1, tgt_s, out=out)
 
 
 def _t_column(bl, t_cols):

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
-from ..kernels.tropical_matmul.ops import min_plus_matmul
+from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 
 INF = 1 << 29          # with int32 tensors; INF + INF still fits in int32
 
@@ -294,12 +294,15 @@ def evaldg_dist(W, src_rows, tgt_cols) -> int:
     """Single-source tropical fixpoint on W [B, B] int32 (Bellman-Ford on
     the dependency graph: the paper uses Dijkstra, Bellman-Ford is its
     matrix form): d := min(d, d (min-plus) W) until nothing changes, one
-    min-plus vector-matrix product (M = 1) a step.  Returns the least
-    distance onto ``tgt_cols`` (INF if none is reached)."""
-    d = torch.where(src_rows, 0, INF).to(torch.int32)
+    min-plus vector-matrix product (M = 1) a step, with d as its floor
+    (``init``).  d lives in padded storage, as the products do, so no step
+    copies an operand.  Returns the least distance onto ``tgt_cols`` (INF if
+    none is reached)."""
+    d = padded_i32(1, W.shape[0], W.device)[0].fill_(INF)
+    d.masked_fill_(src_rows, 0)
     if bool((d < INF).any()):
         while True:
-            nxt = torch.minimum(d, min_plus_matmul(d[None, :], W)[0])
+            nxt = min_plus_matmul(d[None, :], W, init=d[None, :])[0]
             if torch.equal(nxt, d):
                 break
             d = nxt

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt, pitch
-from ..kernels.tropical_matmul.ops import min_plus_matmul
+from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 from . import bes, engine
 from .cache import _gather_boundary_matrix, _upload, prepare_rvset_cache
 from .engine import INF
@@ -288,12 +288,18 @@ def _rank_update_bool(C, Ct, rows_new, idx):
 def _rank_update_tropical(Cd, rows_new, idx):
     """Min-plus twin of :func:`_rank_update_bool` on the distance closure
     (the kernel clips every product at INF): three min-plus launches and
-    the r x r closure."""
+    the r x r closure.  The last product takes Cd as its floor (``init``)
+    and returns C' in fresh padded storage; Cd is left as it was.
+    ``C[:, R]`` is gathered into padded storage, so with a padded
+    ``rows_new`` no product copies an operand."""
     idx_t = torch.as_tensor(idx, dtype=torch.long, device=Cd.device)
     T = min_plus_matmul(rows_new, Cd)                      # [r, nb]
     Mc = bes.tropical_closure(T[:, idx_t])
-    left = min_plus_matmul(Cd[:, idx_t], Mc)               # [nb, r]
-    return torch.minimum(Cd, min_plus_matmul(left, T))
+    cols = torch.index_select(Cd, 1, idx_t,
+                              out=padded_i32(Cd.shape[0], len(idx_t),
+                                             Cd.device))
+    left = min_plus_matmul(cols, Mc)                       # [nb, r]
+    return min_plus_matmul(left, T, init=Cd)
 
 
 def _repair_insert(cache, dirty: np.ndarray) -> int:
@@ -329,8 +335,11 @@ def _repair_insert(cache, dirty: np.ndarray) -> int:
     cache.closure, cache.closure_t = _rank_update_bool(
         cache.closure, cache.closure_t, rows_new[pick], idx)
     if rows_d_new is not None:
+        rows_d = torch.index_select(
+            rows_d_new, 0, pick,
+            out=padded_i32(len(pick), fr.n_boundary, cache.device))
         cache.dist_closure = _rank_update_tropical(
-            cache.dist_closure, rows_d_new[pick], idx)
+            cache.dist_closure, rows_d, idx)
     return int(sel.size)
 
 

@@ -41,6 +41,7 @@ import torch.distributed as dist
 from . import cache as _cache
 from . import distributed, engine, incremental
 from ..errors import DeltaApplyFailed, NoCudaDevice, Status
+from ..kernels.tropical_matmul.ops import padded_i32
 from .automaton import QueryAutomaton, build_query_automaton
 from .engine import INF, QueryStats
 from .fragments import Fragmentation, GraphDelta, Placement, query_slots
@@ -485,7 +486,9 @@ def exec_dist(fr: Fragmentation, s: int, t: int,
     rows, block = engine.local_eval_dist(
         arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
         arrs["tgt_local"], s_local, t_local, cap, n_max=fr.n_max, B=fr.B)
-    W = torch.full((fr.B, fr.B), INF, dtype=torch.int32, device=dev)
+    # padded storage (rows 16 bytes apart): every evalDG step reads W as
+    # it is, without a copy
+    W = padded_i32(fr.B, fr.B, dev).fill_(INF)
     W[rows] = block
     del block
     d = engine.evaldg_dist(W, _src_rows(fr, dev), _tgt_cols(fr, t, dev))

@@ -30,6 +30,8 @@ from repro_torch.kernels.bool_matmul import (is_kmajor, kmajor_copy,
 from repro_torch.kernels.tropical_matmul import ops as tops
 from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
                                                  min_plus_matmul_ref)
+from repro_torch.kernels.tropical_matmul.ops import (is_aligned, padded_i32,
+                                                     pitch_i32)
 
 SHAPES = [(128, 128, 128), (7, 200, 33), (256, 64, 128), (1, 1, 1),
           (130, 257, 5), (64, 512, 64), (5, 0, 7), (300, 1000, 260)]
@@ -153,6 +155,78 @@ def test_min_plus_kernel_matches_plain(cuda, shape):
     assert torch.equal(got, min_plus_matmul_ref(a, b))
     assert torch.equal(min_plus_matmul(a.T.contiguous().T, b[:, ::2]),
                        min_plus_matmul_ref(a, b[:, ::2]))
+
+
+def _tropical(rng, shape, density=0.7, top=50):
+    x = rng.integers(0, top, shape).astype(np.int32)
+    x[rng.random(shape) >= density] = INF
+    return x
+
+
+def _on_card_padded(x, cuda):
+    return padded_i32(*x.shape, cuda).copy_(torch.tensor(x, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 2, 7, 8, 63, 64, 65, 256])
+@pytest.mark.parametrize("K", [0, 1, 33, 4099])
+def test_min_plus_routes_match_plain(cuda, M, K):
+    """Both routes (skinny up to 64 rows, tile above), ragged N, entries at
+    INF, with and without the floor ``init=``: bit-equal to the plain
+    version, one launch each, no operand copied, the output padded and
+    ``init`` untouched."""
+    N = 1037
+    rng = np.random.default_rng(M * 10007 + K)
+    a, b = _tropical(rng, (M, K)), _tropical(rng, (K, N))
+    init = _tropical(rng, (M, N), 0.2, top=200)
+    ta, tb, ti = (_on_card_padded(x, cuda) for x in (a, b, init))
+    held = ti.clone()
+    for floor in (None, ti):
+        launches, copies = tops.launches, tops.copies
+        got = min_plus_matmul(ta, tb, init=floor)
+        assert tops.launches == launches + 1 and tops.copies == copies
+        assert got.stride() == (pitch_i32(N), 1) and is_aligned(got)
+        assert got.data_ptr() != ti.data_ptr()
+        assert torch.equal(got, min_plus_matmul_ref(ta, tb, floor))
+    assert torch.equal(ti, held)
+
+
+@pytest.mark.gpu
+def test_min_plus_copies_unaligned_operands(cuda):
+    """Strided, transposed and offset operands are copied once each into
+    padded storage (counted in ``copies``) and give the same product."""
+    rng = np.random.default_rng(12)
+    a, b = _tropical(rng, (70, 45)), _tropical(rng, (45, 2 * 33))
+    init = _tropical(rng, (70, 33), 0.2, top=200)
+    ta = torch.tensor(a.T.copy(), device=cuda).T           # column-major
+    tb = torch.tensor(b, device=cuda)[:, ::2]              # column slice
+    wide = torch.zeros((70, 34), dtype=torch.int32, device=cuda)
+    wide[:, 1:] = torch.tensor(init, device=cuda)
+    ti = wide[:, 1:]                                       # 4 bytes off
+    for m in (70, 1):                                      # tile, skinny
+        copies = tops.copies
+        got = min_plus_matmul(ta[:m], tb, init=ti[:m])
+        want = min_plus_matmul_ref(ta[:m], tb, ti[:m])
+        assert torch.equal(got, want)
+        # a, b and, on the tile path, init (the skinny path copies the
+        # floor into its output whatever its layout)
+        assert tops.copies - copies == {70: 3, 1: 2}[m]
+
+
+@pytest.mark.gpu
+def test_min_plus_split_k_is_deterministic(cuda):
+    """The skinny path merges its K splits with atomicMin: two launches
+    give the same bits, equal to the plain version."""
+    rng = np.random.default_rng(13)
+    for M in (1, 64):
+        a = _tropical(rng, (M, 20011), 0.5, top=1000)
+        b = _tropical(rng, (20011, 3001), 0.5, top=1000)
+        ta, tb = _on_card_padded(a, cuda), _on_card_padded(b, cuda)
+        assert tops._card_route(torch.cuda.current_device(), M, 20011,
+                                3001).split > 1
+        first, second = min_plus_matmul(ta, tb), min_plus_matmul(ta, tb)
+        assert torch.equal(first, second)
+        assert torch.equal(first, min_plus_matmul_ref(ta, tb))
 
 
 @pytest.mark.gpu
