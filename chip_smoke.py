@@ -61,21 +61,42 @@ non-zero and prints no result line):
              back with versions, tensors and answers unchanged.  Both
              kernels are held against their plain versions at the rank
              update's shapes, on the operands the repair gave them.
-7. rpq     — regular path queries at a reduced size (2048 nodes, 8
+7. serve   — ``repro_torch.QueryServer`` on the dynamic phase's warm
+             session (nb = 16103 with reserves, reach + dist cache): a
+             deterministic barrier flush (``start=False``) of 1024 mixed
+             reach / dist / bounded requests with 2 repair deltas between
+             them; two threaded MVCC runs (``mvcc=True, versions=4``)
+             where a client thread submits 2048 requests, as a burst and
+             paced (one batch in flight), while 3 repairs and 1
+             recompute commit as versions; every answer is checked
+             against the host BFS on the graph of the version its
+             ``cache_version`` names; both kernels launched in both modes,
+             no operand copied, no retry, dead letter or degraded group.
+             Prints qps, p50/p95/p99 per route, batch occupancy, the MVCC
+             gauges, the device memory peak, and the p99 of reads that
+             overlapped a repair beside the others'; a probe times one
+             batch alone and beside a thread that squares the distance
+             closure on the default stream, then on a side stream.  Then
+             chaos on the card: transient ``engine.vmap`` faults retried,
+             a poison pair dead-lettered alone, a failed MVCC repair
+             dropped, and an ``engine.shard_map`` failure on the NCCL group
+             degraded to the cached path, exact.
+8. rpq     — regular path queries at a reduced size (2048 nodes, 8
              fragments), through the vmap session and then the sharded
              one: the product closure has side nb * |Q|, which at full size
              is a 6.4 GB matrix whose squaring would outlast a smoke run.
              Answers are checked against a host product-graph BFS.
 
 The min-plus wrapper's operand copies are asserted 0 on the main,
-one-shot and dynamic paths as well.  When the source of an earlier
+one-shot, dynamic and serve paths as well.  When the source of an earlier
 min-plus kernel is put at ``build/former/min_plus_matmul.cu``, it is
 built in the build phase and timed beside the current kernel at every
 min-plus shape (``former_ms``).
 
 The second-to-last line of output is a JSON object with one entry per
 kernel, with its launches on each path (``launches`` on the main path,
-``oneshot_launches``, ``dynamic_launches`` by mode, ...) and its new
+``oneshot_launches``, ``dynamic_launches`` by mode, ``serve_launches``
+by mode, ...) and its new
 launch shapes (``new_shapes``); the last is ``{"ok": true, "device":
 {...}}``.  Times come from
 CUDA events after a warm-up; bounds are reckoned from the H100 SXM data
@@ -85,6 +106,7 @@ rate that the probe ``csrc/dpx_rate.cu`` measures in the same run.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -1481,12 +1503,13 @@ def _cache_state(cache) -> dict:
             for n in CACHE_TENSORS}
 
 
-def phase_dynamic(out: dict, g) -> None:
+def phase_dynamic(out: dict, g):
     """Graph deltas at full size through ``session.apply`` on a warm
     amortized session: every mode, each delta checked by 256 mixed queries
     against the host BFS on the updated graph and against a session on a
     freshly built fragmentation; one delta made to fail mid-repair, after
-    which versions, tensors and answers are unchanged."""
+    which versions, tensors and answers are unchanged.  Returns the
+    fragmentation and its session, warm, for the serve phase."""
     import torch
     import repro_torch
     from repro_torch import DeltaApplyFailed, GraphDelta
@@ -1637,10 +1660,455 @@ def phase_dynamic(out: dict, g) -> None:
     out["dynamic"] = {"warm_ms": warm_ms, "applies": applies,
                       "launches_by_mode": launches_by_mode,
                       "rollback_ms": rollback_ms, "shapes": shapes}
+    return fr, sess
 
 
 # ---------------------------------------------------------------------------
-# 7. regular path queries at reduced size
+# 7. the serving stack on the dynamic phase's fragmentation
+# ---------------------------------------------------------------------------
+
+N_SERVE_BARRIER = 1024
+N_SERVE_MVCC = 2048
+N_SERVE_CHAOS = 192
+SERVE_BATCH = 64
+SERVE_BOUND = 6
+SERVE_SOURCES = 128      # requests draw their sources from this many nodes
+
+
+def _serve_requests(srv, g, rng, count, sources):
+    """Submit ``count`` mixed requests (reach, dist, bounded at
+    SERVE_BOUND, in turn); sources from ``sources``, targets anywhere."""
+    futs = []
+    for i in range(count):
+        s, t = int(rng.choice(sources)), int(rng.integers(g.n))
+        kind = ("reach", "dist", "bounded")[i % 3]
+        futs.append(srv.submit(s, t, kind=kind,
+                               bound=SERVE_BOUND if kind == "bounded"
+                               else None))
+    return futs
+
+
+def _check_served(graphs: dict, futs, what: str) -> None:
+    """Every future DONE, and its answer equal to the host BFS on the graph
+    of the version its ``cache_version`` names."""
+    by_version = {}
+    for f in futs:
+        if f.status != "done":
+            raise AssertionError(f"{what}: {f!r} ended {f.status}: "
+                                 f"{f.error!r}")
+        by_version.setdefault(f.cache_version, []).append(f)
+    for version, group in by_version.items():
+        if version not in graphs:
+            raise AssertionError(f"{what}: answers stamped with version "
+                                 f"{version}, which no delta published")
+        table = _bfs_distances(graphs[version], [f.s for f in group])
+        for f in group:
+            d = int(table[f.s][f.t])
+            want = {"reach": d >= 0, "dist": d if d >= 0 else None,
+                    "bounded": 0 <= d <= SERVE_BOUND}[f.kind]
+            if f.value != want:
+                raise AssertionError(f"{what}: {f.kind} {f.s}->{f.t} at "
+                                     f"version {version}: got {f.value}, "
+                                     f"BFS {want}")
+
+
+def _with_edges(g, delta):
+    """The graph after an insert-only delta."""
+    from repro_torch.graph import Graph
+    return Graph(g.n, np.concatenate([g.src, delta.add_src]),
+                 np.concatenate([g.dst, delta.add_dst]), g.labels,
+                 g.label_names)
+
+
+def _intra_delta(fr, rng, count=32):
+    """``count`` inserts inside one fragment: a repair."""
+    from repro_torch import GraphDelta
+    f = int(rng.integers(fr.k))
+    mine = np.nonzero(fr.part == f)[0]
+    return GraphDelta.insert([(int(rng.choice(mine)), int(rng.choice(mine)))
+                              for _ in range(count)])
+
+
+def _wide_delta(fr, rng):
+    """One insert in each of 3/4 of the fragments: a recompute."""
+    from repro_torch import GraphDelta
+    edges = []
+    for f in rng.choice(fr.k, size=3 * fr.k // 4, replace=False):
+        mine = np.nonzero(fr.part == f)[0]
+        edges.append((int(rng.choice(mine)), int(rng.choice(mine))))
+    return GraphDelta.insert(edges)
+
+
+def _assert_clean(srv, what: str) -> None:
+    """No retry, no dead letter, no degraded group: nothing fell back."""
+    if srv.retries or srv.dead_letters or srv.session.stats.degraded_groups:
+        raise AssertionError(
+            f"{what}: retries {srv.retries}, dead letters "
+            f"{len(srv.dead_letters)}, degraded groups "
+            f"{srv.session.stats.degraded_groups}")
+
+
+def _serve_mvcc_run(fr, sess, rng, sources, label: str,
+                    paced: bool) -> dict:
+    """One threaded MVCC run of the serve phase: a client thread submits
+    N_SERVE_MVCC requests (all at once, or ``paced``: one batch, wait for
+    it, 10 ms of think time) while this thread submits 4 deltas, each at
+    a fifth of the client's progress, and waits for each commit point.
+    Every answer is checked against the BFS of its version's graph."""
+    import threading
+    import torch
+    from repro_torch.serve import QueryServer
+    from repro_torch.serve.telemetry import percentile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _reset_launches()
+    srv = QueryServer(fr, session=sess, batch_size=SERVE_BATCH, mvcc=True,
+                      versions=4, start=True)
+    graphs = {sess.cache_version: fr.g}
+    futs, client_error = [], []
+    progress = threading.Semaphore(0)        # one release per batch done
+    crng = np.random.default_rng(SEED + 6)
+
+    def client():
+        try:
+            for _ in range(N_SERVE_MVCC // SERVE_BATCH):
+                mine = _serve_requests(srv, fr.g, crng, SERVE_BATCH, sources)
+                futs.extend(mine)
+                if paced:
+                    for f in mine:
+                        f.result(timeout=600)
+                    time.sleep(0.010)
+                progress.release()
+        except BaseException as exc:      # reported by the main thread
+            client_error.append(exc)
+            for _ in range(N_SERVE_MVCC // SERVE_BATCH):
+                progress.release()
+
+    # the recompute last when paced, so that its 1.5 s overlap reads
+    modes = ["repair", "repair", "recompute", "repair"]
+    if paced:
+        modes = ["repair", "repair", "repair", "recompute"]
+    deltas = [(m, _wide_delta(fr, rng) if m == "recompute"
+               else _intra_delta(fr, rng)) for m in modes]
+    batches = N_SERVE_MVCC // SERVE_BATCH
+    t0 = time.perf_counter()
+    th = threading.Thread(target=client, name="serve-client")
+    th.start()
+    updates, done = [], 0
+    for i, (want, delta) in enumerate(deltas):
+        while done < (i + 1) * batches // 5:
+            progress.acquire(timeout=600)
+            done += 1
+        upd = srv.submit_delta(delta)
+        stats = upd.result(timeout=600)           # the commit point
+        head = srv.store.head()
+        graphs[head.cache_version] = head.fr.g
+        updates.append((want, stats.mode, upd))
+    th.join(timeout=600)
+    if th.is_alive() or client_error:
+        raise AssertionError(f"serve mvcc {label}: the client failed: "
+                             f"{client_error}")
+    srv.flush()
+    telemetry = srv.telemetry()
+    srv.close()
+    torch.cuda.synchronize()                 # nothing failed on the card
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    _assert_no_copies(f"serve mvcc {label}")
+    peak = torch.cuda.max_memory_allocated()
+    _assert_clean(srv, f"serve mvcc {label}")
+    batches = srv.batches_run
+    # the store's last versions become garbage with the server; their
+    # fr <-> cache cycles go at the next collection
+    del srv, client, th
+    gc.collect()
+    after_mem = torch.cuda.memory_allocated()
+    if [m for _, m, _ in updates] != modes:
+        raise AssertionError(f"serve mvcc {label}: modes "
+                             f"{[m for _, m, _ in updates]}, expected "
+                             f"{modes}")
+    _check_served(graphs, futs, f"serve mvcc {label}")
+    for name in ("or_and_matmul", "min_plus_matmul"):
+        if not launches[name]:
+            raise AssertionError(f"serve mvcc {label}: {name} not "
+                                 "launched")
+    seen = sorted({f.cache_version for f in futs})
+    if paced and len(seen) < 2:     # a burst may all be served before
+        raise AssertionError(f"serve mvcc {label}: every read saw one "
+                             "version")
+    # each read by the deltas it overlapped: any, the recompute's, none
+    spans = [(m, u.submitted_at, u.resolved_at) for _, m, u in updates]
+    overlap, beside_recompute, alone = [], [], []
+    for f in futs:
+        hits = {m for m, a, b in spans
+                if f.submitted_at < b and f.resolved_at > a}
+        (overlap if hits else alone).append(f.latency_s * 1e3)
+        if "recompute" in hits:
+            beside_recompute.append(f.latency_s * 1e3)
+    run = {
+        "requests": len(futs), "paced": paced, "wall_s": wall_s,
+        "qps": len(futs) / wall_s, "telemetry_qps": telemetry["qps"],
+        "routes": telemetry["routes"],
+        "batch_occupancy": telemetry["batch_occupancy"],
+        "batches": batches, "mvcc": telemetry["mvcc"],
+        "updates": [{"mode": m, "ms": (u.resolved_at - u.submitted_at) * 1e3}
+                    for _, m, u in updates],
+        "versions_seen": seen, "peak_bytes": peak, "base_bytes": base_mem,
+        "after_close_bytes": after_mem,
+        "overlap_reads": len(overlap), "alone_reads": len(alone),
+        "recompute_reads": len(beside_recompute),
+        "p50_recompute_ms": percentile(beside_recompute, 0.50),
+        "p99_recompute_ms": percentile(beside_recompute, 0.99),
+        "p50_overlap_ms": percentile(overlap, 0.50),
+        "p99_overlap_ms": percentile(overlap, 0.99),
+        "p50_alone_ms": percentile(alone, 0.50),
+        "p99_alone_ms": percentile(alone, 0.99),
+        "launches": launches}
+    print(f"serve: mvcc {label}: {len(futs)} requests beside 4 deltas in "
+          f"{wall_s * 1e3:.1f} ms, {run['qps']:.1f} qps (telemetry window "
+          f"{telemetry['qps']:.1f}); batch occupancy "
+          f"{telemetry['batch_occupancy']:.3f} over {batches} "
+          f"batches; versions seen {seen}; deltas "
+          + ", ".join(f"{d['mode']} {d['ms']:.1f} ms"
+                      for d in run["updates"]))
+    for route, r in sorted(telemetry["routes"].items()):
+        print(f"serve: mvcc {label} {route}: {r['count']} requests, p50 "
+              f"{r['p50_ms']:.3f} ms, p95 {r['p95_ms']:.3f} ms, p99 "
+              f"{r['p99_ms']:.3f} ms")
+    print(f"serve: mvcc {label}: reads overlapping a repair: "
+          f"{len(overlap)}, p50 {run['p50_overlap_ms']:.3f} ms, p99 "
+          f"{run['p99_overlap_ms']:.3f} ms; the others: {len(alone)}, p50 "
+          f"{run['p50_alone_ms']:.3f} ms, p99 {run['p99_alone_ms']:.3f} ms; "
+          f"beside the recompute: {len(beside_recompute)}, p50 "
+          f"{run['p50_recompute_ms']:.3f} ms, p99 "
+          f"{run['p99_recompute_ms']:.3f} ms (host clock; reads and "
+          f"repairs share the default stream)")
+    print(f"serve: mvcc {label}: gauges {telemetry['mvcc']}; device memory "
+          f"peak {peak / 2**30:.3f} GiB (at the start "
+          f"{base_mem / 2**30:.3f} GiB, after the server closed "
+          f"{after_mem / 2**30:.3f} GiB); launches {launches}")
+    return run
+
+
+def _stream_probe(fr, sess, rng, sources) -> dict:
+    """Why a read beside a recompute waits: one batch of SERVE_BATCH mixed
+    queries timed alone, then while another thread squares the distance
+    closure over and over (the recompute's kernel, 1 launch then 1 host
+    sync, as ``bes.tropical_closure`` does) on the default stream, then on
+    a side stream of its own.  Host clock: the median of 3 batches alone,
+    one batch beside the squarings (each takes seconds on the default
+    stream)."""
+    import threading
+    import torch
+    from repro_torch import Dist, Reach
+    from repro_torch.kernels.tropical_matmul import min_plus_matmul
+    W = fr.rvset_cache.dist_closure
+    pairs = [(int(rng.choice(sources)), int(rng.integers(fr.g.n)))
+             for _ in range(SERVE_BATCH)]
+    queries = [Reach(s, t) if i % 3 == 0 else
+               Dist(s, t, bound=SERVE_BOUND if i % 3 == 2 else None)
+               for i, (s, t) in enumerate(pairs)]
+
+    def batches(n=3):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            sess.run(queries)                  # ends in a host copy
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    batches(1)                                 # warm
+    out = {"alone_ms": batches()}
+    for where in ("default", "side"):
+        stop, started, squarings = threading.Event(), threading.Event(), []
+
+        def squarer():
+            stream = (torch.cuda.current_stream() if where == "default"
+                      else torch.cuda.Stream())
+            with torch.cuda.stream(stream):
+                while not stop.is_set():
+                    W2 = min_plus_matmul(W, W)
+                    torch.equal(W2, W)         # the closure's host sync
+                    squarings.append(1)
+                    started.set()
+
+        th = threading.Thread(target=squarer, name=f"squarer-{where}")
+        th.start()
+        started.wait(60)
+        out[f"beside_{where}_ms"] = batches(1)
+        stop.set()
+        th.join(60)
+        out[f"squarings_{where}"] = len(squarings)
+    torch.cuda.synchronize()
+    print(f"serve: stream probe: a batch of {SERVE_BATCH} queries alone "
+          f"{out['alone_ms']:.1f} ms; beside a thread squaring the "
+          f"distance closure on the default stream "
+          f"{out['beside_default_ms']:.1f} ms, on a side stream "
+          f"{out['beside_side_ms']:.1f} ms (host clock; alone the median "
+          f"of 3 batches)")
+    return out
+
+
+def phase_serve(out: dict, fr, sess) -> None:
+    """``repro_torch.QueryServer`` over the dynamic phase's warm session:
+    a deterministic barrier flush with two repair deltas, two threaded
+    MVCC runs with four deltas beside 2048 reads each, then chaos on the
+    card."""
+    import torch
+    from repro_torch.serve import (FaultInjector, FaultSpec, InjectedFault,
+                                   QueryServer, RetryPolicy)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 5)
+    sources = rng.choice(fr.g.n, size=SERVE_SOURCES, replace=False)
+    print(f"serve: {out['card']}; nb={fr.n_boundary} (active "
+          f"{fr.nb_active}), warm reach + dist cache, batch {SERVE_BATCH}")
+
+    # 1. barrier mode, deterministic: 1024 requests and 2 repair deltas
+    srv = QueryServer(fr, session=sess, batch_size=SERVE_BATCH, start=False)
+    graphs = {sess.cache_version: fr.g}
+    g = fr.g
+    futs, updates = [], []
+    for part in range(3):
+        futs += _serve_requests(srv, fr.g, rng, N_SERVE_BARRIER // 3
+                                + (part == 2) * (N_SERVE_BARRIER % 3),
+                                sources)
+        if part < 2:
+            delta = _intra_delta(fr, rng)
+            updates.append(srv.submit_delta(delta))
+            g = _with_edges(g, delta)
+            graphs[max(graphs) + 1] = g
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    srv.flush()
+    torch.cuda.synchronize()
+    barrier_ms = (time.perf_counter() - t0) * 1e3
+    barrier_launches = _launches()
+    _assert_no_copies("serve barrier")
+    srv.close()
+    if [(u.status, u.value.mode) for u in updates] != \
+            [("applied", "repair")] * 2:
+        raise AssertionError(f"serve barrier: deltas ended "
+                             f"{[(u.status, u.value) for u in updates]}")
+    _check_served(graphs, futs, "serve barrier")
+    _assert_clean(srv, "serve barrier")
+    for name in ("or_and_matmul", "min_plus_matmul"):
+        if not barrier_launches[name]:
+            raise AssertionError(f"serve barrier: {name} not launched")
+    barrier_tele = srv.telemetry()
+    print(f"serve: barrier flush of {len(futs)} requests and 2 repair "
+          f"deltas in {barrier_ms:.1f} ms ({srv.batches_run} batches), "
+          f"every answer equal to the BFS of its version; launches "
+          f"{barrier_launches}")
+
+    # 2. MVCC mode, threaded: a client thread submits 2048 requests while
+    # this thread commits 3 repairs and 1 recompute as versions; once as
+    # a burst (every request at once: throughput under a backlog), once
+    # paced (one batch in flight, then 10 ms of think time: the latency of
+    # reads beside a repair against the others')
+    serve_mvcc = {}
+    for label, paced in (("burst", False), ("paced", True)):
+        serve_mvcc[label] = _serve_mvcc_run(fr, sess, rng, sources, label,
+                                            paced)
+    torch.cuda.empty_cache()
+    probe = _stream_probe(fr, sess, rng, sources)
+
+    # 3. chaos on the card
+    chaos_out = {}
+    # (a) transient engine.vmap faults: the retries succeed
+    chaos = FaultInjector(seed=SEED, rates={
+        "engine.vmap": FaultSpec(rate=1.0, max_failures=2)})
+    srv = QueryServer(fr, session=sess, batch_size=SERVE_BATCH, start=False,
+                      chaos=chaos, retry=RetryPolicy(base_delay_ms=0.0))
+    futs = _serve_requests(srv, fr.g, rng, N_SERVE_CHAOS, sources)
+    srv.flush()
+    _check_served({sess.cache_version: fr.g}, futs, "serve chaos retry")
+    if srv.retries != 2 or srv.dead_letters or futs[0].attempts != 3:
+        raise AssertionError(f"serve chaos retry: retries {srv.retries}, "
+                             f"dead letters {len(srv.dead_letters)}, "
+                             f"attempts {futs[0].attempts}")
+    chaos_out["retry"] = {"requests": len(futs), "retries": srv.retries,
+                          "injected": chaos.failures["engine.vmap"]}
+    # (b) one poison pair: dead-lettered alone, its batchmates served
+    poison = (int(sources[0]), int(fr.g.n - 1))
+    srv.session.chaos = FaultInjector(seed=SEED, poison=[poison])
+    futs = _serve_requests(srv, fr.g, rng, SERVE_BATCH - 1, sources)
+    bad = srv.submit(*poison)
+    srv.flush()
+    _check_served({sess.cache_version: fr.g}, futs, "serve chaos poison")
+    if (bad.status != "dead_letter" or srv.dead_letters != [bad]
+            or not isinstance(bad.error.cause, InjectedFault)):
+        raise AssertionError(f"serve chaos poison: {bad!r} {bad.error!r}, "
+                             f"dead letters {srv.dead_letters}")
+    chaos_out["poison"] = {"batchmates": len(futs),
+                           "attempts": bad.attempts}
+    srv.close()
+    # (c) a delta.repair failure under MVCC: the clone is dropped and the
+    # head keeps serving the pre-delta answers
+    sess.chaos = FaultInjector(seed=SEED, rates={"delta.repair": 1.0})
+    srv = QueryServer(fr, session=sess, batch_size=SERVE_BATCH, mvcc=True,
+                      start=False)
+    v0 = sess.cache_version
+    delta = _intra_delta(fr, rng)
+    upd = srv.submit_delta(delta)
+    srv.flush()
+    futs = _serve_requests(srv, fr.g, rng, SERVE_BATCH, sources)
+    srv.flush()
+    _check_served({v0: fr.g}, futs, "serve chaos mvcc repair")
+    gauges = srv.telemetry()["mvcc"]
+    if (upd.status != "failed" or gauges["versions_dropped"] != 1
+            or srv.store.head().vid != 0 or sess.cache_version != v0):
+        raise AssertionError(f"serve chaos mvcc repair: {upd!r}, {gauges}")
+    chaos_out["mvcc_repair"] = {"gauges": gauges}
+    srv.close()
+    sess.chaos = None
+    # (d) engine.shard_map failing on the one-rank NCCL group: every group
+    # degrades to the cached path on the card, exact and flagged
+    chaos = FaultInjector(seed=SEED, rates={"engine.shard_map": 1.0})
+    srv = QueryServer(fr, backend="shard_map", batch_size=SERVE_BATCH,
+                      start=False, chaos=chaos)
+    futs = _serve_requests(srv, fr.g, rng, N_SERVE_CHAOS, sources)
+    _reset_launches()
+    srv.flush()
+    degraded_launches = _launches()
+    _check_served({sess.cache_version: fr.g}, futs, "serve chaos degrade")
+    groups = srv.session.stats.degraded_groups
+    if (not all(f.degraded for f in futs) or srv.retries
+            or srv.dead_letters or groups != 2 * srv.batches_run
+            or srv.session.device != sess.device):
+        raise AssertionError(f"serve chaos degrade: degraded groups "
+                             f"{groups}, batches {srv.batches_run}")
+    for name in ("or_and_matmul", "min_plus_matmul"):
+        if not degraded_launches[name]:
+            raise AssertionError(f"serve chaos degrade: {name} not "
+                                 "launched")
+    chaos_out["degrade"] = {"requests": len(futs), "degraded_groups": groups,
+                            "launches": degraded_launches}
+    srv.close()
+    del srv
+    torch.cuda.synchronize()            # nothing failed on the card
+    wall_s = time.perf_counter() - t_phase
+    print(f"serve: chaos on the card: 2 transient engine.vmap faults "
+          f"retried ({N_SERVE_CHAOS} requests DONE), one poison pair "
+          f"dead-lettered alone after {bad.attempts} attempts, a failed "
+          f"MVCC repair dropped (head kept version {v0}), "
+          f"{groups} sharded groups degraded to the cached path, exact")
+    print(f"serve: phase wall time {wall_s:.1f} s")
+    out["serve"] = {"barrier": {"requests": N_SERVE_BARRIER,
+                                "ms": barrier_ms,
+                                "batches": barrier_tele["batches"],
+                                "routes": barrier_tele["routes"],
+                                "launches": barrier_launches},
+                    "mvcc": serve_mvcc, "stream_probe": probe,
+                    "chaos": chaos_out,
+                    "wall_s": wall_s}
+
+
+# ---------------------------------------------------------------------------
+# 8. regular path queries at reduced size
 # ---------------------------------------------------------------------------
 
 RPQ_NODES, RPQ_EDGES, RPQ_FRAGS = 2048, 8192, 8
@@ -1776,8 +2244,11 @@ def main() -> int:
         phase_oneshot(out, g, fr)
         fr.rvset_cache = None
         del fr
-        phase_dynamic(out, g)
+        fr, sess = phase_dynamic(out, g)
         del g
+        phase_serve(out, fr, sess)
+        del fr, sess
+        torch.cuda.empty_cache()
         phase_rpq(out)
     finally:
         dist.destroy_process_group()
@@ -1792,6 +2263,10 @@ def main() -> int:
         k["dynamic_launches"] = {
             mode: n[name]
             for mode, n in out["dynamic"]["launches_by_mode"].items()}
+        k["serve_launches"] = {
+            "barrier": out["serve"]["barrier"]["launches"][name],
+            **{f"mvcc_{label}": run["launches"][name]
+               for label, run in out["serve"]["mvcc"].items()}}
         k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
                            + out["dynamic"]["shapes"].get(name, []))
         if name == "min_plus_matmul":

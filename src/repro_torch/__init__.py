@@ -20,6 +20,15 @@ algorithms, as do the shims ``dis_reach`` / ``dis_dist`` / ``dis_rpq`` /
 ``dis_rpq_regex``; ``session.apply(GraphDelta.insert([(u, v)]))`` changes
 the graph and repairs the caches, or rolls back and raises
 :class:`DeltaApplyFailed`.
+
+:class:`QueryServer` serves a stream of requests and deltas over a
+session: admission lanes, deadlines, retries, dead letters, MVCC versions
+(``mvcc=True``) and seeded fault injection (:mod:`repro_torch.serve`)::
+
+    with repro_torch.QueryServer(fr, with_dist=True) as server:
+        fut = server.submit(s, t, kind="dist")
+        server.submit_delta(GraphDelta.insert([(u, v)]))
+        print(fut.result(timeout=10))
 """
 from .core.api import dis_dist, dis_reach, dis_rpq, dis_rpq_regex
 from .core.fragments import GraphDelta, Placement
@@ -27,8 +36,9 @@ from .core.incremental import apply_delta
 from .core.plan import Dist, Query, QueryResult, Reach, Rpq
 from .core.session import QuerySession, connect
 from .errors import DeltaApplyFailed, NoCudaDevice, Status
+from .serve import QueryServer
 
 __all__ = ["connect", "QuerySession", "QueryResult", "Status", "Reach",
            "Dist", "Rpq", "Query", "NoCudaDevice", "Placement", "GraphDelta",
            "DeltaApplyFailed", "apply_delta", "dis_reach", "dis_dist",
-           "dis_rpq", "dis_rpq_regex"]
+           "dis_rpq", "dis_rpq_regex", "QueryServer"]

@@ -1,6 +1,7 @@
 """The paper's query engine in PyTorch: fragmentation, local fixpoints,
 closures, the amortized rvset cache, incremental repair under graph
-deltas, the query session and the one-shot query functions."""
+deltas, MVCC versions, the query session and the one-shot query
+functions."""
 from .api import dis_dist, dis_reach, dis_rpq, dis_rpq_regex
 from .automaton import QueryAutomaton, accepts, build_query_automaton
 from .cache import (RvsetCache, get_rvset_cache, load_rvset_state,

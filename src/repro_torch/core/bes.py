@@ -72,3 +72,9 @@ def tropical_closure(W: torch.Tensor) -> torch.Tensor:
             break
         W = W2
     return W
+
+
+def closure_answers(A: torch.Tensor, src_rows, tgt_cols) -> torch.Tensor:
+    """Batch answer extraction: ``ans[q] = A[src_rows[q], tgt_cols[q]]``
+    for index tensors ``src_rows``/``tgt_cols`` [nq]."""
+    return A[src_rows, tgt_cols]

@@ -502,6 +502,20 @@ def dis_dist_batch(fr: Fragmentation, pairs, device,
 
 
 # ---------------------------------------------------------------------------
+# cached single-query wrappers (batch of one)
+# ---------------------------------------------------------------------------
+
+def reach_cached(fr: Fragmentation, s: int, t: int, device) -> bool:
+    return bool(dis_reach_batch(fr, [(s, t)], device)[0])
+
+
+def dist_cached(fr: Fragmentation, s: int, t: int,
+                device) -> Optional[int]:
+    d = int(dis_dist_batch(fr, [(s, t)], device)[0])
+    return None if d < 0 else d
+
+
+# ---------------------------------------------------------------------------
 # regular (RPQ) cached path
 # ---------------------------------------------------------------------------
 
@@ -614,3 +628,12 @@ def dis_rpq_batch(fr: Fragmentation, pairs, qa: QueryAutomaton,
     ans = _batch_rpq(fr, cache, qa, Ct, pairs).cpu().numpy().copy()
     ans[pairs[:, 0] == pairs[:, 1]] = bool(qa.nullable)  # s == t is |R|-free
     return ans
+
+
+def rpq_cached(fr: Fragmentation, s: int, t: int, qa: QueryAutomaton,
+               device) -> bool:
+    """Cached disRPQ (batch of one): the per-automaton product closure
+    (amortized) + one forward and k reverse product propagations."""
+    if s == t:
+        return bool(qa.nullable)
+    return bool(dis_rpq_batch(fr, [(s, t)], qa, device)[0])

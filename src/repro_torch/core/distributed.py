@@ -40,6 +40,7 @@ this backend repairs its caches on the host path).
 from __future__ import annotations
 
 import functools
+import threading
 from collections import OrderedDict
 from typing import Callable, Optional
 
@@ -60,15 +61,24 @@ collectives = 0
 #: bits those collectives shipped (numel x element size x 8, per rank)
 payload_bits = 0
 
+# guards the read-modify-write of the two counts across threads
+_count_lock = threading.Lock()
+
 
 def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     """The ONE collective of a fused batch, in place on ``x``; every
     collective of the sharded backend goes through here and is counted."""
-    global collectives, payload_bits
     dist.all_reduce(x, op=op, group=group)
-    collectives += 1
-    payload_bits += x.numel() * x.element_size() * 8
+    _count_collective(x.numel() * x.element_size() * 8)
     return x
+
+
+def _count_collective(bits: int) -> None:
+    """Add one collective of ``bits`` bits to the counts, atomically."""
+    global collectives, payload_bits
+    with _count_lock:
+        collectives += 1
+        payload_bits += bits
 
 
 def _require_process_group() -> None:
@@ -285,11 +295,15 @@ def _batch_rpq(esrc, edst, src_local, src_row, tgt_local, labels, gids,
 def _batch_sharded_program(fr: Fragmentation, pairs: np.ndarray, kind: str,
                            qa: Optional[QueryAutomaton] = None, group=None,
                            placement: Optional[Placement] = None,
-                           device=None):
+                           device=None, chaos=None):
     """``(program, args)`` for one fused N-pair sharded batch of ``kind``
     on this rank; ``program(*args)`` returns the [N] answers on
-    ``device`` (``None``: the current CUDA device)."""
+    ``device`` (``None``: the current CUDA device).  ``chaos`` is
+    consulted at the ``"upload"`` site before the fragment arrays go to
+    the device."""
     placement = _resolve_placement(fr, group, placement)
+    if chaos is not None:
+        chaos.maybe_fail("upload")     # guards the _device_inputs transfer
     device = torch.device("cuda" if device is None else device)
     k, n_max, N = fr.k, fr.n_max, len(pairs)
     ss, tt = pairs[:, 0], pairs[:, 1]
@@ -328,7 +342,7 @@ def _as_batch_pairs(pairs) -> np.ndarray:
 
 def dis_reach_batch_sharded(fr: Fragmentation, pairs, group=None,
                             placement: Optional[Placement] = None,
-                            device=None) -> np.ndarray:
+                            device=None, chaos=None) -> np.ndarray:
     """Answer N (s, t) pairs over the process group with a single
     collective.
 
@@ -338,12 +352,19 @@ def dis_reach_batch_sharded(fr: Fragmentation, pairs, group=None,
     in-nodes, merged on the rank first, so the wire is the same as with
     one fragment per rank.  All three ride ONE bitpacked SUM (== OR); the
     closure and the per-pair combine run replicated.  Returns [N] bool on
-    every rank."""
+    every rank.
+
+    ``chaos`` (any object with ``maybe_fail(site, pairs=None)``) is
+    consulted at the ``"upload"`` site and then, with the batch's pairs,
+    at the ``"engine.shard_map"`` site before the program runs."""
     pairs = _as_batch_pairs(pairs)
     if len(pairs) == 0:
         return np.zeros(0, dtype=bool)
     run, args = _batch_sharded_program(fr, pairs, "reach", group=group,
-                                       placement=placement, device=device)
+                                       placement=placement, device=device,
+                                       chaos=chaos)
+    if chaos is not None:
+        chaos.maybe_fail("engine.shard_map", pairs=pairs)
     ans = run(*args).cpu().numpy().copy()
     ans[pairs[:, 0] == pairs[:, 1]] = True
     return ans
@@ -351,15 +372,18 @@ def dis_reach_batch_sharded(fr: Fragmentation, pairs, group=None,
 
 def dis_dist_batch_sharded(fr: Fragmentation, pairs, group=None,
                            placement: Optional[Placement] = None,
-                           device=None) -> np.ndarray:
+                           device=None, chaos=None) -> np.ndarray:
     """Tropical twin of :func:`dis_reach_batch_sharded`: N shortest
     distances with ONE int32 MIN collective.  Returns [N] int64 with -1
-    for unreachable, like ``cache.dis_dist_batch``."""
+    for unreachable, like ``cache.dis_dist_batch``; ``chaos`` as there."""
     pairs = _as_batch_pairs(pairs)
     if len(pairs) == 0:
         return np.zeros(0, dtype=np.int64)
     run, args = _batch_sharded_program(fr, pairs, "dist", group=group,
-                                       placement=placement, device=device)
+                                       placement=placement, device=device,
+                                       chaos=chaos)
+    if chaos is not None:
+        chaos.maybe_fail("engine.shard_map", pairs=pairs)
     d = run(*args).cpu().numpy().astype(np.int64)
     d[d >= INF] = -1
     return d
@@ -367,18 +391,21 @@ def dis_dist_batch_sharded(fr: Fragmentation, pairs, group=None,
 
 def dis_rpq_batch_sharded(fr: Fragmentation, pairs, qa: QueryAutomaton,
                           group=None, placement: Optional[Placement] = None,
-                          device=None) -> np.ndarray:
+                          device=None, chaos=None) -> np.ndarray:
     """Product-automaton twin of :func:`dis_reach_batch_sharded` for one
     automaton: each rank ships its owned fragments' product rvset rows and
     its pairs' forward / reverse product propagations in ONE bitpacked
     SUM; the (nb|Q|)^2 closure and the combine run replicated.  Returns
     [N] bool (s == t answered by nullability, like
-    ``cache.dis_rpq_batch``)."""
+    ``cache.dis_rpq_batch``); ``chaos`` as in the reach twin."""
     pairs = _as_batch_pairs(pairs)
     if len(pairs) == 0:
         return np.zeros(0, dtype=bool)
     run, args = _batch_sharded_program(fr, pairs, "rpq", qa=qa, group=group,
-                                       placement=placement, device=device)
+                                       placement=placement, device=device,
+                                       chaos=chaos)
+    if chaos is not None:
+        chaos.maybe_fail("engine.shard_map", pairs=pairs)
     ans = run(*args).cpu().numpy().copy()
     ans[pairs[:, 0] == pairs[:, 1]] = bool(qa.nullable)
     return ans

@@ -216,6 +216,14 @@ class Fragmentation:
     def T_COL(self) -> int:   # reserved boundary col for t
         return self.B - 1
 
+    def fragment_of(self, v: int) -> int:
+        """The fragment (site) that owns node ``v``."""
+        return int(self.part[v])
+
+    def traffic_bits_reach(self) -> int:
+        """Upper bound the paper proves: O(|V_f|^2) bits of rvset payload."""
+        return self.B * self.B
+
     def packed_traffic_bits(self, states: int = 1) -> int:
         """Bits the one collective ships once the Boolean payload is
         bitpacked into uint32 words: rows x ceil(cols/32) words.

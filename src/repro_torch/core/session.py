@@ -25,7 +25,9 @@ at a time (:func:`exec_reach`, :func:`exec_dist`, :func:`exec_rpq`:
 localEval on every fragment, one assembly of the dependency matrix, then
 evalDG), and leaves no state behind.  ``session.apply(delta)`` changes the
 graph and repairs the caches (:mod:`repro_torch.core.incremental`), or
-rolls both back when it fails.  The ``core.api`` shims run on per-
+rolls both back when it fails; :meth:`QuerySession.repair_on` and
+``run(version=)`` are the same two steps on a copy-on-write MVCC version
+(:mod:`repro_torch.core.versions`).  The ``core.api`` shims run on per-
 fragmentation default sessions (:func:`default_session`).
 """
 from __future__ import annotations
@@ -40,7 +42,7 @@ import torch.distributed as dist
 
 from . import cache as _cache
 from . import distributed, engine, incremental
-from ..errors import DeltaApplyFailed, NoCudaDevice, Status
+from ..errors import DeltaApplyFailed, NoCudaDevice, Status, is_device_fault
 from ..kernels.tropical_matmul.ops import padded_i32
 from .automaton import QueryAutomaton, build_query_automaton
 from .engine import INF, QueryStats
@@ -61,10 +63,7 @@ class SessionStats:
     executions: int = 0      # executions issued (one per group, or one
                              # per query with cache="none")
     updates: int = 0         # deltas applied (or attempted)
-    # sharded groups served by a fallback engine; stays 0: a sharded
-    # engine failure raises (the degrade-on-failure route is ROADMAP
-    # queue A, item 9)
-    degraded_groups: int = 0
+    degraded_groups: int = 0  # sharded groups served by the cached path
     rollbacks: int = 0       # failed deltas rolled back to their snapshot
 
 
@@ -110,10 +109,14 @@ def connect(fr: Fragmentation, backend: str = "auto",
     ``None`` means the current CUDA device, and raises
     :class:`~repro_torch.errors.NoCudaDevice` when there is none.
 
-    ``chaos``: an optional fault injector, any object with a
-    ``maybe_fail(site)`` method, consulted at the ``"delta.repair"`` site
-    of :meth:`QuerySession.apply` (after the host arrays have mutated), so
-    that tests can drive the rollback path.  ``None`` costs nothing.
+    ``chaos``: an optional fault injector
+    (:class:`repro_torch.serve.faults.FaultInjector`, or any object with a
+    ``maybe_fail(site, pairs=None)`` method), consulted at the four sites of
+    the reference package: ``"delta.repair"`` after a delta has mutated the
+    host arrays, ``"engine.vmap"`` before every one-device group,
+    ``"upload"`` and ``"engine.shard_map"`` before every sharded group.
+    Tests and chip runs drive the rollback, retry and degrade paths with
+    it.  ``None`` costs nothing.
     """
     return QuerySession(fr, backend=backend, cache=cache, group=group,
                         placement=placement, device=device, chaos=chaos)
@@ -201,7 +204,7 @@ class QuerySession:
         from its arrays (their device uploads are keyed on
         ``arrays_version``, which the delta bumps).  The sharded repair,
         which would ship only the changed rows, is not ported (ROADMAP
-        queue A, item 6b).
+        queue A, item 5).
 
         A delta that fails mid-apply (bad input, a kernel failure, an
         injected fault) is rolled back: the fragmentation and its caches
@@ -221,10 +224,17 @@ class QuerySession:
                 self.stats.rollbacks += 1
                 raise DeltaApplyFailed(exc) from exc
 
-    def repair_on(self, fr, delta):
-        raise NotImplementedError(
-            "repair_on is not ported yet (ROADMAP queue A, item 8: MVCC "
-            "store)")
+    def repair_on(self, fr: Fragmentation,
+                  delta: GraphDelta) -> incremental.UpdateStats:
+        """Repair ``fr``'s caches for ``delta``: the MVCC building block
+        (:mod:`repro_torch.core.versions`).  Unlike :meth:`apply` this
+        neither takes the session lock nor snapshots: ``fr`` is a private
+        copy-on-write clone that no reader sees, so the repair runs while
+        queries run against the head version, and a failed repair is
+        handled by dropping the clone.  On ``backend="shard_map"`` it is
+        the host repair, as in :meth:`apply`."""
+        self.stats.updates += 1
+        return incremental.apply_delta(fr, delta, chaos=self.chaos)
 
     # -- query execution ---------------------------------------------------
 
@@ -236,17 +246,23 @@ class QuerySession:
         by one batched execution (``cache='amortized'``) or by one one-shot
         evaluation per query (``cache='none'``).  Every result is stamped
         with the cache snapshot it was computed against (``None`` for
-        uncached execution).  Thread-safe: the whole batch runs under the
-        session lock.
+        uncached execution).
+
+        ``version``: an optional pinned MVCC
+        :class:`~repro_torch.core.versions.Version`; the batch then runs
+        against that snapshot's fragmentation and cache instead of
+        ``self.fr``, and its results carry *its* ``cache_version``.  This
+        is how the serving engine answers while the next version repairs.
+
+        Thread-safe: the whole batch runs under the session lock, so a
+        concurrent :meth:`apply` never moves the snapshot between a group
+        and its stamp.  An MVCC repair holds the lock only while it clones
+        the head (:meth:`repair_on` runs without it).
         """
-        if version is not None:
-            raise NotImplementedError(
-                "run(version=) is not ported yet (ROADMAP queue A, item 8: "
-                "MVCC store)")
         if isinstance(queries, (Reach, Dist, Rpq)):
             queries = [queries]
         queries = list(queries)
-        fr = self.fr
+        fr = self.fr if version is None else version.fr
         with self._lock:
             plan = plan_queries(queries, self._resolve_automaton)
             self.last_plan = plan
@@ -301,8 +317,8 @@ class QuerySession:
         """One batched execution for the whole group (padded to the
         group's bucket size; pad answers are discarded)."""
         stats = self._group_stats(fr, group)
-        ans = self._execute_group(fr, group.kind, group.pairs(),
-                                  group.automaton)
+        ans, degraded = self._execute_group(fr, group.kind, group.pairs(),
+                                            group.automaton)
         if group.kind == "reach":
             for i, q, a, st in zip(group.indices, group.queries, ans, stats):
                 results[i] = self._reach_result(q, a, st)
@@ -314,21 +330,46 @@ class QuerySession:
         else:                                   # rpq
             for i, q, a, st in zip(group.indices, group.queries, ans, stats):
                 results[i] = self._rpq_result(q, group.automaton, a, st)
+        if degraded:
+            for i in group.indices:
+                results[i].degraded = True
         self.stats.executions += 1
 
     def _execute_group(self, fr: Fragmentation, kind: str, pairs, qa):
-        """One batched engine execution.  On the shard_map backend every
-        kind routes through its one-collective sharded batch engine, so
-        the paper's guarantees survive fusion for all three query
-        classes; an engine failure raises."""
+        """One batched engine execution; returns ``(answers, degraded)``.
+
+        On the shard_map backend every kind routes through its
+        one-collective sharded batch engine, so the paper's guarantees
+        survive fusion for all three query classes.  A failure there
+        degrades instead of failing the group: the same batch runs again
+        on the cached one-device path, on this session's device and
+        through the same kernels, from the fragmentation's rvset cache
+        (built on first use, kept repaired by every delta).  The answers
+        stay exact and are flagged ``degraded``.  A fault of the device or
+        a kernel (:func:`~repro_torch.errors.is_device_fault`) does not
+        degrade: it raises."""
         if self.backend == "shard_map":
             where = dict(group=self.group, placement=self.placement,
-                         device=self.device)
-            if kind == "reach":
-                return distributed.dis_reach_batch_sharded(fr, pairs, **where)
-            if kind == "dist":
-                return distributed.dis_dist_batch_sharded(fr, pairs, **where)
-            return distributed.dis_rpq_batch_sharded(fr, pairs, qa, **where)
+                         device=self.device, chaos=self.chaos)
+            try:
+                if kind == "reach":
+                    return distributed.dis_reach_batch_sharded(
+                        fr, pairs, **where), False
+                if kind == "dist":
+                    return distributed.dis_dist_batch_sharded(
+                        fr, pairs, **where), False
+                return distributed.dis_rpq_batch_sharded(
+                    fr, pairs, qa, **where), False
+            except Exception as exc:
+                if is_device_fault(exc):
+                    raise
+                self.stats.degraded_groups += 1
+                return self._execute_group_vmap(fr, kind, pairs, qa), True
+        return self._execute_group_vmap(fr, kind, pairs, qa), False
+
+    def _execute_group_vmap(self, fr: Fragmentation, kind: str, pairs, qa):
+        if self.chaos is not None:
+            self.chaos.maybe_fail("engine.vmap", pairs=pairs)
         if kind == "reach":
             return _cache.dis_reach_batch(fr, pairs, self.device)
         if kind == "dist":

@@ -1,6 +1,10 @@
-from .generate import erdos_renyi
-from .graph import Graph, bfs_distances, bfs_reachable, csr_from_coo
-from .partition import bfs_partition, random_partition
+from .generate import erdos_renyi, labeled_chain_graph, preferential_attachment
+from .graph import (Graph, bfs_distances, bfs_reachable, csr_from_coo,
+                    out_degrees, reverse)
+from .partition import (bfs_partition, block_partition, cut_stats,
+                        hash_partition, random_partition)
 
 __all__ = ["Graph", "bfs_distances", "bfs_reachable", "csr_from_coo",
-           "erdos_renyi", "bfs_partition", "random_partition"]
+           "out_degrees", "reverse", "erdos_renyi", "labeled_chain_graph",
+           "preferential_attachment", "bfs_partition", "block_partition",
+           "cut_stats", "hash_partition", "random_partition"]

@@ -39,6 +39,10 @@ class Graph:
     def m(self) -> int:
         return int(self.src.shape[0])
 
+    def size(self) -> int:
+        """|G| = |V| + |E| (the paper's fragment-size measure)."""
+        return self.n + self.m
+
     def label_of(self, name: str) -> int:
         if self.label_names is None:
             raise ValueError("graph has no label names")
@@ -53,6 +57,17 @@ def csr_from_coo(n: int, src: np.ndarray, dst: np.ndarray):
     np.add.at(indptr, s + 1, 1)
     indptr = np.cumsum(indptr)
     return indptr, d
+
+
+def out_degrees(g: Graph) -> np.ndarray:
+    """[n] int64 out-degree of every node."""
+    return np.bincount(g.src, minlength=g.n).astype(np.int64)
+
+
+def reverse(g: Graph) -> Graph:
+    """The graph with every edge turned around (labels kept)."""
+    return Graph(g.n, g.dst.copy(), g.src.copy(), g.labels.copy(),
+                 g.label_names)
 
 
 def bfs_reachable(g: Graph, s: int) -> np.ndarray:

@@ -14,7 +14,6 @@ CPU never needs ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ..errors import KernelError
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
@@ -40,7 +41,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+# held by a build, and by the first load of each library, so that threads
+# that launch kernels at once build and load every library once
+_lock = threading.RLock()
+_libraries: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -55,7 +59,7 @@ def nvcc() -> str:
     for path in candidates:
         if os.path.isfile(path) and os.access(path, os.X_OK):
             return path
-    raise RuntimeError("nvcc not found in $CUDA_HOME/bin, on PATH or in "
+    raise KernelError("nvcc not found in $CUDA_HOME/bin, on PATH or in "
                        "/usr/local/cuda/bin; the CUDA kernels cannot be built")
 
 
@@ -94,21 +98,25 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
                 continue
             os.replace(tmp, paths[name])
         if failed:
-            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+            raise KernelError("kernel build failed: " + "\n".join(failed))
         return paths
 
 
-@functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
-    lib = ctypes.CDLL(str(build([name])[name]))
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
-    return lib
+    """The loaded library of kernel ``name``, built on first use; safe to
+    call from several threads at once."""
+    with _lock:
+        lib = _libraries.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _libraries[name] = lib
+        return lib
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+        raise KernelError(f"{name} launch failed: CUDA error {code} ({msg})")

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -22,6 +23,18 @@ from .ref import bitpack_matmul_ref
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
+
+# guards the read-modify-write of the counters: the scheduler thread and
+# the repair worker of a server launch kernels at the same time
+_count_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one to :data:`launches`, atomically: the scheduler thread and
+    the repair worker of a server launch kernels at the same time."""
+    global launches
+    with _count_lock:
+        launches += 1
 
 _SHIFTS8 = (0, 8, 16, 24)
 
@@ -140,8 +153,7 @@ def bitpack_matmul(ap: torch.Tensor, bp: torch.Tensor, K: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(ap.device).cuda_stream
         code = fn(ap.data_ptr(), bp.data_ptr(), out.data_ptr(), M, W, N, K,
                   out.stride(0), stream)
-    global launches
-    launches += 1
+    _count_launch()
     from .._build import check
     check(lib, "bitpack_matmul", code)
     return out

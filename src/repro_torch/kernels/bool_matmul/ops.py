@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Tuple, Union
 
 import torch
@@ -28,6 +29,18 @@ from .ref import or_and_matmul_nt_ref, or_and_matmul_ref
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
+
+# guards the read-modify-write of the counters: the scheduler thread and
+# the repair worker of a server launch kernels at the same time
+_count_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one to :data:`launches`, atomically: the scheduler thread and
+    the repair worker of a server launch kernels at the same time."""
+    global launches
+    with _count_lock:
+        launches += 1
 
 #: byte alignment of a K-major operand's base and row pitch
 ALIGN = 16
@@ -138,7 +151,6 @@ def _launch(a: torch.Tensor, b_t: torch.Tensor, c: torch.Tensor,
         stream = torch.cuda.current_stream(a.device).cuda_stream
         code = fn(a.data_ptr(), b_t.data_ptr(), c.data_ptr(),
                   None if ct is None else ct.data_ptr(), *ints, stream)
-    global launches
-    launches += 1
+    _count_launch()
     from .._build import check
     check(lib, "or_and_matmul", code)

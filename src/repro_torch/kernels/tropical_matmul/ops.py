@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -40,6 +41,24 @@ launches = 0
 
 #: operand copies made by :func:`aligned` since the count was last set to 0
 copies = 0
+
+# guards the read-modify-write of the counters: the scheduler thread and
+# the repair worker of a server launch kernels at the same time
+_count_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one to :data:`launches`, atomically."""
+    global launches
+    with _count_lock:
+        launches += 1
+
+
+def _count_copy() -> None:
+    """Add one to :data:`copies`, atomically."""
+    global copies
+    with _count_lock:
+        copies += 1
 
 #: byte alignment of an operand's base and row pitch
 ALIGN = 16
@@ -92,8 +111,7 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
     :data:`copies`)."""
     if is_aligned(x):
         return x
-    global copies
-    copies += 1
+    _count_copy()
     return padded_i32(*x.shape, x.device).copy_(x)
 
 
@@ -249,8 +267,7 @@ def _launch(index: int, a, b, init, out) -> None:
         code = tile(a.data_ptr(), b.data_ptr(),
                     None if init is None else init.data_ptr(),
                     out.data_ptr(), *ints, stream)
-    global launches
-    launches += 1
+    _count_launch()
     check(lib, "min_plus_matmul", code)
 
 

@@ -467,3 +467,62 @@ def test_failed_delta_rolls_back_on_card(cuda, monkeypatch):
     for n, (obj, copy) in held.items():
         assert getattr(cache, n) is obj and torch.equal(obj, copy), n
     assert [(r.answer, r.distance) for r in sess.run(queries)] == before
+
+
+def _check_served(graphs, futs):
+    """Every future DONE and equal to the host BFS of its version."""
+    from repro_torch.graph import bfs_distances
+    for f in futs:
+        assert f.status == "done", (f, f.error)
+        d = int(bfs_distances(graphs[f.cache_version], f.s)[f.t])
+        want = {"reach": d >= 0, "dist": d if d >= 0 else None,
+                "bounded": 0 <= d <= 3}[f.kind]
+        assert f.value == want, f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mvcc", [False, True], ids=["barrier", "mvcc"])
+def test_query_server_on_card(cuda, mvcc):
+    """A warm QueryServer on the card (no device= given): one flush of
+    mixed requests around a repair delta, answers equal to the host BFS
+    of their version, both kernels launched, no operand copied."""
+    from repro_torch.graph import Graph
+    from repro_torch.serve import QueryServer
+    g = erdos_renyi(400, 1400, n_labels=3, seed=12)
+    fr = fragment_graph(g, random_partition(g, 4, seed=12), 4,
+                        reserve_boundary=16, reserve_edges=32,
+                        reserve_stubs=16)
+    srv = QueryServer(fr, with_dist=True, batch_size=32, start=False,
+                      mvcc=mvcc)
+    assert srv.session.device.type == "cuda"
+    rng = np.random.default_rng(12)
+    mine = np.nonzero(fr.part == 0)[0]
+    delta = GraphDelta.insert([(int(rng.choice(mine)), int(rng.choice(mine)))
+                               for _ in range(4)])
+    v0 = srv.session.cache_version
+    graphs = {v0: g, v0 + 1: Graph(g.n, np.concatenate([g.src,
+                                                        delta.add_src]),
+                                   np.concatenate([g.dst, delta.add_dst]),
+                                   g.labels)}
+    kinds = ("reach", "dist", "bounded")
+
+    def submit(count):
+        return [srv.submit(int(s), int(t), kind=kinds[i % 3],
+                           bound=3 if i % 3 == 2 else None)
+                for i, (s, t) in enumerate(rng.integers(0, g.n, (count, 2)))]
+
+    bops.launches = tops.launches = tops.copies = 0
+    futs = submit(48)
+    upd = srv.submit_delta(delta)
+    futs += submit(48)
+    srv.flush()
+    futs += submit(24)                   # after the commit point
+    srv.flush()
+    srv.close()
+    torch.cuda.synchronize()
+    assert upd.status == "applied" and upd.value.mode == "repair"
+    _check_served(graphs, futs)
+    assert {f.cache_version for f in futs} == {v0, v0 + 1}
+    assert bops.launches > 0 and tops.launches > 0 and tops.copies == 0
+    assert srv.retries == 0 and not srv.dead_letters
+    assert srv.session.stats.degraded_groups == 0

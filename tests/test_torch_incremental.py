@@ -303,7 +303,7 @@ class _FailAt:
     def __init__(self, site):
         self.site, self.calls = site, 0
 
-    def maybe_fail(self, site):
+    def maybe_fail(self, site, pairs=None):
         self.calls += 1
         if site == self.site:
             raise RuntimeError(f"injected at {site}")

@@ -143,8 +143,14 @@ def test_unported_paths_raise():
     sess = repro_torch.connect(tfr, backend="vmap", device="cpu")
     assert sess.backend == "vmap"
     assert sess.apply(GraphDelta()).mode == "noop"
-    # MVCC (item 8) is not
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sess.repair_on(tfr, None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sess.run([Reach(0, 1)], version=object())
+    # so are the MVCC building blocks: repair_on repairs a clone, and
+    # run(version=) answers against it, stamped with its cache version
+    from repro_torch.core.versions import Version, cow_clone
+    sess.warm()
+    delta = GraphDelta.insert([(0, 1)])
+    clone = cow_clone(tfr, delta)
+    assert sess.repair_on(clone, delta).mode in ("repair", "recompute",
+                                                 "rebuild")
+    r = sess.run([Reach(0, 1)], version=Version(1, clone))[0]
+    assert r.answer is True and r.cache_version == 1
+    assert sess.cache_version == 0 and tfr.arrays_version == 0
