@@ -81,7 +81,36 @@ non-zero and prints no result line):
              a poison pair dead-lettered alone, a failed MVCC repair
              dropped, and an ``engine.shard_map`` failure on the NCCL group
              degraded to the cached path, exact.
-8. rpq     — regular path queries at a reduced size (2048 nodes, 8
+8. baselines — the paper's baselines on the main graph: 16 seeded pairs
+             through ``dis_reach_n``, ``dis_reach_m`` and the one-shot
+             ``dis_reach``, each answer checked against the host BFS, with
+             rounds, site visits and traffic bits; then a 1024-node chain
+             dealt round-robin over 16 fragments, where ``dis_reach_m``
+             must take more than k rounds and ``dis_reach`` one.
+9. mapreduce — the one-shot phase's 4 RPQs through ``mr_drpq``: answers
+             equal to the one-shot RPQ's and the product-graph BFS, the
+             or-and kernel launched, the device memory peak below 32 GB
+             (the reference stacks 103 GB of mapper outputs), the time
+             split into map, K-major copy of D and evalDG; the or-and
+             kernel held against its plain version at the reducer's
+             evalDG step, [1, 80205] x [80205, 80205].
+10. sharded repair — ``session.apply`` on a ``backend="shard_map"``
+             session over the NCCL group with a reach-only cache and the
+             dynamic phase's reserves: inserts in one fragment, cross
+             inserts with new boundary nodes, inserts in a fragment that
+             owns no boundary row (a second partition of the graph), 16
+             deletions, a fault at ``delta.repair`` (rolled back), and a
+             delta with a distance cache; each in the mode the reference
+             takes, with one collective of ``traffic_bits_update(r)``
+             bits per sharded repair (none otherwise), no operand copied,
+             the cache bit-equal to the host repair of the same delta on
+             a copy-on-write clone, and 256 reach queries after it
+             checked through the sharded batch and the cached path.
+11. verify — ``repro_torch.analysis.verify_session`` on that session:
+             the three batch programs, the one-shot disReach and the cache
+             update, one collective each of its wire model's bits, no
+             violation.
+12. rpq     — regular path queries at a reduced size (2048 nodes, 8
              fragments), through the vmap session and then the sharded
              one: the product closure has side nb * |Q|, which at full size
              is a 6.4 GB matrix whose squaring would outlast a smoke run.
@@ -96,7 +125,8 @@ min-plus shape (``former_ms``).
 The second-to-last line of output is a JSON object with one entry per
 kernel, with its launches on each path (``launches`` on the main path,
 ``oneshot_launches``, ``dynamic_launches`` by mode, ``serve_launches``
-by mode, ...) and its new
+by mode, ``baselines_launches``, ``mapreduce_launches``,
+``sharded_repair_launches`` by mode, ``verify_launches``, ...) and its new
 launch shapes (``new_shapes``); the last is ``{"ok": true, "device":
 {...}}``.  Times come from
 CUDA events after a warm-up; bounds are reckoned from the H100 SXM data
@@ -1360,7 +1390,9 @@ def phase_oneshot(out: dict, g, fr) -> None:
     torch.cuda.empty_cache()
     out["oneshot"] = {"run_ms": run_ms, "launches": launches,
                       "rpq_ms": rpq_ms, "rpq_launches": rpq_launches,
-                      "split": split, "sharded": sharded, "shapes": shapes}
+                      "split": split, "sharded": sharded, "shapes": shapes,
+                      "rpq_pairs": rpq_pairs,
+                      "rpq_answers": [r.answer for r in rpq_results]}
 
 
 # ---------------------------------------------------------------------------
@@ -2108,7 +2140,7 @@ def phase_serve(out: dict, fr, sess) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 8. regular path queries at reduced size
+# 12. regular path queries at reduced size
 # ---------------------------------------------------------------------------
 
 RPQ_NODES, RPQ_EDGES, RPQ_FRAGS = 2048, 8192, 8
@@ -2225,6 +2257,431 @@ def phase_rpq(out: dict) -> None:
     out["rpq"]["sharded"]["split_ms"] = split
 
 
+# ---------------------------------------------------------------------------
+# 8. the paper's baselines at full size
+# ---------------------------------------------------------------------------
+
+N_BASELINE = 16
+CHAIN_NODES = 1024
+
+
+def phase_baselines(out: dict, g, fr) -> None:
+    """disReach_n, disReach_m and the one-shot disReach on 16 seeded pairs
+    at full size, every answer checked against the host BFS; then the
+    paper's contrast on a 1024-node chain dealt round-robin over 16
+    fragments: disReach_m takes more than k rounds, disReach one."""
+    from repro_torch import dis_reach
+    from repro_torch.core.baselines import dis_reach_m, dis_reach_n
+    from repro_torch.core.fragments import fragment_graph
+    from repro_torch.graph.graph import Graph
+
+    rng = np.random.default_rng(SEED + 6)
+    pairs = rng.integers(0, g.n, size=(N_BASELINE, 2))
+    table = _bfs_distances(g, pairs[:, 0])
+    rows = {"n": [], "m": [], "oneshot": []}
+    _reset_launches()
+    for s, t in pairs.tolist():
+        want = s == t or table[s][t] >= 0
+        for name, fn in (("n", lambda: dis_reach_n(fr, s, t)),
+                         ("m", lambda: dis_reach_m(fr, s, t)),
+                         ("oneshot", lambda: dis_reach(fr, s, t))):
+            ms, res = cuda_timed(fn, 1, warmup=False)
+            if res.answer != want:
+                raise AssertionError(f"baselines: {name} ({s}, {t}) got "
+                                     f"{res.answer}, BFS {want}")
+            if name == "oneshot":           # each site visited once
+                counts = (res.stats.payload_bits, fr.k,
+                          res.stats.collective_rounds)
+            else:
+                counts = (res.traffic_bits, res.site_visits, res.rounds)
+            rows[name].append({"ms": ms, "traffic_bits": counts[0],
+                               "site_visits": counts[1], "rounds": counts[2]})
+    launches = _launches()
+    summary = {}
+    for name, rs in rows.items():
+        summary[name] = {
+            "ms_median": statistics.median(r["ms"] for r in rs),
+            "ms_max": max(r["ms"] for r in rs),
+            "rounds": [r["rounds"] for r in rs],
+            "site_visits": [r["site_visits"] for r in rs],
+            "traffic_bits": [r["traffic_bits"] for r in rs]}
+    if any(b != fr.traffic_bits("reach")
+           for b, (s, t) in zip(summary["oneshot"]["traffic_bits"],
+                                pairs.tolist()) if s != t):
+        raise AssertionError("a one-shot disReach shipped other than "
+                             "traffic_bits('reach')")
+    for name, sm in summary.items():
+        print(f"baselines: {name} over {N_BASELINE} pairs, median "
+              f"{sm['ms_median']:.1f} ms (max {sm['ms_max']:.1f}); rounds "
+              f"{sm['rounds']}; site visits {sm['site_visits'][:4]}...; "
+              f"traffic bits {sm['traffic_bits'][:2]}...")
+    print(f"baselines: one-shot wire {fr.traffic_bits('reach')} bits "
+          f"(bitpacked B^2; traffic_bits_reach {fr.traffic_bits_reach()}), "
+          f"disReach_n {summary['n']['traffic_bits'][0]} bits (|G|); "
+          f"launches {launches}; {N_BASELINE} x 3 answers match the BFS")
+
+    # the paper's contrast: a chain crossing the fragments at every edge
+    n, k = CHAIN_NODES, N_FRAGS
+    chain = Graph(n, np.arange(n - 1), np.arange(1, n),
+                  np.zeros(n, np.int32))
+    cfr = fragment_graph(chain, (np.arange(n) % k).astype(np.int32), k)
+    m_ms, m_res = cuda_timed(lambda: dis_reach_m(cfr, 0, n - 1), 1,
+                             warmup=False)
+    o_ms, o_res = cuda_timed(lambda: dis_reach(cfr, 0, n - 1), 1,
+                             warmup=False)
+    if not (m_res.answer and o_res.answer):
+        raise AssertionError("the chain's end is not reached")
+    if m_res.rounds <= k or o_res.stats.collective_rounds != 1:
+        raise AssertionError(f"chain: disReach_m {m_res.rounds} rounds, "
+                             f"disReach {o_res.stats.collective_rounds}")
+    print(f"baselines: {n}-node chain round-robin over {k} fragments: "
+          f"disReach_m {m_res.rounds} rounds, {m_res.site_visits} site "
+          f"visits, {m_res.traffic_bits} bits, {m_ms:.1f} ms; disReach 1 "
+          f"round, {o_res.stats.payload_bits} bits, {o_ms:.1f} ms")
+    out["baselines"] = {"pairs": summary, "launches": launches,
+                        "chain": {"m_rounds": m_res.rounds, "m_ms": m_ms,
+                                  "m_visits": m_res.site_visits,
+                                  "m_bits": m_res.traffic_bits,
+                                  "oneshot_ms": o_ms,
+                                  "oneshot_bits": o_res.stats.payload_bits}}
+
+
+# ---------------------------------------------------------------------------
+# 9. MRdRPQ at full size
+# ---------------------------------------------------------------------------
+
+#: the reference stacks the k mapper outputs: k x (B*Q)^2 bytes at full
+#: size; the port's peak must stay far below it
+MR_PEAK_LIMIT = 32e9
+
+
+def phase_mapreduce(out: dict, g, fr) -> None:
+    """The one-shot phase's 4 RPQs ``(0|1)* 2`` through ``mr_drpq``: the
+    answers equal the one-shot RPQ's and the product-graph BFS; B1
+    launched; the device memory peak printed (the reference would stack
+    16 mapper outputs of 6.4 GB); the map / K-major copy / evalDG split;
+    B1 held against its plain version at the reducer's evalDG step."""
+    import torch
+    from repro_torch.core.automaton import build_query_automaton
+    from repro_torch.core.mapreduce import mr_drpq
+    from repro_torch.kernels.bool_matmul import (or_and_matmul_nt,
+                                                 or_and_matmul_ref)
+
+    qa = build_query_automaton(ONESHOT_REGEX, int)
+    pairs = out["oneshot"]["rpq_pairs"]
+    want = out["oneshot"]["rpq_answers"]
+    side = fr.B * qa.n_states
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_launches()
+    splits, results = [], []
+    t0 = time.perf_counter()
+    for (s, t), w in zip(pairs.tolist(), want):
+        clock = _PhaseClock()
+        res = mr_drpq(fr, s, t, qa, mark=clock)
+        splits.append(clock.ms())
+        if res.answer != w or res.answer != _rpq_oracle(g, s, t, qa):
+            raise AssertionError(f"mr_drpq ({s}, {t}) got {res.answer}, "
+                                 f"one-shot {w}")
+        results.append(res)
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["or_and_matmul"] == 0:
+        raise AssertionError("or_and_matmul never launched on the MR reduce")
+    _assert_no_copies("mapreduce")
+    if peak > MR_PEAK_LIMIT:
+        raise AssertionError(f"mr_drpq peaked at {peak / 1e9:.2f} GB")
+    stacked = fr.k * side * side
+    if results[0].reducer_input_bits != stacked:
+        raise AssertionError("reducer_input_bits is not k (B*Q)^2")
+    split = {p: statistics.median(sp[p] for sp in splits)
+             for p in splits[0]}
+    print(f"mapreduce: {len(pairs)} Rpq {ONESHOT_REGEX!r} (D [{side}]^2) "
+          f"{run_ms:.1f} ms; answers {[r.answer for r in results]} equal "
+          f"to the one-shot RPQ's and the product-graph BFS; launches "
+          f"{launches}; split (ms, median) {split}; memory peak "
+          f"{peak / 1e9:.3f} GB ({base / 1e9:.3f} GB before), the stacked "
+          f"rvsets would be {stacked / 1e9:.1f} GB; ecc_bits "
+          f"{results[0].ecc_bits}")
+
+    # the reducer's evalDG step, M = 1 at side B*Q, against its plain
+    # version (on the D of the first query, rebuilt here)
+    s, t = pairs[0].tolist()
+    keep = {}
+    from repro_torch.core import engine
+    orig = engine.evaldg_reach
+
+    def kept(D, src, tgt, Dt=None):
+        keep.update(D=D, Dt=Dt, src=src)
+        return orig(D, src, tgt, Dt=Dt)
+
+    engine.evaldg_reach = kept
+    try:
+        mr_drpq(fr, s, t, qa)
+    finally:
+        engine.evaldg_reach = orig
+    D, Dt, x = keep["D"], keep["Dt"], keep["src"][None, :]
+    del keep
+    Dh = D.half()
+    dpx = out["kernels"][1]["dpx_ops_per_s"]
+    shape = _time_shape("mr evaldg step", "or_and",
+                        lambda: or_and_matmul_nt(x, Dt),
+                        lambda: or_and_matmul_ref(x, D),
+                        lambda: (x.half() @ Dh) > 0, 1, side, side, dpx)
+    del D, Dt, Dh, x
+    torch.cuda.empty_cache()
+    out["mapreduce"] = {"run_ms": run_ms, "launches": launches,
+                        "split_ms": split, "peak_bytes": peak,
+                        "stacked_bytes": stacked,
+                        "shapes": {"or_and_matmul": [shape]}}
+
+
+# ---------------------------------------------------------------------------
+# 10. the sharded repair at full size, on the one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+N_REPAIR_QUERIES = 256
+REPAIR_TENSORS = ("bl_frontier", "closure", "closure_t")
+
+
+class _FailAtRepair:
+    """A fault injector that fails every delta at ``delta.repair``."""
+
+    def maybe_fail(self, site, pairs=None):
+        if site == "delta.repair":
+            raise RuntimeError("injected at delta.repair")
+
+
+def _rows_free_partition(g) -> np.ndarray:
+    """A 16-way partition of ``g`` whose last fragment holds exactly the
+    nodes with no in-edge: it owns no boundary row, whatever is inserted
+    inside it."""
+    rng = np.random.default_rng(SEED)
+    indeg = np.bincount(g.dst, minlength=g.n)
+    part = rng.integers(0, N_FRAGS - 1, size=g.n).astype(np.int32)
+    part[indeg == 0] = N_FRAGS - 1
+    return part
+
+
+def phase_sharded_repair(out: dict, g):
+    """``session.apply`` on a ``backend="shard_map"`` session over the
+    one-rank NCCL group, with a warm reach-only cache and the dynamic
+    phase's reserves: repairs ship one collective of
+    ``traffic_bits_update(r)`` bits and launch B1; every delta leaves the
+    cache bit-equal to the host repair of the same delta on a copy-on-
+    write clone, and 256 reach queries after it, through the sharded batch
+    and the cached path, match the BFS.  Returns the session, for the
+    verify phase."""
+    import torch
+    import repro_torch
+    from repro_torch import DeltaApplyFailed, GraphDelta, Reach
+    from repro_torch.core import cache as C
+    from repro_torch.core import distributed as D
+    from repro_torch.core import incremental
+    from repro_torch.core.fragments import fragment_graph
+    from repro_torch.core.versions import cow_clone
+    from repro_torch.graph import random_partition
+
+    rng = np.random.default_rng(SEED + 7)
+    fr = fragment_graph(g, random_partition(g, N_FRAGS, seed=SEED), N_FRAGS,
+                        **RESERVE)
+    sess = repro_torch.connect(fr, backend="shard_map")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.warm()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"sharded repair: nb={fr.n_boundary} (active {fr.nb_active}) "
+          f"n_max={fr.n_max}, reserves {RESERVE}, reach-only cache warm "
+          f"{warm_ms:.1f} ms on the one-rank NCCL group")
+    applies, launches_by_mode = [], {}
+
+    def check(label, fr, sess):
+        pairs = rng.integers(0, fr.g.n, size=(N_REPAIR_QUERIES, 2))
+        queries = [Reach(int(s), int(t)) for s, t in pairs]
+        _check_reach_dist(fr.g, queries, sess.run(queries),
+                          f"sharded repair {label}")
+        table = _bfs_distances(fr.g, pairs[:, 0])
+        want = [s == t or table[s][t] >= 0 for s, t in pairs.tolist()]
+        got = C.dis_reach_batch(fr, pairs, sess.device).tolist()
+        if got != want:
+            raise AssertionError(f"sharded repair {label}: the cached path "
+                                 "disagrees with the BFS")
+
+    def apply(label, delta, want_mode, fr=fr, sess=sess,
+              tensors=REPAIR_TENSORS):
+        clone = cow_clone(fr, delta)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = incremental.apply_delta(clone, delta)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        _reset_launches()
+        D.collectives = D.payload_bits = 0
+        t0 = time.perf_counter()
+        stats = sess.apply(delta)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _launches()
+        wire = (D.collectives, D.payload_bits)
+        _assert_no_copies(f"sharded repair {label}")
+        if stats.mode != want_mode:
+            raise AssertionError(f"sharded repair {label}: mode "
+                                 f"{stats.mode}, expected {want_mode}")
+        r = 0
+        if stats.mode == "repair_sharded" and stats.changed_rows:
+            r = len(incremental.pad_row_ids(np.arange(stats.changed_rows),
+                                            cap=fr.n_boundary))
+            if launches["or_and_matmul"] == 0:
+                raise AssertionError(f"{label}: B1 not launched by the "
+                                     "sharded repair")
+        want_wire = (1, fr.traffic_bits_update(r)) if r else (0, 0)
+        if wire != want_wire:
+            raise AssertionError(f"sharded repair {label}: {wire[0]} "
+                                 f"collectives of {wire[1]} bits, expected "
+                                 f"{want_wire}")
+        for name in tensors:
+            if not torch.equal(getattr(fr.rvset_cache, name),
+                               getattr(clone.rvset_cache, name)):
+                raise AssertionError(f"sharded repair {label}: {name} "
+                                     "differs from the host repair's")
+        del clone
+        applies.append({"delta": label, "mode": stats.mode, "ms": ms,
+                        "host_mode": host.mode, "host_ms": host_ms,
+                        "changed_rows": stats.changed_rows,
+                        "new_boundary": stats.new_boundary,
+                        "dirty_fragments": stats.dirty_fragments,
+                        "collectives": wire[0], "payload_bits": wire[1],
+                        "launches": launches})
+        mode = launches_by_mode.setdefault(stats.mode, {})
+        for name, n in launches.items():
+            mode[name] = mode.get(name, 0) + n
+        print(f"sharded repair: {label} (+{delta.n_add} -{delta.n_del}) -> "
+              f"{stats.mode} in {ms:.1f} ms (host repair on a clone: "
+              f"{host.mode} in {host_ms:.1f} ms); changed rows "
+              f"{stats.changed_rows}, new boundary {stats.new_boundary}; "
+              f"{wire[0]} collective(s) of {wire[1]} bits; launches "
+              f"{launches}; {', '.join(tensors)} bit-equal to the host's")
+        check(label, fr, sess)
+
+    check("warm", fr, sess)
+    deltas = dict(_dynamic_stream(fr, rng))
+    apply("intra", deltas["intra"], "repair_sharded")
+    apply("cross", deltas["cross"], "repair_sharded")
+    if not applies[-1]["new_boundary"]:
+        raise AssertionError("the cross delta activated no boundary node")
+
+    # a fragmentation of the same graph whose last fragment owns no
+    # boundary row: its inserts refresh frontiers with no collective
+    part = _rows_free_partition(g)
+    rf = fragment_graph(g, part, N_FRAGS, **RESERVE)
+    rf_sess = repro_torch.connect(rf, backend="shard_map").warm()
+    free = np.nonzero(part == N_FRAGS - 1)[0]
+    if np.isin(free, rf.bnodes).any():
+        raise AssertionError("the rows-free fragment owns a boundary node")
+    apply("rows_free", GraphDelta.insert(
+        [(int(rng.choice(free)), int(rng.choice(free))) for _ in range(8)]),
+        "repair_sharded", fr=rf, sess=rf_sess)
+    if applies[-1]["changed_rows"] or applies[-1]["dirty_fragments"] != 1:
+        raise AssertionError(f"rows-free delta: {applies[-1]}")
+    del rf, rf_sess
+    torch.cuda.empty_cache()
+
+    apply("delete", deltas["delete"], "recompute")
+
+    # a delta failing at delta.repair, after the host arrays mutated
+    held = {n: (getattr(fr.rvset_cache, n), getattr(fr.rvset_cache, n)
+                .clone()) for n in REPAIR_TENSORS}
+    versions = (fr.arrays_version, sess.cache_version)
+    f = int(rng.integers(fr.k))
+    mine = np.nonzero(fr.part == f)[0]
+    bad = GraphDelta.insert([(int(rng.choice(mine)), int(rng.choice(mine)))
+                             for _ in range(32)])
+    sess.chaos = _FailAtRepair()
+    t0 = time.perf_counter()
+    try:
+        sess.apply(bad)
+        raise AssertionError("the failing delta did not raise")
+    except DeltaApplyFailed:
+        pass
+    finally:
+        sess.chaos = None
+    rollback_ms = (time.perf_counter() - t0) * 1e3
+    if (fr.arrays_version, sess.cache_version) != versions:
+        raise AssertionError("the failed sharded delta moved a version")
+    for name, (obj, copy) in held.items():
+        if getattr(fr.rvset_cache, name) is not obj or not torch.equal(
+                obj, copy):
+            raise AssertionError(f"the failed sharded delta changed {name}")
+    del held
+    print(f"sharded repair: a delta failing at delta.repair rolled back in "
+          f"{rollback_ms:.1f} ms (rollbacks {sess.stats.rollbacks}); "
+          f"versions {versions} and the cache unchanged")
+    check("rolled back", fr, sess)
+    apply("after rollback", bad, "repair_sharded")
+
+    # with distances cached, the reference keeps every delta on the host
+    sess.warm(with_dist=True)
+    mine = np.nonzero(fr.part == int(rng.integers(fr.k)))[0]
+    apply("dist cache", GraphDelta.insert(
+        [(int(rng.choice(mine)), int(rng.choice(mine))) for _ in range(32)]),
+        "repair", tensors=REPAIR_TENSORS + ("bl_dist", "dist_closure"))
+    out["sharded_repair"] = {"warm_ms": warm_ms, "applies": applies,
+                             "launches_by_mode": launches_by_mode,
+                             "rollback_ms": rollback_ms}
+    return fr, sess
+
+
+# ---------------------------------------------------------------------------
+# 11. the wire verifier on the NCCL session
+# ---------------------------------------------------------------------------
+
+VERIFY_REGEX = "0*"
+
+
+def phase_verify(out: dict, sess) -> None:
+    """``verify_session`` on the sharded repair's NCCL session at full
+    size: the three fused batch programs, the one-shot disReach and the
+    cache update, each one collective of its wire model's bits, none in a
+    fixpoint, no graph-sized wire dimension (HLO001-HLO004)."""
+    import torch
+    from repro_torch.analysis.wire_check import (KINDS, _wire_model,
+                                                 verify_session)
+    from repro_torch.core import distributed as D
+    from repro_torch.core import incremental
+    from repro_torch.core.automaton import build_query_automaton
+
+    fr = sess.fr
+    qa = build_query_automaton(VERIFY_REGEX, int)
+    r = len(incremental.pad_row_ids(np.arange(min(3, fr.nb_active)), pad=8,
+                                    cap=fr.n_boundary))
+    want = {kind: _wire_model(fr, kind, r if kind == "update" else 2,
+                              qa.n_states if kind == "rpq" else 1)[0]
+            for kind in KINDS}
+    torch.cuda.synchronize()
+    _reset_launches()
+    D.collectives = D.payload_bits = 0
+    t0 = time.perf_counter()
+    violations = verify_session(sess, qa=qa)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if violations:
+        raise AssertionError(f"verify: {[str(v) for v in violations]}")
+    if (D.collectives, D.payload_bits) != (len(KINDS), sum(want.values())):
+        raise AssertionError(f"verify: {D.collectives} collectives of "
+                             f"{D.payload_bits} bits, expected {want}")
+    launches = _launches()
+    print(f"verify: verify_session on the NCCL session (nb="
+          f"{fr.n_boundary}, rpq {VERIFY_REGEX!r} with {qa.n_states} "
+          f"states) in {ms:.1f} ms: no violation; {D.collectives} "
+          f"collectives, one per program, of {want} bits; launches "
+          f"{launches}")
+    out["verify"] = {"ms": ms, "bits": want, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2242,11 +2699,17 @@ def main() -> int:
         phase_sharded(out, g, fr, queries, results)
         del queries, results
         phase_oneshot(out, g, fr)
+        phase_baselines(out, g, fr)
+        phase_mapreduce(out, g, fr)
         fr.rvset_cache = None
         del fr
         fr, sess = phase_dynamic(out, g)
-        del g
         phase_serve(out, fr, sess)
+        del fr, sess
+        torch.cuda.empty_cache()
+        fr, sess = phase_sharded_repair(out, g)
+        del g
+        phase_verify(out, sess)
         del fr, sess
         torch.cuda.empty_cache()
         phase_rpq(out)
@@ -2267,8 +2730,15 @@ def main() -> int:
             "barrier": out["serve"]["barrier"]["launches"][name],
             **{f"mvcc_{label}": run["launches"][name]
                for label, run in out["serve"]["mvcc"].items()}}
+        k["baselines_launches"] = out["baselines"]["launches"][name]
+        k["mapreduce_launches"] = out["mapreduce"]["launches"][name]
+        k["sharded_repair_launches"] = {
+            mode: n[name] for mode, n in
+            out["sharded_repair"]["launches_by_mode"].items()}
+        k["verify_launches"] = out["verify"]["launches"][name]
         k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
-                           + out["dynamic"]["shapes"].get(name, []))
+                           + out["dynamic"]["shapes"].get(name, [])
+                           + out["mapreduce"]["shapes"].get(name, []))
         if name == "min_plus_matmul":
             shapes = {s["path"]: s for s in k["new_shapes"]}
             k["skinny_ms"] = shapes["evaldg_dist step"]["ms"]
@@ -2276,7 +2746,8 @@ def main() -> int:
             k["dispatch"].update({path: s["dispatch"]
                                   for path, s in shapes.items()})
             # asserted 0 on each path: main, one-shot, every delta
-            k["copies"] = {"main": 0, "oneshot": 0, "dynamic": 0}
+            k["copies"] = {"main": 0, "oneshot": 0, "dynamic": 0,
+                           "mapreduce": 0, "sharded_repair": 0}
     print(out["card"])            # nvidia-smi: name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

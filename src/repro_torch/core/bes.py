@@ -14,6 +14,7 @@ import torch
 
 from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
 from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
+from .engine import FIXPOINT
 
 
 def _ceil_log2(b: int) -> int:
@@ -44,11 +45,12 @@ def bool_closure_kmajor(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     At = kmajor_copy(A.T)
     if B == 0:
         return A, At
-    for _ in range(_ceil_log2(B)):
-        A2, A2t = or_and_matmul_nt(A, At, with_transpose=True)
-        if torch.equal(A2, A):
-            break
-        A, At = A2, A2t
+    with FIXPOINT:
+        for _ in range(_ceil_log2(B)):
+            A2, A2t = or_and_matmul_nt(A, At, with_transpose=True)
+            if torch.equal(A2, A):
+                break
+            A, At = A2, A2t
     return A, At
 
 
@@ -66,11 +68,12 @@ def tropical_closure(W: torch.Tensor) -> torch.Tensor:
     W.diagonal().fill_(0)
     if B == 0:
         return W
-    for _ in range(_ceil_log2(B)):
-        W2 = min_plus_matmul(W, W)
-        if torch.equal(W2, W):
-            break
-        W = W2
+    with FIXPOINT:
+        for _ in range(_ceil_log2(B)):
+            W2 = min_plus_matmul(W, W)
+            if torch.equal(W2, W):
+                break
+            W = W2
     return W
 
 

@@ -33,16 +33,27 @@ its owned fragments' rvset row blocks into one dependency matrix, ONE
 bitpacked collective merges them (``traffic_bits("reach")`` or
 ``traffic_bits("rpq", states=Q)`` bits), and evalDG runs replicated.
 
-Left for later slices (ROADMAP queue A): ``lower_*_hlo`` (item 10) and
-``update_rows_sharded``/``apply_delta_sharded`` (item 6b: a session on
-this backend repairs its caches on the host path).
+:func:`apply_delta_sharded` repairs a reach cache for an insert-only
+delta over the same group: each rank resumes the fixpoints of the dirty
+fragments it owns, and ONE bitpacked collective ships only the changed
+boundary rows (``traffic_bits_update(r)`` bits); the rank-style closure
+update then runs replicated.
+
+Every collective is recorded by :func:`record_collectives` (op, dtype,
+shape, bits, and whether a fixpoint loop was running): the port's
+counterpart of the reference's lowered programs, which
+``repro_torch.analysis.wire_check`` checks as the reference checks HLO.
+``trace_reach_collectives``, ``trace_batch_collectives`` and
+``trace_update_collectives`` run one program under a record.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import threading
 from collections import OrderedDict
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,9 +78,17 @@ _count_lock = threading.Lock()
 
 def _all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     """The ONE collective of a fused batch, in place on ``x``; every
-    collective of the sharded backend goes through here and is counted."""
+    collective of the sharded backend goes through here and is counted
+    (and recorded, under :func:`record_collectives`)."""
     dist.all_reduce(x, op=op, group=group)
-    _count_collective(x.numel() * x.element_size() * 8)
+    bits = x.numel() * x.element_size() * 8
+    _count_collective(bits)
+    trace = engine.TRACE
+    if trace.recording:
+        trace.record.entries.append(CollectiveEntry(
+            kind="all-reduce", op=getattr(op, "name", str(op)).lower(),
+            dtype=str(x.dtype).rsplit(".", 1)[-1], shape=tuple(x.shape),
+            bits=bits, in_fixpoint=trace.depth > 0))
     return x
 
 
@@ -79,6 +98,56 @@ def _count_collective(bits: int) -> None:
     with _count_lock:
         collectives += 1
         payload_bits += bits
+
+
+# ---------------------------------------------------------------------------
+# the collective record: what a program put on the wire
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveEntry:
+    """One collective issued while a :func:`record_collectives` was open."""
+
+    kind: str                 # "all-reduce" (the one kind the port issues)
+    op: str                   # the reduction: "sum" or "min"
+    dtype: str                # torch dtype name of the wire, e.g. "int32"
+    shape: Tuple[int, ...]    # the wire tensor's shape, per rank
+    bits: int                 # numel x element size x 8
+    in_fixpoint: bool         # issued while a fixpoint loop was running
+
+
+@dataclasses.dataclass
+class CollectiveRecord:
+    """The collectives of one program run, in order, and the fixpoint
+    loops it entered (``engine.FIXPOINT``)."""
+
+    entries: List[CollectiveEntry] = dataclasses.field(default_factory=list)
+    fixpoints: int = 0
+
+    @property
+    def payload_bits(self) -> int:
+        return sum(e.bits for e in self.entries)
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Record every collective this thread issues inside the block; yields
+    the :class:`CollectiveRecord`, complete once the block ends.  While it
+    is open the engine's fixpoint loops mark themselves, so an entry says
+    whether it ran inside one.  Records do not nest."""
+    trace = engine.TRACE
+    if trace.recording:
+        raise RuntimeError("record_collectives() is already open on this "
+                           "thread")
+    rec = CollectiveRecord()
+    trace.record, trace.depth, trace.loops = rec, 0, 0
+    trace.recording = True
+    try:
+        yield rec
+    finally:
+        trace.recording = False
+        rec.fixpoints = trace.loops
+        trace.record = None
 
 
 def _require_process_group() -> None:
@@ -298,13 +367,15 @@ def _batch_sharded_program(fr: Fragmentation, pairs: np.ndarray, kind: str,
                            device=None, chaos=None):
     """``(program, args)`` for one fused N-pair sharded batch of ``kind``
     on this rank; ``program(*args)`` returns the [N] answers on
-    ``device`` (``None``: the current CUDA device).  ``chaos`` is
+    ``device`` (``None``: the current CUDA device, raising
+    :class:`~repro_torch.errors.NoCudaDevice` without one).  ``chaos`` is
     consulted at the ``"upload"`` site before the fragment arrays go to
     the device."""
+    from .session import _resolve_device          # session imports us
+    device = _resolve_device(device)
     placement = _resolve_placement(fr, group, placement)
     if chaos is not None:
         chaos.maybe_fail("upload")     # guards the _device_inputs transfer
-    device = torch.device("cuda" if device is None else device)
     k, n_max, N = fr.k, fr.n_max, len(pairs)
     ss, tt = pairs[:, 0], pairs[:, 1]
     # per-fragment query inputs: [k, N] local slots of s and t (n_max
@@ -419,8 +490,9 @@ def dis_rpq_batch_sharded(fr: Fragmentation, pairs, qa: QueryAutomaton,
 def _one_shot_inputs(fr: Fragmentation, s: int, t: int, group,
                      placement: Optional[Placement], device):
     """This rank's packed fragment arrays and its [fpd] slots of s and t."""
+    from .session import _resolve_device          # session imports us
+    device = _resolve_device(device)
     placement = _resolve_placement(fr, group, placement)
-    device = torch.device("cuda" if device is None else device)
     inp = _device_inputs(fr, placement, dist.get_rank(group), device)
     perm, rows = inp["perm"], inp["rows"]
     qs = query_slots(fr, s, t)
@@ -487,3 +559,191 @@ def dis_rpq_sharded(fr: Fragmentation, s: int, t: int, qa: QueryAutomaton,
     from .session import _src_rows, _tgt_cols     # session imports us
     return engine.evaldg_reach(D, _src_rows(fr, dev, Q, qa.start),
                                _tgt_cols(fr, t, dev, Q, qa.final))
+
+
+# ---------------------------------------------------------------------------
+# one program run under a record (the reference lowers the same programs)
+# ---------------------------------------------------------------------------
+
+def trace_reach_collectives(fr: Fragmentation, s: int, t: int, group=None,
+                            placement: Optional[Placement] = None,
+                            device=None) -> CollectiveRecord:
+    """Run the sharded one-shot disReach (:func:`dis_reach_sharded`) once
+    and return its :class:`CollectiveRecord`: the counterpart of the
+    reference's ``lower_reach_hlo``.  Every rank of the group calls it."""
+    with record_collectives() as rec:
+        dis_reach_sharded(fr, s, t, group=group, placement=placement,
+                          device=device)
+    return rec
+
+
+def trace_batch_collectives(fr: Fragmentation, pairs, kind: str,
+                            qa: Optional[QueryAutomaton] = None, group=None,
+                            placement: Optional[Placement] = None,
+                            device=None) -> CollectiveRecord:
+    """Run one fused sharded batch of ``kind`` ("reach", "dist" or "rpq")
+    over ``pairs`` and return its record: the counterpart of the
+    reference's ``lower_batch_hlo``."""
+    run, args = _batch_sharded_program(fr, _as_batch_pairs(pairs), kind,
+                                       qa=qa, group=group,
+                                       placement=placement, device=device)
+    with record_collectives() as rec:
+        run(*args)
+    return rec
+
+
+def trace_update_collectives(fr: Fragmentation, row_ids: np.ndarray,
+                             group=None,
+                             placement: Optional[Placement] = None
+                             ) -> CollectiveRecord:
+    """Run the sharded cache-update program (:func:`update_rows_sharded`)
+    for the boundary rows ``row_ids`` against ``fr``'s current reach cache
+    and return its record: the counterpart of the reference's
+    ``lower_update_hlo``.  Nothing is bound: the cache is left as it
+    was."""
+    with record_collectives() as rec:
+        update_rows_sharded(fr, row_ids, group=group, placement=placement)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# sharded incremental cache maintenance
+# ---------------------------------------------------------------------------
+
+def _changed_row_inputs(fr: Fragmentation, row_ids: np.ndarray):
+    """Per-fragment gather indices for the changed boundary rows: for each
+    fragment, the source-row index of every changed position it owns (pad
+    ``s_max-1``, the reserved s slot, never a real in-node row, elsewhere)
+    plus the ownership mask.  [k, r] each."""
+    k, S, r = fr.k, fr.s_max, len(row_ids)
+    src_row = fr.arrays["src_row"]                         # [k, S]
+    f_of, j_of = np.nonzero(src_row < fr.B - 2)
+    frag = np.full(fr.B, -1, dtype=np.int64)               # row -> owner
+    slot = np.zeros(fr.B, dtype=np.int32)                  # row -> source
+    frag[src_row[f_of, j_of]] = f_of
+    slot[src_row[f_of, j_of]] = j_of
+    f = frag[row_ids]
+    if (f < 0).any():
+        raise KeyError(f"boundary rows {row_ids[f < 0]} have no owner")
+    srcidx = np.full((k, r), S - 1, dtype=np.int32)
+    own = np.zeros((k, r), dtype=bool)
+    srcidx[f, np.arange(r)] = slot[row_ids]
+    own[f, np.arange(r)] = True
+    return srcidx, own
+
+
+def _update_rows_program(fr: Fragmentation, cache, row_ids: np.ndarray,
+                         placement: Placement, rank: int, group):
+    """This rank's part of the sharded update, and the ONE collective.
+
+    The rank resumes, from the cached frontier rows (``cache.bl_frontier``,
+    a valid start after insertions), the all-sources fixpoints of the
+    fragments that own a changed row and that it owns itself, then
+    writes, for each changed position it owns, the row's D0 entries and
+    its resumed frontier row into one payload, both bitpacked:
+    ``[r, ceil(nb/32) + ceil((n_max+1)/32)]`` int32 words, zero elsewhere.
+    A SUM merges the ranks' payloads exactly (every row is owned by one
+    rank).  Returns the merged ``(rows [r, nb], fronts [r, n_max+1])``
+    bool, the same on every rank."""
+    from . import incremental                      # incremental imports cache
+    dev, nb, n_max = cache.device, fr.n_boundary, fr.n_max
+    r = len(row_ids)
+    srcidx, own = _changed_row_inputs(fr, row_ids)
+    mine = np.asarray(placement.device_of) == rank            # [k]
+    own &= mine[:, None]
+    frags = np.nonzero(own.any(1))[0]
+    rows = torch.zeros((r, nb), dtype=torch.bool, device=dev)
+    fronts = torch.zeros((r, n_max + 1), dtype=torch.bool, device=dev)
+    if frags.size:
+        esrc = _cache._upload(fr.arrays["esrc"][frags], dev)
+        edst = _cache._upload(fr.arrays["edst"][frags], dev)
+        init, _, _ = incremental._frontier_init(fr, frags, cache.bl_frontier,
+                                                False, dev)
+        front = engine.resume_frontier_reach(esrc, edst, init, n_max=n_max)
+        t = lambda x: torch.tensor(x, dtype=torch.long, device=dev)
+        # row reads go by fragment, each through that fragment's [nb] stub
+        # columns, so no [r, nb] index is built
+        for i, f in enumerate(frags):
+            pos = np.nonzero(own[f])[0]
+            picked = front[i, t(srcidx[f, pos])]               # [m, n+1]
+            rows[t(pos)] = picked[:, t(fr.arrays["tgt_local"][f, :nb])]
+            fronts[t(pos)] = picked
+    w_rows = (nb + 31) // 32
+    words = torch.cat([pack_payload(rows), pack_payload(fronts)], dim=1)
+    del rows, fronts
+    merged = _all_reduce(words, dist.ReduceOp.SUM, group)
+    return (unpack_payload(merged[:, :w_rows], nb),
+            unpack_payload(merged[:, w_rows:], n_max + 1))
+
+
+def update_rows_sharded(fr: Fragmentation, row_ids: np.ndarray, group=None,
+                        placement: Optional[Placement] = None):
+    """Recompute the changed D0 rows ``row_ids`` over the process group,
+    against ``fr``'s attached reach cache (which it does not change).
+
+    Each rank resumes the fixpoints of the fragments it owns that own a
+    changed row; the ONE collective ships the changed rows only, each its
+    D0 row and its resumed frontier row bitpacked:
+    ``fr.traffic_bits_update(len(row_ids))`` bits.  The frontier rows are
+    what the reference gathers from the devices to the host uncounted; on
+    the ranks they ride the same collective, so every rank's
+    ``bl_frontier`` stays exact.
+
+    Returns ``(rows, fronts)``: the merged [r, nb] D0 rows and [r,
+    n_max+1] frontier rows, the same on every rank."""
+    placement = _resolve_placement(fr, group, placement)
+    return _update_rows_program(fr, fr.rvset_cache, row_ids, placement,
+                                dist.get_rank(group), group)
+
+
+def apply_delta_sharded(fr: Fragmentation, delta, group=None,
+                        placement: Optional[Placement] = None, device=None,
+                        chaos=None):
+    """Sharded twin of :func:`repro_torch.core.incremental.apply_delta`
+    for insert-only deltas against a reach cache: the dirty fragments'
+    frontier resumes run on the ranks that own them, the update collective
+    ships only the changed rows (:func:`update_rows_sharded`), and the
+    rank-style closure update runs replicated (B1: ``T``, the r x r
+    closure, ``left`` and ``P`` with ``P^T``).  Every rank of the group
+    calls it with the same delta and ends with the same cache.
+
+    The host path (``incremental.apply_delta``) takes, as in the reference
+    package: the empty delta, deletions and a cache that holds distances;
+    a delta that needs a rebuild rebuilds; a delta whose dirty fragments
+    own no boundary row refreshes their frontiers on every rank, with no
+    collective.  With no cache attached, one is built on ``device``
+    (``None``: the CUDA device) first, as the reference does.  The
+    ``delta.repair`` fault site fires after the host arrays mutate;
+    rollback is the caller's job (``QuerySession.apply``)."""
+    from . import incremental
+    from .session import _resolve_device          # session imports us
+    cache = fr.rvset_cache
+    if cache is None:
+        cache = _cache.prepare_rvset_cache(fr, _resolve_device(device))
+    if delta.is_empty() or delta.n_del or cache.bl_dist is not None:
+        return incremental.apply_delta(fr, delta, chaos=chaos)
+    placement = _resolve_placement(fr, group, placement)
+    report = fr.apply_delta(delta)
+    if chaos is not None:
+        chaos.maybe_fail("delta.repair")
+    if report.rebuilt:
+        return incremental.rebuild_cache(fr, cache.version, report,
+                                         with_dist=False, device=cache.device,
+                                         reason=report.reason)
+    base = incremental._stats_base(report)
+    row_ids = incremental.changed_row_ids(fr, report.dirty)
+    if row_ids.size == 0:      # the dirty fragments own no boundary rows
+        incremental._update_frontiers(cache, report.dirty, warm=True)
+        cache.refresh_device_arrays(incremental.touched_arrays(report))
+        return incremental.UpdateStats(mode="repair_sharded", **base)
+    padded = incremental.pad_row_ids(row_ids, cap=fr.n_boundary)
+    rows_new, fronts = _update_rows_program(fr, cache, padded, placement,
+                                            dist.get_rank(group), group)
+    idx = torch.tensor(row_ids, dtype=torch.long, device=cache.device)
+    cache.bl_frontier = cache.bl_frontier.index_put(
+        (idx,), fronts[:row_ids.size])
+    cache.closure, cache.closure_t = incremental._rank_update_bool(
+        cache.closure, cache.closure_t, rows_new, padded)
+    cache.refresh_device_arrays(incremental.touched_arrays(report))
+    return incremental.UpdateStats(mode="repair_sharded",
+                                   changed_rows=int(row_ids.size), **base)

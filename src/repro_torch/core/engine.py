@@ -21,6 +21,7 @@ Conventions (set up by ``fragments.fragment_graph``):
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -47,6 +48,46 @@ class QueryStats(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
+# fixpoint marks, read by the collective record of core.distributed
+# ---------------------------------------------------------------------------
+
+class _FixpointTrace(threading.local):
+    """Per-thread state of :func:`repro_torch.core.distributed.
+    record_collectives`: while a record is open (``recording``), every
+    fixpoint loop of the engine and of ``core.bes`` raises ``depth`` as it
+    iterates and counts itself in ``loops``, so a collective issued inside
+    a loop is seen as such."""
+
+    recording = False
+    record = None          # the open CollectiveRecord
+    depth = 0
+    loops = 0
+
+
+TRACE = _FixpointTrace()
+
+
+class _Fixpoint:
+    """``with FIXPOINT:`` around a fixpoint loop.  Outside a record it
+    costs one attribute read on entry and one on exit."""
+
+    def __enter__(self):
+        t = TRACE
+        if t.recording:
+            t.depth += 1
+            t.loops += 1
+
+    def __exit__(self, *exc):
+        t = TRACE
+        if t.recording and t.depth:
+            t.depth -= 1
+        return False
+
+
+FIXPOINT = _Fixpoint()
+
+
+# ---------------------------------------------------------------------------
 # local propagation primitives (leading axis: fragment or query)
 # ---------------------------------------------------------------------------
 
@@ -67,13 +108,14 @@ def _propagate_bool(esrc, edst, frontier):
     seen = frontier.clone()
     if not bool(seen.any()):
         return seen
-    while True:
-        msgs = torch.gather(seen, 2, src).view(torch.uint8)
-        new = seen.view(torch.uint8).scatter_reduce(
-            2, dst, msgs, "amax", include_self=True).view(torch.bool)
-        if torch.equal(new, seen):
-            return seen
-        seen = new
+    with FIXPOINT:
+        while True:
+            msgs = torch.gather(seen, 2, src).view(torch.uint8)
+            new = seen.view(torch.uint8).scatter_reduce(
+                2, dst, msgs, "amax", include_self=True).view(torch.bool)
+            if torch.equal(new, seen):
+                return seen
+            seen = new
 
 
 def _propagate_dist(esrc, edst, dist, cap: int = INF):
@@ -91,14 +133,15 @@ def _propagate_dist(esrc, edst, dist, cap: int = INF):
     d = dist.clone()
     if not bool((d < INF).any()):
         return d
-    while True:
-        msgs = torch.gather(d, 2, src) + 1
-        new = d.scatter_reduce(2, dst, msgs, "amin", include_self=True)
-        if cap < INF:
-            new = torch.where(new > cap, INF, new)
-        if torch.equal(new, d):
-            return d
-        d = new
+    with FIXPOINT:
+        while True:
+            msgs = torch.gather(d, 2, src) + 1
+            new = d.scatter_reduce(2, dst, msgs, "amin", include_self=True)
+            if cap < INF:
+                new = torch.where(new > cap, INF, new)
+            if torch.equal(new, d):
+                return d
+            d = new
 
 
 def _with_query_source(src_local, src_row, s_local, n_max: int, B: int):
@@ -282,11 +325,12 @@ def evaldg_reach(D, src_rows, tgt_cols, Dt=None) -> bool:
         Dt = kmajor_copy(D.T)
     x = src_rows.clone()
     if bool(x.any()):
-        while True:
-            nxt = x | or_and_matmul_nt(x[None, :], Dt)[0]
-            if torch.equal(nxt, x):
-                break
-            x = nxt
+        with FIXPOINT:
+            while True:
+                nxt = x | or_and_matmul_nt(x[None, :], Dt)[0]
+                if torch.equal(nxt, x):
+                    break
+                x = nxt
     return bool((x & tgt_cols).any())
 
 
@@ -301,11 +345,12 @@ def evaldg_dist(W, src_rows, tgt_cols) -> int:
     d = padded_i32(1, W.shape[0], W.device)[0].fill_(INF)
     d.masked_fill_(src_rows, 0)
     if bool((d < INF).any()):
-        while True:
-            nxt = min_plus_matmul(d[None, :], W, init=d[None, :])[0]
-            if torch.equal(nxt, d):
-                break
-            d = nxt
+        with FIXPOINT:
+            while True:
+                nxt = min_plus_matmul(d[None, :], W, init=d[None, :])[0]
+                if torch.equal(nxt, d):
+                    break
+                d = nxt
     return int(torch.where(tgt_cols, d, INF).min())
 
 
@@ -368,11 +413,13 @@ def single_source_regular(esrc, edst, labels, gids, q_labels, q_trans,
     tf = q_trans.float()
     if not bool(f.any()):
         return f
-    while True:
-        new = f | (_gather_scatter_or(_advance(f, tf), esrc, edst) & match)
-        if torch.equal(new, f):
-            return f
-        f = new
+    with FIXPOINT:
+        while True:
+            new = f | (_gather_scatter_or(_advance(f, tf), esrc, edst)
+                       & match)
+            if torch.equal(new, f):
+                return f
+            f = new
 
 
 def reverse_target_regular(esrc, edst, labels, gids, q_labels, q_trans,
@@ -393,12 +440,13 @@ def reverse_target_regular(esrc, edst, labels, gids, q_labels, q_trans,
     tf_t = q_trans.float().T.contiguous()
     if not bool(r.any()):
         return r
-    while True:
-        back = _gather_scatter_or(r & match, edst, esrc)       # [F, n+1, Q']
-        new = r | _advance(back, tf_t)
-        if torch.equal(new, r):
-            return r
-        r = new
+    with FIXPOINT:
+        while True:
+            back = _gather_scatter_or(r & match, edst, esrc)   # [F, n+1, Q']
+            new = r | _advance(back, tf_t)
+            if torch.equal(new, r):
+                return r
+            r = new
 
 
 def local_eval_regular(esrc, edst, src_local, src_row, tgt_local, labels,
@@ -443,14 +491,16 @@ def local_eval_regular(esrc, edst, src_local, src_row, tgt_local, labels,
     src = esrc.long()[:, None, :, None].expand(shape)
     dst = edst.long()[:, None, :, None].expand(shape)
     if bool(frontier.any()):
-        while True:
-            msgs = torch.gather(_advance(frontier, tf), 2, src)
-            agg = torch.zeros(frontier.shape, dtype=torch.uint8, device=dev)
-            agg.scatter_reduce_(2, dst, msgs.view(torch.uint8), "amax")
-            new = frontier | (agg.view(torch.bool) & match[:, None])
-            if torch.equal(new, frontier):
-                break
-            frontier = new
+        with FIXPOINT:
+            while True:
+                msgs = torch.gather(_advance(frontier, tf), 2, src)
+                agg = torch.zeros(frontier.shape, dtype=torch.uint8,
+                                  device=dev)
+                agg.scatter_reduce_(2, dst, msgs.view(torch.uint8), "amax")
+                new = frontier | (agg.view(torch.bool) & match[:, None])
+                if torch.equal(new, frontier):
+                    break
+                frontier = new
 
     cols = _target_cols(tgt_local, t_local, n_max, B)         # [k, B]
     out = torch.gather(frontier, 2,

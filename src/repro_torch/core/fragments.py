@@ -256,6 +256,18 @@ class Fragmentation:
             return packed_bits(rows, cols)
         return rows * cols * 32
 
+    def traffic_bits_update(self, r: int) -> int:
+        """Wire size of the ONE collective of a sharded cache repair
+        (``core.distributed.update_rows_sharded``) over ``r`` changed
+        boundary rows (padded count): each row ships its D0 row bitpacked,
+        ``ceil(nb/32)`` words, and its resumed frontier row bitpacked,
+        ``ceil((n_max+1)/32)`` words.  The first term is the reference
+        package's payload; the second scales with the largest fragment,
+        not with |G|, and is what the reference gathers to the host
+        without counting it."""
+        words = (self.n_boundary + 31) // 32 + (self.n_max + 1 + 31) // 32
+        return r * 32 * words
+
     def largest_fragment(self) -> int:
         return int(self.frag_sizes.max())
 

@@ -199,12 +199,13 @@ class QuerySession:
         cache's device).  Queries run after this see the new graph, and
         ``cache_version`` is bumped.
 
-        On ``backend="shard_map"`` this is the same host repair: every rank
-        holds the whole fragmentation, and the sharded batches recompute
-        from its arrays (their device uploads are keyed on
-        ``arrays_version``, which the delta bumps).  The sharded repair,
-        which would ship only the changed rows, is not ported (ROADMAP
-        queue A, item 5).
+        On ``backend="shard_map"`` with a cache attached, every rank of
+        the group calls this with the same delta, and the repair runs
+        sharded (:func:`repro_torch.core.distributed.apply_delta_sharded`):
+        each rank resumes the dirty fragments it owns, and ONE collective
+        ships only the changed rows.  Deletions, a distance cache and the
+        other cases the reference keeps on the host take the host repair
+        on every rank.
 
         A delta that fails mid-apply (bad input, a kernel failure, an
         injected fault) is rolled back: the fragmentation and its caches
@@ -217,8 +218,7 @@ class QuerySession:
             self.stats.updates += 1
             snap = self.fr.snapshot()
             try:
-                return incremental.apply_delta(self.fr, delta,
-                                               chaos=self.chaos)
+                return self._apply_delta(self.fr, delta)
             except Exception as exc:
                 self.fr.restore(snap)
                 self.stats.rollbacks += 1
@@ -231,9 +231,17 @@ class QuerySession:
         neither takes the session lock nor snapshots: ``fr`` is a private
         copy-on-write clone that no reader sees, so the repair runs while
         queries run against the head version, and a failed repair is
-        handled by dropping the clone.  On ``backend="shard_map"`` it is
-        the host repair, as in :meth:`apply`."""
+        handled by dropping the clone.  On ``backend="shard_map"`` it
+        routes as :meth:`apply` does."""
         self.stats.updates += 1
+        return self._apply_delta(fr, delta)
+
+    def _apply_delta(self, fr: Fragmentation,
+                     delta: GraphDelta) -> incremental.UpdateStats:
+        if self.backend == "shard_map" and fr.rvset_cache is not None:
+            return distributed.apply_delta_sharded(
+                fr, delta, group=self.group, placement=self.placement,
+                chaos=self.chaos)
         return incremental.apply_delta(fr, delta, chaos=self.chaos)
 
     # -- query execution ---------------------------------------------------

@@ -286,6 +286,7 @@ class AsyncQueryEngine:
             fut.submitted_at = self._clock()
             # batch_wait pacing tracks real elapsed time even when
             # self._clock is a fake test clock (see _form_chunk)
+            # repr: ignore[RPR003] wall-clock batch pacing is by design
             fut._enqueued_wall = time.monotonic()
             self._queue[-1].lanes[lane].append(fut)
             self._work.notify_all()
@@ -590,6 +591,7 @@ class AsyncQueryEngine:
                 or self._flushes > 0
                 or self._stop
                 or self._deadline_pressed(reqs, now)
+                # repr: ignore[RPR003] wall-clock pairs _enqueued_wall above
                 or (time.monotonic() - reqs[0]._enqueued_wall
                     >= self.batch_wait))
         if not ship:
@@ -622,6 +624,7 @@ class AsyncQueryEngine:
                     press = r.deadline - self.ship_margin - self._clock()
                     wait = min(wait, press)
         if oldest is not None:
+            # repr: ignore[RPR003] wall-clock pairs _enqueued_wall
             wait = min(wait, self.batch_wait - (time.monotonic() - oldest))
         return max(1e-4, min(wait, 0.05))
 

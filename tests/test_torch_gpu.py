@@ -526,3 +526,91 @@ def test_query_server_on_card(cuda, mvcc):
     assert bops.launches > 0 and tops.launches > 0 and tops.copies == 0
     assert srv.retries == 0 and not srv.dead_letters
     assert srv.session.stats.degraded_groups == 0
+
+
+@pytest.fixture
+def nccl_rank(cuda, tmp_path):
+    """A one-rank NCCL process group on the card, destroyed after."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_repair_on_card_matches_host_repair(nccl_rank):
+    """apply on a shard_map session (one NCCL rank, every fragment on the
+    card) is a sharded repair with one collective of traffic_bits_update
+    bits, B1 launched, and leaves the closure, its K-major copy and
+    bl_frontier bit-equal to the host repair of the same deltas."""
+    from repro_torch.core import distributed as D
+    g = erdos_renyi(400, 1400, n_labels=3, seed=13)
+    part = random_partition(g, 8, seed=13)
+    reserve = dict(reserve_boundary=16, reserve_edges=32, reserve_stubs=16)
+    on_host, sharded = (fragment_graph(g, part, 8, **reserve)
+                        for _ in range(2))
+    host = repro_torch.connect(on_host).warm()
+    sess = repro_torch.connect(sharded, backend="shard_map").warm()
+    rng = np.random.default_rng(13)
+    for f in (0, 3, 5):
+        mine = np.nonzero(part == f)[0]
+        other = np.nonzero(part != f)[0]
+        delta = GraphDelta.insert(
+            [(int(rng.choice(mine)), int(rng.choice(mine))) for _ in range(4)]
+            + [(int(rng.choice(mine)), int(rng.choice(other)))])
+        host.apply(delta)
+        D.collectives = D.payload_bits = bops.launches = 0
+        st = sess.apply(delta)
+        assert st.mode == "repair_sharded" and st.changed_rows > 0
+        r = len(incremental.pad_row_ids(np.arange(st.changed_rows),
+                                        cap=sharded.n_boundary))
+        assert D.collectives == 1
+        assert D.payload_bits == sharded.traffic_bits_update(r)
+        assert bops.launches >= 4          # T, the r x r closure, left, P
+        for name in ("bl_frontier", "closure", "closure_t"):
+            t = getattr(sharded.rvset_cache, name)
+            assert t.is_cuda and torch.equal(
+                t, getattr(on_host.rvset_cache, name)), name
+        pairs = rng.integers(0, g.n, size=(32, 2))
+        queries = [Reach(int(s), int(t)) for s, t in pairs]
+        assert [r.answer for r in sess.run(queries)] == \
+            [r.answer for r in host.run(queries)]
+
+
+@pytest.mark.gpu
+def test_mr_drpq_on_card_matches_one_shot_rpq(cuda):
+    """mr_drpq on the card (a reduced graph) answers as the one-shot RPQ
+    does, through B1, with the reference's cost-model counts."""
+    from repro_torch.core.automaton import build_query_automaton
+    from repro_torch.core.mapreduce import mr_drpq
+    from repro_torch.core.session import exec_rpq
+    g = erdos_renyi(512, 2048, n_labels=4, seed=14)
+    fr = fragment_graph(g, random_partition(g, 8, seed=14), 8)
+    qa = build_query_automaton("(0|1)* 2", int)
+    rng = np.random.default_rng(14)
+    answers = []
+    for s, t in rng.integers(0, g.n, size=(6, 2)):
+        s, t = int(s), int(t)
+        bops.launches = 0
+        got = mr_drpq(fr, s, t, qa)
+        assert s == t or bops.launches > 0
+        assert got.answer == exec_rpq(fr, s, t, qa).answer
+        assert got == mr_drpq(fr, s, t, qa, device="cpu")
+        answers.append(got.answer)
+    assert len(answers) == 6
+
+
+@pytest.mark.gpu
+def test_baselines_on_card_match_cpu(cuda):
+    from repro_torch.core.baselines import dis_reach_m, dis_reach_n
+    g = erdos_renyi(300, 900, seed=15)
+    fr = fragment_graph(g, random_partition(g, 4, seed=15), 4)
+    for s, t in np.random.default_rng(15).integers(0, g.n, size=(8, 2)):
+        for fn in (dis_reach_n, dis_reach_m):
+            assert fn(fr, int(s), int(t)) == fn(fr, int(s), int(t),
+                                                device="cpu")

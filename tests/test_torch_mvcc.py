@@ -43,6 +43,10 @@ from repro_torch.graph import erdos_renyi, random_partition
 from repro_torch.serve import QueryServer
 
 from oracles import oracle_reach
+from torch_lock_order import port_lock_order  # noqa: F401
+
+# every test runs on instrumented locks and fails on an order inversion
+pytestmark = pytest.mark.usefixtures("port_lock_order")
 
 RESULT_TIMEOUT_S = 60.0
 RESERVE = dict(reserve_boundary=12, reserve_edges=24, reserve_stubs=12)

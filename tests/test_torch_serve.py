@@ -48,6 +48,10 @@ from repro_torch.serve import (GREEN, YELLOW, AdmissionPolicy,
                                UpdateFuture, estimate_cost)
 
 from oracles import oracle_dist, oracle_reach, oracle_rpq
+from torch_lock_order import port_lock_order  # noqa: F401
+
+# every test runs on instrumented locks and fails on an order inversion
+pytestmark = pytest.mark.usefixtures("port_lock_order")
 
 RESULT_TIMEOUT_S = 60.0
 RESERVE = dict(reserve_boundary=10, reserve_edges=24, reserve_stubs=10)
