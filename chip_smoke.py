@@ -116,6 +116,35 @@ non-zero and prints no result line):
              is a 6.4 GB matrix whose squaring would outlast a smoke run.
              Answers are checked against a host product-graph BFS.
 
+13. lm_serve — the LM family (no query kernel): qwen2-1.5b at full width
+             and depth (28 layers, d 1536, vocab 151936; 1.544e9
+             parameters) from a seeded generator on the card.  In f32:
+             decode_step over 32 tokens, and prefill of 24 then
+             decode_step, against forward (logits within 2e-3), and
+             ServeEngine's greedy tokens against forward's argmax over the
+             same padded sequence (a token may differ only at a tie within
+             2e-3).  In bf16: ServeEngine(batch=8, max_len=256) on 8
+             seeded requests (prompts of 8-64 tokens, 32 new tokens),
+             timed (prefill by stepping, decode ms per step and tokens/s
+             beside the weight-bytes bound, memory peak, and the device's
+             busy time and idle share from a profiler trace); again with
+             the int8 KV cache chunked by 64 (the same prompts, 8 new
+             tokens), whose tokens and cache dtype are printed.
+14. lm_moe  — olmoe-1b-7b at full width and depth (64 experts, top 8): in
+             f32 with a capacity that drops nothing, decode_step against
+             forward; in bf16 at its own capacity factor 1.25, ServeEngine
+             timed as above, with the dropped (token, choice) pairs.
+15. lm_train — qwen2-1.5b at full width: Trainer.step on TokenStream
+             batches of 4 x 512 tokens, two microbatches, remat, AdamW
+             (one warm-up step, then 4 timed; finite losses; memory peak);
+             one step with int8 gradient compression; and Trainer.run at
+             the smoke configuration with a failure injected at step 7,
+             bit-equal to a clean run under
+             torch.use_deterministic_algorithms(True), in a child process
+             started with CUBLAS_WORKSPACE_CONFIG=:4096:8.
+             The three LM phases must launch none of the query kernels
+             (``lm_launches``).
+
 The min-plus wrapper's operand copies are asserted 0 on the main,
 one-shot, dynamic and serve paths as well.  When the source of an earlier
 min-plus kernel is put at ``build/former/min_plus_matmul.cu``, it is
@@ -126,7 +155,8 @@ The second-to-last line of output is a JSON object with one entry per
 kernel, with its launches on each path (``launches`` on the main path,
 ``oneshot_launches``, ``dynamic_launches`` by mode, ``serve_launches``
 by mode, ``baselines_launches``, ``mapreduce_launches``,
-``sharded_repair_launches`` by mode, ``verify_launches``, ...) and its new
+``sharded_repair_launches`` by mode, ``verify_launches``,
+``lm_launches`` by LM phase, ...) and its new
 launch shapes (``new_shapes``); the last is ``{"ok": true, "device":
 {...}}``.  Times come from
 CUDA events after a warm-up; bounds are reckoned from the H100 SXM data
@@ -138,6 +168,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -150,6 +181,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12          # H100 SXM data sheet, dense
 INT8_TENSOR_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense
 INT32_OPS_PER_CLOCK_PER_SM = 64    # H100 SXM data sheet (LOP3 included)
 
@@ -2682,6 +2714,519 @@ def phase_verify(out: dict, sess) -> None:
     out["verify"] = {"ms": ms, "bits": want, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# 13-15. the LM family: serve, MoE serve, train
+# ---------------------------------------------------------------------------
+
+LM_DEVICE = "cuda"
+LM_BATCH = 8                 # ServeEngine batch, and requests per run
+LM_MAX_LEN = 256
+LM_PROMPT_LENS = (8, 64)     # prompt lengths drawn from this range
+LM_NEW_TOKENS = 32
+LM_INT8_NEW = 8              # the int8 KV run: the same prompts, fewer steps
+LM_CHECK_LEN = 32            # tokens of the f32 decode-vs-forward checks
+LM_F32_BATCH = 4             # requests of the f32 teacher-forced check
+LM_F32_NEW = 16
+LM_TRAIN_SEQ = 512
+LM_TRAIN_BATCH = 4           # split into LM_TRAIN_ACCUM microbatches
+LM_TRAIN_ACCUM = 2
+LM_TRAIN_STEPS = 4
+LM_REPLAY_STEPS = 10         # smoke config, failure injected at step 7
+LM_F32_ATOL = 2e-3           # f32 logits: decode / prefill vs forward
+BF16_BYTES = 2
+
+
+def _lm_cfg(arch_id: str, **changes):
+    """The architecture's full-width, full-depth configuration."""
+    import dataclasses
+    from repro_torch.configs import LM_ARCHS
+    return dataclasses.replace(LM_ARCHS[arch_id].base_cfg, **changes)
+
+
+def _lm_params(cfg, seed: int):
+    import torch
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(seed)
+    return T.init_params(cfg, gen, device=LM_DEVICE)
+
+
+def _lm_requests(cfg, seed: int, count: int, new_tokens: int):
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    lo, hi = LM_PROMPT_LENS
+    return [Request(prompt=rng.integers(0, cfg.vocab, int(n),
+                                        dtype=np.int32),
+                    max_new_tokens=new_tokens)
+            for n in rng.integers(lo, hi + 1, count)]
+
+
+def _engine(cfg, params):
+    """A ServeEngine over ``params``, warmed up by one short request."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, batch=LM_BATCH, max_len=LM_MAX_LEN,
+                      device=LM_DEVICE)
+    warm = _lm_requests(cfg, SEED + 99, 1, 2)
+    warm[0].prompt = warm[0].prompt[:4]
+    eng.generate(warm)
+    return eng
+
+
+def _serve_timed(eng, requests) -> dict:
+    """One ServeEngine run of ``requests`` (one batch), timed by phase on
+    the host clock around device syncs; the device memory peak."""
+    import torch
+    marks = {}
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        marks[phase] = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    done = eng.generate(requests, mark=mark)
+    steps = max(r.max_new_tokens for r in requests) - 1
+    decode_s = marks["end"] - marks["decode"]
+    prompt_len = max(len(r.prompt) for r in requests)
+    return {"prefill_ms": (marks["decode"] - marks["prefill"]) * 1e3,
+            "prefill_steps": prompt_len,
+            "decode_ms_per_step": decode_s / steps * 1e3,
+            "decode_tokens_per_s": LM_BATCH * steps / decode_s,
+            "memory_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "tokens": [r.generated for r in done]}
+
+
+def _device_busy(fn) -> dict:
+    """Device time and event count (kernels, copies, fills) of one call
+    of ``fn``, from a torch.profiler trace of the device's activity only
+    (the sum of the events' durations; one stream, so they do not
+    overlap).  ``device_ms`` is None when the trace holds no device
+    event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 if dev \
+        else None
+    return {"device_ms": busy, "device_events": len(dev)}
+
+
+def _decode_busy(cfg, params, steps: int = 2) -> dict:
+    """_device_busy of ``steps`` bf16 decode steps at batch LM_BATCH, per
+    step."""
+    import torch
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=LM_DEVICE)
+    tok = torch.zeros(LM_BATCH, dtype=torch.long, device=LM_DEVICE)
+
+    def run():
+        nonlocal cache
+        with torch.inference_mode():
+            for i in range(steps):
+                _, cache = T.decode_step(
+                    cfg, params, cache, tok,
+                    torch.full((LM_BATCH,), i, device=LM_DEVICE))
+
+    run()                                            # warm-up
+    cache = T.init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=LM_DEVICE)
+    busy = _device_busy(run)
+    if busy["device_ms"] is not None:
+        busy["device_ms"] /= steps
+    busy["device_events"] /= steps
+    return busy
+
+
+def _idle_share(busy_ms, wall_ms):
+    return None if busy_ms is None else 1 - busy_ms / wall_ms
+
+
+def _decode_all(cfg, params, toks):
+    """decode_step over every position of ``toks`` [B, S]: logits
+    [B, S, V]."""
+    import torch
+    from repro_torch.models import transformer as T
+    B, S = toks.shape
+    cache = T.init_cache(cfg, B, S, device=LM_DEVICE)
+    out = []
+    for i in range(S):
+        lg, cache = T.decode_step(cfg, params, cache, toks[:, i],
+                                  torch.full((B,), i, device=toks.device))
+        out.append(lg)
+    return torch.stack(out, dim=1)
+
+
+def _f32_consistency(cfg, params, seed: int, what: str) -> dict:
+    """decode_step over LM_CHECK_LEN tokens against forward, and prefill
+    of the first 3/4 followed by decode_step, against forward."""
+    import torch
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, LM_CHECK_LEN))
+                            ).to(LM_DEVICE)
+    cut = LM_CHECK_LEN * 3 // 4
+    with torch.no_grad():
+        full, _ = T.forward(cfg, params, toks)
+        dec = _decode_all(cfg, params, toks)
+        pre, cache = T.prefill(cfg, params, toks[:, :cut], LM_CHECK_LEN)
+        cont = []
+        for i in range(cut, LM_CHECK_LEN):
+            lg, cache = T.decode_step(cfg, params, cache, toks[:, i],
+                                      torch.full((2,), i, device=LM_DEVICE))
+            cont.append(lg)
+        cont = torch.stack(cont, dim=1)
+    errs = {"decode": (dec - full).abs().max().item(),
+            "prefill": (pre - full[:, :cut]).abs().max().item(),
+            "prefill_then_decode": (cont - full[:, cut:]).abs().max().item()}
+    for name, err in errs.items():
+        if not err <= LM_F32_ATOL:
+            raise AssertionError(f"{what}: f32 {name} logits differ from "
+                                 f"forward by {err} > {LM_F32_ATOL}")
+    return errs
+
+
+def _teacher_forced(cfg, params) -> dict:
+    """ServeEngine's greedy tokens against the argmax of forward over the
+    same left-padded sequence.  A token may differ only where forward's
+    two candidates lie within LM_F32_ATOL of each other (a tie)."""
+    import torch
+    from repro_torch.models import transformer as T
+    reqs = _lm_requests(cfg, SEED + 21, LM_F32_BATCH, LM_F32_NEW)
+    res = _serve_timed(_engine(cfg, params), reqs)
+    S = max(len(r.prompt) for r in reqs)
+    seq = np.zeros((len(reqs), S + LM_F32_NEW - 1), np.int64)
+    for j, (r, gen) in enumerate(zip(reqs, res["tokens"])):
+        seq[j, S - len(r.prompt):S] = r.prompt
+        seq[j, S:] = gen[:-1]
+    with torch.no_grad():
+        logits, _ = T.forward(cfg, params, torch.from_numpy(seq).to(
+            LM_DEVICE))
+    logits = logits[:, S - 1:].float()                 # predicts gen[0:]
+    want = logits.argmax(-1).cpu().numpy()
+    got = np.asarray(res["tokens"])
+    ties = 0
+    for j, i in zip(*np.nonzero(want != got)):
+        gap = (logits[j, i, want[j, i]] - logits[j, i, got[j, i]]).item()
+        if gap > LM_F32_ATOL:
+            raise AssertionError(
+                f"lm_serve: greedy token {got[j, i]} of request {j} at step "
+                f"{i} is not forward's argmax {want[j, i]} (gap {gap})")
+        ties += 1
+    return {"tokens": int(got.size), "differing_ties": ties}
+
+
+def _fresh(r, new_tokens: int):
+    """An unserved copy of a request (ServeEngine writes ``generated``)
+    asking for ``new_tokens``."""
+    from repro_torch.serve import Request
+    return Request(prompt=r.prompt, max_new_tokens=new_tokens)
+
+
+def _assert_no_launches(what: str) -> dict:
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"{what}: the LM family launched a query "
+                             f"kernel: {launches}")
+    return launches
+
+
+def phase_lm_serve(out: dict) -> None:
+    """qwen2-1.5b at full width and depth: f32 self-consistency (decode
+    vs forward, prefill + decode vs forward, ServeEngine vs teacher-forced
+    forward), then ServeEngine timed in bf16, plain and with the int8
+    chunked KV cache."""
+    import torch
+    from repro_torch.models import transformer as T
+    _reset_launches()
+    cfg32 = _lm_cfg("qwen2-1.5b", dtype=torch.float32)
+    params = _lm_params(cfg32, SEED + 20)
+    res = {"n_params": cfg32.n_params(),
+           "f32_max_abs_err": _f32_consistency(cfg32, params, SEED + 22,
+                                               "lm_serve"),
+           "f32_teacher_forced": _teacher_forced(cfg32, params)}
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = _lm_cfg("qwen2-1.5b")
+    params = _lm_params(cfg, SEED + 20)
+    reqs = _lm_requests(cfg, SEED + 23, LM_BATCH, LM_NEW_TOKENS)
+    bf16 = _serve_timed(_engine(cfg, params), reqs)
+    bf16["decode_bound_ms"] = cfg.n_params() * BF16_BYTES / \
+        HBM_BYTES_PER_S * 1e3
+    bf16["profile"] = _decode_busy(cfg, params)
+    bf16["idle_share"] = _idle_share(bf16["profile"]["device_ms"],
+                                     bf16["decode_ms_per_step"])
+    cfg_q = _lm_cfg("qwen2-1.5b", kv_quant_int8=True,
+                    decode_chunk=LM_MAX_LEN // 4)
+    made = []
+    init_cache = T.init_cache
+    T.init_cache = lambda *a, **k: made.append(init_cache(*a, **k)) or \
+        made[-1]
+    try:
+        int8 = _serve_timed(_engine(cfg_q, params),
+                            [_fresh(r, LM_INT8_NEW) for r in reqs])
+    finally:
+        T.init_cache = init_cache
+    int8["profile"] = _decode_busy(cfg_q, params)
+    int8["idle_share"] = _idle_share(int8["profile"]["device_ms"],
+                                     int8["decode_ms_per_step"])
+    int8["cache_dtype"] = str(made[-1]["k"].dtype)
+    if made[-1]["k"].dtype != torch.int8:
+        raise AssertionError(f"lm_serve: int8 KV run kept a "
+                             f"{made[-1]['k'].dtype} cache")
+    int8["same_tokens_as_bf16"] = int(
+        (np.asarray(int8["tokens"]) ==
+         np.asarray(bf16["tokens"])[:, :LM_INT8_NEW]).sum())
+    del made, params
+    torch.cuda.empty_cache()
+    res.update(bf16=bf16, int8=int8, launches=_assert_no_launches("lm_serve"))
+    print(f"lm_serve: qwen2-1.5b N={cfg.n_params()}; f32 max |err| "
+          f"{res['f32_max_abs_err']}, teacher-forced {res['f32_teacher_forced']}"
+          f"; bf16 prefill {bf16['prefill_ms']:.1f} ms over "
+          f"{bf16['prefill_steps']} steps, decode "
+          f"{bf16['decode_ms_per_step']:.3f} ms/step "
+          f"({bf16['decode_tokens_per_s']:.1f} tokens/s, bound "
+          f"{bf16['decode_bound_ms']:.3f} ms/step), peak "
+          f"{bf16['memory_peak_gb']:.3f} GB, device per step "
+          f"{bf16['profile']} (idle share {bf16['idle_share']}); int8 KV "
+          f"(chunk {cfg_q.decode_chunk}, cache {int8['cache_dtype']}) decode "
+          f"{int8['decode_ms_per_step']:.3f} ms/step, device per step "
+          f"{int8['profile']} (idle share {int8['idle_share']}), "
+          f"{int8['same_tokens_as_bf16']}/{LM_BATCH * LM_INT8_NEW} tokens "
+          f"as bf16")
+    print(f"lm_serve: int8 greedy tokens of request 0: {int8['tokens'][0]}")
+    out["lm_serve"] = res
+
+
+
+def phase_lm_moe(out: dict) -> None:
+    """olmoe-1b-7b at full width and depth: decode_step against forward in
+    f32 with a capacity that drops nothing, then ServeEngine timed in bf16
+    at the configuration's own capacity factor, with its dropped (token,
+    choice) pairs counted."""
+    import torch
+    from repro_torch.models import transformer as T
+    _reset_launches()
+    base = _lm_cfg("olmoe-1b-7b")
+    cfg32 = _lm_cfg("olmoe-1b-7b", dtype=torch.float32,
+                    capacity_factor=float(base.n_experts // base.top_k))
+    params = _lm_params(cfg32, SEED + 30)
+    rng = np.random.default_rng(SEED + 31)
+    toks = torch.from_numpy(rng.integers(0, cfg32.vocab, (2, 16))).to(
+        LM_DEVICE)
+    with torch.no_grad():
+        full, _ = T.forward(cfg32, params, toks)
+        dec = _decode_all(cfg32, params, toks)
+    err = (dec - full).abs().max().item()
+    if not err <= LM_F32_ATOL:
+        raise AssertionError(f"lm_moe: f32 decode differs from forward by "
+                             f"{err} > {LM_F32_ATOL}")
+    del params, full, dec
+    torch.cuda.empty_cache()
+
+    params = _lm_params(base, SEED + 30)
+    counts = {"dropped": torch.zeros((), dtype=torch.long,
+                                     device=LM_DEVICE), "pairs": 0}
+    slots = T._capacity_slots
+
+    def counting(flat_e, n_experts, cap):
+        pos, keep = slots(flat_e, n_experts, cap)
+        counts["dropped"] += (~keep).sum()
+        counts["pairs"] += keep.numel()
+        return pos, keep
+
+    eng = _engine(base, params)
+    T._capacity_slots = counting
+    try:
+        res = _serve_timed(eng, _lm_requests(base, SEED + 32, LM_BATCH,
+                                             LM_NEW_TOKENS))
+    finally:
+        T._capacity_slots = slots
+    res["profile"] = _decode_busy(base, params)
+    res["idle_share"] = _idle_share(res["profile"]["device_ms"],
+                                    res["decode_ms_per_step"])
+    res["decode_bound_ms"] = base.n_params() * BF16_BYTES / \
+        HBM_BYTES_PER_S * 1e3
+    res.update(n_params=base.n_params(), f32_max_abs_err=err,
+               dropped_pairs=int(counts["dropped"]),
+               routed_pairs=counts["pairs"],
+               launches=_assert_no_launches("lm_moe"))
+    del eng, params
+    torch.cuda.empty_cache()
+    print(f"lm_moe: olmoe-1b-7b N={base.n_params()}; f32 decode vs forward "
+          f"(capacity {cfg32.capacity_factor}) max |err| {err:.3e}; bf16 at "
+          f"capacity {base.capacity_factor}: prefill {res['prefill_ms']:.1f} "
+          f"ms over {res['prefill_steps']} steps, decode "
+          f"{res['decode_ms_per_step']:.3f} ms/step "
+          f"({res['decode_tokens_per_s']:.1f} tokens/s, bound "
+          f"{res['decode_bound_ms']:.3f} ms/step), peak "
+          f"{res['memory_peak_gb']:.3f} GB, device per step "
+          f"{res['profile']} (idle share {res['idle_share']}); dropped "
+          f"{res['dropped_pairs']} of {res['routed_pairs']} (token, choice) "
+          f"pairs")
+    out["lm_moe"] = res
+
+
+def _train_timed(trainer, batches):
+    """(ms, losses) of one Trainer.step per batch, each finite."""
+    import torch
+    ms, losses = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step(batch)
+        loss = float(m["loss"])                   # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(loss):
+            raise AssertionError(f"lm_train: loss {loss}")
+        losses.append(loss)
+    return ms, losses
+
+
+def _replay_in_child() -> dict:
+    """_replay_bitwise in a child process started with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8, which deterministic cuBLAS needs set
+    before cuBLAS starts.  It is not set in this process: it slows
+    cuBLAS's small products (a [16103, 64] x [64, 64] call ~2x on the
+    H100), which other phases time."""
+    code = (f"import json, sys; sys.path.insert(0, {str(ROOT)!r}); "
+            "import chip_smoke as C; C._require_repo(); "
+            "print(json.dumps(C._replay_bitwise()))")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    if proc.returncode != 0:
+        raise AssertionError("lm_train: the replay process failed:\n"
+                             + proc.stderr[-4000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _replay_bitwise() -> dict:
+    """Trainer.run at the smoke configuration with a failure injected at
+    step 7, against a clean run: bit-equal parameters.  Needs
+    deterministic kernels: ``torch.use_deterministic_algorithms(True)``
+    here, and CUBLAS_WORKSPACE_CONFIG set before cuBLAS started (see
+    _replay_in_child)."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(LM_ARCHS["qwen2-1.5b"].smoke_cfg, remat=True)
+    params = _lm_params(cfg, SEED + 40)
+    stream = TokenStream(vocab=cfg.vocab, batch=4, seq_len=64,
+                         device=LM_DEVICE)
+    root = ROOT / "build" / "lm_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, fail):
+        tr = Trainer(TrainerConfig(ckpt_dir=str(root / name), ckpt_every=5),
+                     adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                       total_steps=20),
+                     lambda p, b: T.lm_loss(cfg, p, b["tokens"],
+                                            b["targets"]),
+                     params, device=LM_DEVICE)
+        fired = []
+
+        def hook(step):
+            if fail and step == 7 and not fired:
+                fired.append(step)
+                raise RuntimeError("simulated node failure")
+        return tr, tr.run(stream.batch_at, LM_REPLAY_STEPS, fail_hook=hook)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        clean, m_clean = run("clean", False)
+        failed, m_failed = run("failed", True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    if m_failed["restarts"] != 1 or int(failed.state["step"]) != \
+            LM_REPLAY_STEPS:
+        raise AssertionError(f"lm_train: replay restarts "
+                             f"{m_failed['restarts']}, step "
+                             f"{int(failed.state['step'])}")
+    pairs = list(zip(leaves(clean.state["params"]),
+                     leaves(failed.state["params"])))
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("lm_train: the replayed run's parameters are "
+                             "not bit-equal to the clean run's")
+    return {"steps": LM_REPLAY_STEPS, "restarts": m_failed["restarts"],
+            "leaves": len(pairs), "loss": m_clean["loss"]}
+
+
+def phase_lm_train(out: dict) -> None:
+    """qwen2-1.5b at full width: Trainer.step with gradient accumulation,
+    remat and AdamW on TokenStream batches (timed, memory peak), one step
+    with int8 gradient compression, then failure replay at the smoke
+    configuration, bitwise."""
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    _reset_launches()
+    cfg = _lm_cfg("qwen2-1.5b")
+    stream = TokenStream(vocab=cfg.vocab, batch=LM_TRAIN_BATCH,
+                         seq_len=LM_TRAIN_SEQ, device=LM_DEVICE)
+
+    def micro(step):
+        return {k: v.reshape(LM_TRAIN_ACCUM, -1, LM_TRAIN_SEQ)
+                for k, v in stream.batch_at(step).items()}
+
+    def loss_fn(p, b):
+        return T.lm_loss(cfg, p, b["tokens"], b["targets"])
+
+    res = {"n_params": cfg.n_params(),
+           "tokens_per_step": LM_TRAIN_BATCH * LM_TRAIN_SEQ}
+    for compress, steps in ((False, LM_TRAIN_STEPS), (True, 1)):
+        params = _lm_params(cfg, SEED + 41)
+        tr = Trainer(TrainerConfig(ckpt_dir=str(ROOT / "build" / "lm_ckpt"),
+                                   ckpt_every=10 ** 9,
+                                   grad_accum=LM_TRAIN_ACCUM,
+                                   compress_grads=compress),
+                     adamw.AdamWConfig(), loss_fn, params, device=LM_DEVICE)
+        del params
+        _train_timed(tr, [micro(0)])                  # warm-up step
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = _train_timed(tr, [micro(i + 1) for i in range(steps)])
+        run = res["compressed" if compress else "plain"] = {
+            "step_ms": ms, "median_ms": statistics.median(ms),
+            "losses": losses,
+            "memory_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if not compress:
+            batch = micro(steps + 1)
+            run["profile"] = _device_busy(lambda: tr.step(batch))
+            run["idle_share"] = _idle_share(run["profile"]["device_ms"],
+                                            run["median_ms"])
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    # 6 N D for the forward and backward, + 2 N D for the remat's second
+    # forward, at the dense bf16 rate
+    res["bound_ms"] = 8 * cfg.n_params() * res["tokens_per_step"] / \
+        BF16_FLOPS_PER_S * 1e3
+    res["replay"] = _replay_in_child()
+    res["launches"] = _assert_no_launches("lm_train")
+    plain, comp = res["plain"], res["compressed"]
+    print(f"lm_train: qwen2-1.5b N={cfg.n_params()}, "
+          f"{res['tokens_per_step']} tokens/step in {LM_TRAIN_ACCUM} "
+          f"microbatches, remat: step {plain['median_ms']:.1f} ms median of "
+          f"{plain['step_ms']} (bound {res['bound_ms']:.1f} ms), peak "
+          f"{plain['memory_peak_gb']:.3f} GB, losses {plain['losses']}, "
+          f"device {plain['profile']} (idle share {plain['idle_share']}); "
+          f"int8-compressed step {comp['median_ms']:.1f} ms, peak "
+          f"{comp['memory_peak_gb']:.3f} GB, loss {comp['losses']}; "
+          f"replay after a failure at step 7: bit-equal over "
+          f"{res['replay']['leaves']} leaves")
+    out["lm_train"] = res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2715,6 +3260,13 @@ def main() -> int:
         phase_rpq(out)
     finally:
         dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for phase in (phase_lm_serve, phase_lm_moe, phase_lm_train):
+        t0 = time.perf_counter()
+        phase(out)
+        print(f"{phase.__name__[6:]}: phase took "
+              f"{time.perf_counter() - t0:.1f} s")
     kernels = out["kernels"]
     for k in kernels:
         name = k["name"]
@@ -2736,6 +3288,8 @@ def main() -> int:
             mode: n[name] for mode, n in
             out["sharded_repair"]["launches_by_mode"].items()}
         k["verify_launches"] = out["verify"]["launches"][name]
+        k["lm_launches"] = {phase: out[phase]["launches"][name]
+                            for phase in ("lm_serve", "lm_moe", "lm_train")}
         k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
                            + out["dynamic"]["shapes"].get(name, [])
                            + out["mapreduce"]["shapes"].get(name, []))

@@ -29,6 +29,12 @@ session: admission lanes, deadlines, retries, dead letters, MVCC versions
         fut = server.submit(s, t, kind="dist")
         server.submit_delta(GraphDelta.insert([(u, v)]))
         print(fut.result(timeout=10))
+
+Beside the query engine sits the LM family of the substrate, in plain
+PyTorch: :mod:`repro_torch.models.transformer`, the configurations of
+:mod:`repro_torch.configs`, :class:`repro_torch.serve.ServeEngine`, and
+the training pieces (:mod:`repro_torch.optim`, :mod:`repro_torch.train`,
+:mod:`repro_torch.ckpt`, :mod:`repro_torch.data`).
 """
 from .core.api import dis_dist, dis_reach, dis_rpq, dis_rpq_regex
 from .core.fragments import GraphDelta, Placement

@@ -24,6 +24,8 @@ Everything here is re-exported at this level:
 * :class:`FaultInjector` / :class:`FaultSpec` / ``SITES``: seeded fault
   injection.
 * the typed errors (:class:`ServingError` and its subclasses).
+* :class:`Request` / :class:`ServeEngine`: the LM family's batched greedy
+  decoder (:mod:`repro_torch.serve.lm`), unrelated to the query server.
 """
 from ..core.versions import Version, VersionedCacheStore
 from ..errors import (DeadLetterError, DeadlineExceeded, DeltaApplyFailed,
@@ -34,6 +36,7 @@ from .admission import (GREEN, LANES, RED, YELLOW, AdmissionPolicy,
 from .engine import (AsyncQueryEngine, QueryFuture, RetryPolicy,
                      UpdateFuture)
 from .faults import SITES, FaultInjector, FaultSpec
+from .lm import Request, ServeEngine
 from .query_server import (QueryRequest, QueryServer, UpdateRequest,
                            VALID_KINDS)
 from .telemetry import Telemetry
@@ -48,4 +51,5 @@ __all__ = [
     "FaultInjector", "FaultSpec", "SITES",
     "ServingError", "QueryTooExpensive", "DeadlineExceeded",
     "DeadLetterError", "DeltaApplyFailed", "InjectedFault",
+    "Request", "ServeEngine",
 ]

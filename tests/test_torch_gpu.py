@@ -614,3 +614,134 @@ def test_baselines_on_card_match_cpu(cuda):
         for fn in (dis_reach_n, dis_reach_m):
             assert fn(fr, int(s), int(t)) == fn(fr, int(s), int(t),
                                                 device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the LM family on the card
+# ---------------------------------------------------------------------------
+
+def _lm_smoke(arch_id="qwen2-1.5b", **kw):
+    import dataclasses
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(LM_ARCHS[arch_id].smoke_cfg, **kw)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    return cfg, params
+
+
+def _to(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.to(device), tree)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch_id", ["qwen2-1.5b", "olmoe-1b-7b"])
+def test_lm_forward_and_decode_on_card_match_cpu(cuda, arch_id):
+    from repro_torch.models import transformer as T
+    cfg, params = _lm_smoke(arch_id)
+    toks = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab, (2, 10)))
+    with torch.no_grad():
+        want, aux = T.forward(cfg, params, toks)
+        got, aux_c = T.forward(cfg, _to(params, cuda), toks.to(cuda))
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=2e-4, rtol=2e-3)
+        np.testing.assert_allclose(aux_c.cpu().numpy(), aux.numpy(),
+                                   atol=2e-4, rtol=2e-3)
+        caches = (T.init_cache(cfg, 2, 16, device="cpu"),
+                  T.init_cache(cfg, 2, 16, device=cuda))
+        for i in range(10):
+            pos = torch.full((2,), i)
+            lg, _ = T.decode_step(cfg, params, caches[0], toks[:, i], pos)
+            lg_c, _ = T.decode_step(cfg, _to(params, cuda), caches[1],
+                                    toks[:, i].to(cuda), pos.to(cuda))
+            np.testing.assert_allclose(lg_c.cpu().numpy(), lg.numpy(),
+                                       atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.gpu
+def test_serve_engine_on_card_matches_cpu(cuda):
+    from repro_torch.serve import Request, ServeEngine
+    cfg, params = _lm_smoke(kv_quant_int8=True, decode_chunk=8)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (3, 7, 1, 5)]
+    out = [[r.generated for r in ServeEngine(
+        cfg, params, batch=2, max_len=16, device=dev).generate(
+            [Request(prompt=p, max_new_tokens=5) for p in prompts])]
+        for dev in ("cpu", None)]
+    assert out[0] == out[1]
+
+
+def _train_step(device, params, cfg, tmp_path):
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    tr = Trainer(TrainerConfig(ckpt_dir=str(tmp_path / str(device)),
+                               grad_accum=2),
+                 adamw.AdamWConfig(lr=1e-3, warmup_steps=0),
+                 lambda p, b: T.lm_loss(cfg, p, b["tokens"], b["targets"]),
+                 params, device=device)
+    batch = TokenStream(vocab=cfg.vocab, batch=4, seq_len=12,
+                        device=device).batch_at(0)
+    m = tr.step({k: v.reshape(2, 2, -1) for k, v in batch.items()})
+    return float(m["loss"]), tr.state["params"]
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda, tmp_path):
+    from repro_torch.tree import leaves
+    cfg, params = _lm_smoke(remat=True)
+    loss, want = _train_step("cpu", params, cfg, tmp_path)
+    loss_c, got = _train_step("cuda", params, cfg, tmp_path)
+    assert abs(loss - loss_c) < 1e-4
+    for a, b in zip(leaves(want), leaves(got)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_trainer_replay_on_card_is_bitwise(cuda, tmp_path, monkeypatch):
+    """Crash at step 7, restore, replay: bit-equal to a clean run on the
+    card.  That needs deterministic kernels: the test sets
+    ``torch.use_deterministic_algorithms(True)`` and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which PyTorch requires with it,
+    and restores both.  Other tests of the session may have started
+    cuBLAS before the variable was set; chip_smoke.py runs the same
+    replay in a process that has it from the start."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg, params = _lm_smoke()
+    stream = TokenStream(vocab=cfg.vocab, batch=4, seq_len=12)
+
+    def run(path, fail):
+        tr = Trainer(TrainerConfig(ckpt_dir=str(path), ckpt_every=5,
+                                   ckpt_async=False),
+                     adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                       total_steps=20),
+                     lambda p, b: T.lm_loss(cfg, p, b["tokens"],
+                                            b["targets"]), params)
+        fired = []
+
+        def hook(step):
+            if fail and step == 7 and not fired:
+                fired.append(step)
+                raise RuntimeError("simulated node failure")
+        tr.run(stream.batch_at, 10, fail_hook=hook)
+        return tr
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        clean, failed = run(tmp_path / "a", False), run(tmp_path / "b", True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(leaves(clean.state["params"]),
+                    leaves(failed.state["params"])):
+        assert torch.equal(a, b)
+    assert int(failed.state["step"]) == 10
