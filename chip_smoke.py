@@ -144,6 +144,42 @@ non-zero and prints no result line):
              started with CUBLAS_WORKSPACE_CONFIG=:4096:8.
              The three LM phases must launch none of the query kernels
              (``lm_launches``).
+16. gnn_molecule — NequIP (plain and ``fused_agg``, bf16), MACE and EGNN at
+             their full configurations on the molecule shape at full size:
+             128 molecules of 30 atoms drawn in a box, each with its 64
+             shortest directed pairs as edges, padded to N = 4096 and
+             E = 8192.  For each: ``energy_and_forces`` timed (ms a call,
+             device busy ms, idle share, memory peak), held against the
+             same call on the CPU (the bf16 path: against the f32 path on
+             the card), and under a seeded rotation and shift (energies
+             invariant, forces rotated): f32 within 1e-4 of the values'
+             scale, bf16 within 0.1 of it (0.2 under the rotation, two
+             bf16 evaluations); then Trainer steps on the reference's
+             molecule loss
+             (energy + 0.1 x force MSE, whose gradient differentiates the
+             forces again), timed and traced.
+17. gnn_gat — gat-cora at full width: on a Cora-sized random graph (2708
+             nodes, 10556 edges, 1433 features), forward held against the
+             CPU and timed, then Trainer steps on ``gat.loss``; on a
+             Reddit-sized Erdos-Renyi graph (232965 nodes, 114.6 M edges,
+             CSR sorted on the card), 1024 seeds from GraphEpochStream
+             sampled 15-10 by ``sample_subgraph_host`` (host ms printed;
+             every sampled pair checked to be an edge), padded, features
+             gathered from a [232965, 602] table, and one timed training
+             step on the seeds' loss.
+18. recsys — bert4rec at its full configuration (1 M items, d 64, 2 blocks,
+             2 heads, seq 200): serve_p99 (``score_next`` at batch 512, p50
+             and p99, held against the CPU on 8 rows), retrieval_cand
+             (``score_candidates`` against 1 M candidates, held against
+             ``score_next``'s columns), serve_bulk (``score_topk``, k 100,
+             chunk 4096, over as many of the cell's 262144 rows as fit in
+             ~20 s; the first chunk held against ``torch.topk`` of
+             ``score_next``) and train_batch (65536 sequences, 20 masks,
+             8192 shared negatives, as 8 microbatches of 8192 through
+             ``Trainer(grad_accum=8)``), each with rows/s, device busy ms,
+             idle share and memory peak.  The three phases run in f32
+             (TF32 off) and must launch none of the query kernels
+             (``gnn_launches``, ``recsys_launches``).
 
 The min-plus wrapper's operand copies are asserted 0 on the main,
 one-shot, dynamic and serve paths as well.  When the source of an earlier
@@ -156,7 +192,8 @@ kernel, with its launches on each path (``launches`` on the main path,
 ``oneshot_launches``, ``dynamic_launches`` by mode, ``serve_launches``
 by mode, ``baselines_launches``, ``mapreduce_launches``,
 ``sharded_repair_launches`` by mode, ``verify_launches``,
-``lm_launches`` by LM phase, ...) and its new
+``lm_launches`` by LM phase, ``gnn_launches`` by GNN phase,
+``recsys_launches``, ...) and its new
 launch shapes (``new_shapes``); the last is ``{"ok": true, "device":
 {...}}``.  Times come from
 CUDA events after a warm-up; bounds are reckoned from the H100 SXM data
@@ -2798,7 +2835,8 @@ def _device_busy(fn) -> dict:
     """Device time and event count (kernels, copies, fills) of one call
     of ``fn``, from a torch.profiler trace of the device's activity only
     (the sum of the events' durations; one stream, so they do not
-    overlap).  ``device_ms`` is None when the trace holds no device
+    overlap), and the four event names that took the most of it
+    (``top_ms``).  ``device_ms`` is None when the trace holds no device
     event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2810,7 +2848,13 @@ def _device_busy(fn) -> dict:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 if dev \
         else None
-    return {"device_ms": busy, "device_events": len(dev)}
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return {"device_ms": busy, "device_events": len(dev),
+            "top_ms": [(name[:48], round(ms, 3)) for name, ms in top]}
 
 
 def _decode_busy(cfg, params, steps: int = 2) -> dict:
@@ -2835,6 +2879,7 @@ def _decode_busy(cfg, params, steps: int = 2) -> dict:
     if busy["device_ms"] is not None:
         busy["device_ms"] /= steps
     busy["device_events"] /= steps
+    busy["top_ms"] = [(name, ms / steps) for name, ms in busy["top_ms"]]
     return busy
 
 
@@ -2926,8 +2971,8 @@ def _fresh(r, new_tokens: int):
 def _assert_no_launches(what: str) -> dict:
     launches = _launches()
     if any(launches.values()):
-        raise AssertionError(f"{what}: the LM family launched a query "
-                             f"kernel: {launches}")
+        raise AssertionError(f"{what}: a query kernel was launched: "
+                             f"{launches}")
     return launches
 
 
@@ -3068,7 +3113,7 @@ def phase_lm_moe(out: dict) -> None:
     out["lm_moe"] = res
 
 
-def _train_timed(trainer, batches):
+def _train_timed(trainer, batches, what: str = "lm_train"):
     """(ms, losses) of one Trainer.step per batch, each finite."""
     import torch
     ms, losses = [], []
@@ -3079,7 +3124,7 @@ def _train_timed(trainer, batches):
         loss = float(m["loss"])                   # waits for the step
         ms.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(loss):
-            raise AssertionError(f"lm_train: loss {loss}")
+            raise AssertionError(f"{what}: loss {loss}")
         losses.append(loss)
     return ms, losses
 
@@ -3227,6 +3272,575 @@ def phase_lm_train(out: dict) -> None:
     out["lm_train"] = res
 
 
+# ---------------------------------------------------------------------------
+# 16-18. the GNN family and bert4rec
+# ---------------------------------------------------------------------------
+
+GNN_DEVICE = "cuda"
+MOL_ATOMS = 30               # atoms of each of the molecule shape's graphs
+MOL_EDGES = 64               # its shortest directed pairs, each molecule
+MOL_BOX = 4.0                # side of the box the atoms are drawn in
+MOL_REPS = 5                 # timed energy_and_forces calls
+# bf16 keeps 8 significant bits (a rounding is within 2^-8 ~ 0.4 %) and
+# the forces pass ~25 roundings (5 layers, forward and backward): the fused
+# path is held within 10 % of the scale (max |err| <= 0.1 x max |value|)
+# of the f32 path on the same weights, and so two fused evaluations (at
+# the coordinates and rotated) within twice that of each other
+BF16_SCALE_TOL = 0.1
+# f32 results (on the card against the CPU, and under the rotation) agree
+# within 1e-4 of their scale: max |err| <= 1e-4 x max |value|.  Random
+# weights make forces of 10^3-10^4, whose rounding (f32 sums in the
+# atomics' varying order) exceeds an elementwise bound near zero
+F32_SCALE_TOL = 1e-4
+GAT_TRAIN_STEPS = 2
+REDDIT = dict(n=232_965, m=114_615_892, d=602)     # Reddit's published size
+MINIBATCH_FANOUTS = [15, 10]
+BULK_SECONDS = 20.0          # serve_bulk runs the chunks that fit in this
+P99_CALLS = 20
+RECSYS_ACCUM = 8             # train_batch as 8 microbatches
+
+
+def _scale_err(got, want) -> float:
+    """max |got - want| / max |want| (0 when both are 0)."""
+    scale = want.abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    return err / scale if scale else err
+
+
+def _to_cpu(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def _graph_on(g, device):
+    import dataclasses
+    return dataclasses.replace(
+        g, **{f: getattr(g, f).to(device) for f in
+              ("senders", "receivers", "node_mask", "edge_mask",
+               "graph_ids")})
+
+
+def _molecule_batch(seed: int):
+    """The molecule shape at full size: 128 molecules of 30 atoms in a
+    box, each with its 64 shortest directed pairs as edges (all under the
+    cutoff), padded to FULL_DIMS (N = 4096, E = 8192); species, features
+    and energy/force targets drawn from ``seed``."""
+    import torch
+    from repro_torch.configs.families.gnn import FULL_DIMS
+    from repro_torch.models.gnn import common
+    d = FULL_DIMS["molecule"]
+    n_mol, N = d["n_graphs"], d["N"]
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, MOL_BOX, (n_mol, MOL_ATOMS, 3))
+    dist = np.linalg.norm(x[:, :, None] - x[:, None, :], axis=-1)
+    dist[:, np.arange(MOL_ATOMS), np.arange(MOL_ATOMS)] = np.inf
+    flat = np.argsort(dist.reshape(n_mol, -1), axis=1,
+                      kind="stable")[:, :MOL_EDGES]
+    longest = np.take_along_axis(dist.reshape(n_mol, -1), flat, 1).max()
+    s, r = np.divmod(flat, MOL_ATOMS)
+    base = (np.arange(n_mol) * MOL_ATOMS)[:, None]
+    g = common.pad_graph((s + base).ravel(), (r + base).ravel(),
+                         n_mol * MOL_ATOMS, d["E"], N,
+                         graph_ids=np.repeat(np.arange(n_mol), MOL_ATOMS),
+                         n_graphs=n_mol, device=GNN_DEVICE)
+    coords = np.zeros((N, 3), np.float32)
+    coords[:n_mol * MOL_ATOMS] = x.reshape(-1, 3)
+
+    def on(a):
+        return torch.from_numpy(a).to(GNN_DEVICE)
+
+    return dict(
+        g=g, longest=float(longest), coords=on(coords),
+        species=on(rng.integers(0, 64, N)),
+        feats=on(rng.normal(size=(N, d["d"])).astype(np.float32)),
+        e=on(rng.normal(size=n_mol).astype(np.float32)),
+        f=on(rng.normal(size=(N, 3)).astype(np.float32)))
+
+
+def _molecule_arch(arch_id, mol, rot, shift, cut, **changes) -> dict:
+    """One architecture on the molecule batch: energy_and_forces timed and
+    checked against the CPU and under a rotation and shift; one Trainer
+    step on the reference's molecule loss (energy + 0.1 x force MSE,
+    whose gradient differentiates the forces again), timed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs.families.gnn import FULL_DIMS
+    from repro_torch.models.gnn import egnn, equivariant
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    arch = GNN_ARCHS[arch_id]
+    cfg = dataclasses.replace(
+        arch.full_cfg_fn(FULL_DIMS["molecule"]["d"]), **changes)
+    if arch.kind != "egnn" and mol["longest"] >= cfg.cutoff:
+        raise AssertionError(f"gnn_molecule: an edge of {mol['longest']} "
+                             f"is past the cutoff {cfg.cutoff}")
+    mod = egnn if arch.kind == "egnn" else equivariant
+    fused = getattr(cfg, "fused_agg", False)
+    x = mol["feats"] if arch.kind == "egnn" else mol["species"]
+    g = mol["g"]
+    gen = torch.Generator(device=GNN_DEVICE).manual_seed(SEED + 50)
+    params = mod.init_params(cfg, gen, device=GNN_DEVICE)
+
+    def energies(p, xx, c, gg):
+        out = mod.forward(cfg, p, xx, c, gg)
+        return out[0] if isinstance(out, tuple) else out
+
+    def serve(c=mol["coords"]):
+        return mod.energy_and_forces(cfg, params, x, c, g)
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        ms, (e1, f1) = cuda_timed(serve, MOL_REPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy = _device_busy(serve)
+        moved = mol["coords"] @ rot.T + shift
+        _, f2 = serve(moved)
+        g1 = energies(params, x, mol["coords"], g)
+        g2 = energies(params, x, moved, g)
+        if fused:        # against the f32 path on the same card
+            plain = dataclasses.replace(cfg, fused_agg=False)
+            ref_e, ref_f = mod.energy_and_forces(plain, params, x,
+                                                 mol["coords"], g)
+        else:                    # against the CPU
+            ref_e, ref_f = mod.energy_and_forces(
+                cfg, _to_cpu(params), x.cpu(), mol["coords"].cpu(),
+                _graph_on(g, "cpu"))
+    if not (torch.isfinite(f1).all() and torch.isfinite(g1).all()):
+        raise AssertionError(f"gnn_molecule {arch_id}: non-finite output")
+    f_rot = f1 @ rot.T
+    res = {"n_params": cfg.n_params(), "ms": ms,
+           "device_ms": busy["device_ms"], "device_events":
+           busy["device_events"], "idle_share": _idle_share(
+               busy["device_ms"], ms), "memory_peak_gb": peak,
+           "energy_err": (g2 - g1).abs().max().item(),
+           "force_err": (f2 - f_rot).abs().max().item(),
+           "energy_scale_err": _scale_err(g2, g1),
+           "force_scale_err": _scale_err(f2, f_rot),
+           "ref": "f32 path" if fused else "cpu",
+           "ref_energy_err": _scale_err(e1.to(ref_e.device), ref_e),
+           "ref_force_err": _scale_err(f1.to(ref_f.device), ref_f)}
+    # two bf16 evaluations each within ``cut`` of f32 differ by up to 2 cut
+    rot_cut = 2 * cut if fused else cut
+    bad = max(res["ref_energy_err"], res["ref_force_err"]) > cut or \
+        max(res["energy_scale_err"], res["force_scale_err"]) > rot_cut
+    if bad:
+        raise AssertionError(f"gnn_molecule {arch_id} {changes}: "
+                             f"invariance or CPU check failed: {res}")
+
+    def loss_fn(p, b):
+        _, f = mod.energy_and_forces(cfg, p, b["x"], b["coords"], g)
+        e_all = energies(p, b["x"], b["coords"], g)
+        return torch.mean((e_all - b["e"]) ** 2) + \
+            0.1 * torch.mean((f - b["f"]) ** 2)
+
+    tr = Trainer(TrainerConfig(ckpt_dir=str(ROOT / "build" / "gnn_ckpt"),
+                               ckpt_every=10 ** 9),
+                 adamw.AdamWConfig(), loss_fn, params, device=GNN_DEVICE)
+    batch = dict(x=x, coords=mol["coords"], e=mol["e"], f=mol["f"])
+    _train_timed(tr, [batch], "gnn_molecule")              # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _train_timed(tr, [batch, batch], "gnn_molecule")
+    res["train"] = {"step_ms": step_ms, "losses": losses,
+                    "memory_peak_gb": torch.cuda.max_memory_allocated()
+                    / 1e9, "profile": _device_busy(lambda: tr.step(batch))}
+    res["train"]["idle_share"] = _idle_share(
+        res["train"]["profile"]["device_ms"], min(step_ms))
+    return res
+
+
+def phase_gnn_molecule(out: dict) -> None:
+    """NequIP (plain and fused_agg), MACE and EGNN at their full
+    configurations on the molecule shape at full size."""
+    import torch
+    from scipy.spatial.transform import Rotation
+    _reset_launches()
+    mol = _molecule_batch(SEED + 51)
+    rot = torch.from_numpy(Rotation.random(random_state=SEED + 52)
+                           .as_matrix().astype(np.float32)).to(GNN_DEVICE)
+    shift = torch.tensor([0.3, -1.2, 2.0], device=GNN_DEVICE)
+    res = {"edges": MOL_EDGES, "atoms": MOL_ATOMS,
+           "longest_edge": mol["longest"]}
+    for name, arch_id, changes, cut in (
+            ("nequip", "nequip", {}, F32_SCALE_TOL),
+            ("nequip_fused", "nequip", {"fused_agg": True}, BF16_SCALE_TOL),
+            ("mace", "mace", {}, F32_SCALE_TOL),
+            ("egnn", "egnn", {}, F32_SCALE_TOL)):
+        r = res[name] = _molecule_arch(arch_id, mol, rot, shift, cut,
+                                       **changes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"gnn_molecule: {name} N={r['n_params']}: energy_and_forces "
+              f"{r['ms']:.3f} ms (device {r['device_ms']} ms in "
+              f"{r['device_events']} events, idle share {r['idle_share']}), "
+              f"peak {r['memory_peak_gb']:.3f} GB; rotation + shift: energy "
+              f"err {r['energy_err']:.3e} ({r['energy_scale_err']:.3e} of "
+              f"scale), force err {r['force_err']:.3e} "
+              f"({r['force_scale_err']:.3e}); against the {r['ref']} "
+              f"{r['ref_energy_err']:.3e} / {r['ref_force_err']:.3e} of "
+              f"scale; train step "
+              f"{r['train']['step_ms']} ms, device "
+              f"{r['train']['profile']} (idle share "
+              f"{r['train']['idle_share']}), peak "
+              f"{r['train']['memory_peak_gb']:.3f} GB, losses "
+              f"{r['train']['losses']}")
+    res["launches"] = _assert_no_launches("gnn_molecule")
+    out["gnn_molecule"] = res
+
+
+def _csr_on_card(n: int, src: np.ndarray, dst: np.ndarray):
+    """(indptr, indices) of ``csr_from_coo`` (a stable sort by source),
+    sorted on the card; also the edge keys ``src * n + dst`` sorted, for
+    membership checks."""
+    import torch
+    s = torch.from_numpy(src).to(GNN_DEVICE)
+    d = torch.from_numpy(dst).to(GNN_DEVICE)
+    s_sorted, order = torch.sort(s, stable=True)
+    indices = d[order].cpu().numpy()
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=GNN_DEVICE)
+    indptr[1:] = torch.cumsum(torch.bincount(s_sorted, minlength=n), 0)
+    keys = torch.sort(s * n + d).values
+    return indptr.cpu().numpy(), indices, keys
+
+
+def _gat_timed(cfg, params, x, g, labels, mask, what: str) -> dict:
+    """gat.forward timed, then Trainer steps on gat.loss (one warm-up,
+    GAT_TRAIN_STEPS timed, one profiled)."""
+    import torch
+    from repro_torch.models.gnn import gat
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    with torch.no_grad():
+        ms, logits = cuda_timed(lambda: gat.forward(cfg, params, x, g), 5)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    tr = Trainer(TrainerConfig(ckpt_dir=str(ROOT / "build" / "gnn_ckpt"),
+                               ckpt_every=10 ** 9),
+                 adamw.AdamWConfig(),
+                 lambda p, b: gat.loss(cfg, p, b["x"], g, b["labels"],
+                                       b["mask"]), params, device=GNN_DEVICE)
+    batch = dict(x=x, labels=labels, mask=mask)
+    _train_timed(tr, [batch], what)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _train_timed(tr, [batch] * GAT_TRAIN_STEPS, what)
+    prof = _device_busy(lambda: tr.step(batch))
+    return {"forward_ms": ms, "step_ms": step_ms, "losses": losses,
+            "profile": prof, "idle_share": _idle_share(prof["device_ms"],
+                                                       min(step_ms)),
+            "memory_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "logits": logits}
+
+
+def phase_gnn_gat(out: dict) -> None:
+    """gat-cora at full width: on a Cora-sized random graph (full_graph_sm),
+    forward checked against the CPU, then trained; on a Reddit-sized
+    Erdos-Renyi graph, 1024 seeds sampled 15-10 by the host sampler and
+    padded (minibatch_lg), one training step."""
+    import torch
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs.families.gnn import FULL_DIMS, _pad
+    from repro_torch.data import GraphEpochStream
+    from repro_torch.graph import erdos_renyi
+    from repro_torch.models.gnn import common, gat, sampler
+    _reset_launches()
+    arch = GNN_ARCHS["gat-cora"]
+    res = {}
+
+    # full_graph_sm: Cora's sizes (2708 nodes, 10556 edges, 1433 features)
+    d = FULL_DIMS["full_graph_sm"]
+    cfg = arch.full_cfg_fn(d["d"])
+    n_real, e_real = 2_708, 10_556
+    rng = np.random.default_rng(SEED + 60)
+    g = common.pad_graph(rng.integers(0, n_real, e_real),
+                         rng.integers(0, n_real, e_real), n_real, d["E"],
+                         d["N"], device=GNN_DEVICE)
+    gen = torch.Generator(device=GNN_DEVICE).manual_seed(SEED + 61)
+    params = gat.init_params(cfg, gen, device=GNN_DEVICE)
+    x = torch.zeros((d["N"], d["d"]), device=GNN_DEVICE)
+    x[:n_real] = torch.randn((n_real, d["d"]), generator=gen,
+                             device=GNN_DEVICE)
+    labels = torch.randint(0, cfg.n_classes, (d["N"],), generator=gen,
+                           device=GNN_DEVICE)
+    mask = g.node_mask.float()
+    with torch.no_grad():
+        cpu_logits = gat.forward(cfg, _to_cpu(params), x.cpu(),
+                                 _graph_on(g, "cpu"))
+    sm = res["full_graph_sm"] = _gat_timed(cfg, params, x, g, labels, mask,
+                                           "gnn_gat full_graph_sm")
+    sm["cpu_err"] = _scale_err(sm.pop("logits").cpu(), cpu_logits)
+    if sm["cpu_err"] > F32_SCALE_TOL:
+        raise AssertionError(f"gnn_gat: logits differ from the CPU's by "
+                             f"{sm['cpu_err']} of scale")
+    sm.update(nodes=n_real, edges=e_real, N=d["N"], E=d["E"],
+              n_params=cfg.n_params())
+    del params, x, g
+    print(f"gnn_gat: full_graph_sm N={cfg.n_params()} ({n_real} nodes, "
+          f"{e_real} edges, padded {d['N']} / {d['E']}): forward "
+          f"{sm['forward_ms']:.3f} ms (card vs CPU {sm['cpu_err']:.3e} of "
+          f"scale), train step {sm['step_ms']} ms, device {sm['profile']} "
+          f"(idle share {sm['idle_share']}), peak "
+          f"{sm['memory_peak_gb']:.3f} GB, losses {sm['losses']}")
+
+    # minibatch_lg: Reddit's sizes, host sampler 15-10 around 1024 seeds
+    d = FULL_DIMS["minibatch_lg"]
+    cfg = arch.full_cfg_fn(d["d"])
+    t0 = time.perf_counter()
+    graph = erdos_renyi(REDDIT["n"], REDDIT["m"], seed=SEED + 62)
+    t1 = time.perf_counter()
+    indptr, indices, keys = _csr_on_card(graph.n, graph.src, graph.dst)
+    t2 = time.perf_counter()
+    del graph
+    seeds = GraphEpochStream(REDDIT["n"], d["seeds"], seed=SEED + 63,
+                             device="cpu").seeds_at(0).numpy()
+    t3 = time.perf_counter()
+    node_ids, s, r = sampler.sample_subgraph_host(
+        indptr, indices, seeds, MINIBATCH_FANOUTS, seed=SEED + 64)
+    t4 = time.perf_counter()
+    del indptr, indices
+    # each sampled pair (neighbour -> seed) is an edge seed -> neighbour
+    # of the graph: degree-0 self-loops aside, none is made up
+    gid = torch.from_numpy(node_ids).to(GNN_DEVICE)
+    pair = gid[torch.from_numpy(r).to(GNN_DEVICE).long()] * REDDIT["n"] + \
+        gid[torch.from_numpy(s).to(GNN_DEVICE).long()]
+    found = torch.isin(pair, keys) | torch.from_numpy(s == r).to(GNN_DEVICE)
+    if not bool(found.all()):
+        raise AssertionError(f"gnn_gat: {int((~found).sum())} sampled pairs "
+                             f"are not edges of the graph")
+    del keys, pair, found
+    # the reference's second hop samples around the first hop's seeds too,
+    # so it can draw more edges than FULL_DIMS' 168960: pad up to them
+    N = max(d["N"], _pad(len(node_ids)))
+    E = max(d["E"], _pad(len(s)))
+    g = common.pad_graph(s, r, len(node_ids), E, N, device=GNN_DEVICE)
+    gen = torch.Generator(device=GNN_DEVICE).manual_seed(SEED + 65)
+    params = gat.init_params(cfg, gen, device=GNN_DEVICE)
+    table = torch.randn((REDDIT["n"], d["d"]), generator=gen,
+                        device=GNN_DEVICE)
+    x = torch.zeros((N, d["d"]), device=GNN_DEVICE)
+    x[:len(node_ids)] = table[gid]
+    del table
+    labels = torch.randint(0, cfg.n_classes, (N,), generator=gen,
+                           device=GNN_DEVICE)
+    mask = torch.zeros(N, device=GNN_DEVICE)
+    mask[:len(seeds)] = 1.0                        # the loss is on the seeds
+    lg = res["minibatch_lg"] = _gat_timed(cfg, params, x, g, labels, mask,
+                                          "gnn_gat minibatch_lg")
+    lg.pop("logits")
+    lg.update(graph_nodes=REDDIT["n"], graph_edges=REDDIT["m"],
+              generate_s=t1 - t0, csr_s=t2 - t1, seeds_s=t3 - t2,
+              sampler_host_ms=(t4 - t3) * 1e3, sampled_nodes=len(node_ids),
+              sampled_edges=len(s), N=N, E=E, full_dims=(d["N"], d["E"]))
+    del params, x, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"gnn_gat: minibatch_lg graph {REDDIT['n']} nodes / {REDDIT['m']} "
+          f"edges (generated {lg['generate_s']:.1f} s, CSR on the card "
+          f"{lg['csr_s']:.1f} s); sampler {MINIBATCH_FANOUTS} around "
+          f"{len(seeds)} seeds: {lg['sampler_host_ms']:.1f} ms on the host, "
+          f"{len(node_ids)} nodes, {len(s)} edges, padded {N} / {E} "
+          f"(FULL_DIMS {d['N']} / {d['E']}); forward "
+          f"{lg['forward_ms']:.3f} ms, train step {lg['step_ms']} ms, device "
+          f"{lg['profile']} (idle share {lg['idle_share']}), peak "
+          f"{lg['memory_peak_gb']:.3f} GB, losses {lg['losses']}")
+    res["launches"] = _assert_no_launches("gnn_gat")
+    out["gnn_gat"] = res
+
+
+def _item_rows(cfg, rows: int, gen):
+    """Item sequences on the card: random items, MASK last, the first
+    quarter of every fourth row PAD."""
+    import torch
+    items = torch.randint(2, cfg.n_items, (rows, cfg.seq_len),
+                          generator=gen, device=GNN_DEVICE)
+    items[::4, :cfg.seq_len // 4] = cfg.PAD
+    items[:, -1] = cfg.MASK
+    return items
+
+
+def _latencies(fn, calls: int) -> dict:
+    """Host-clock ms of ``calls`` synchronised calls of ``fn`` after one
+    warm-up: median and p99."""
+    import torch
+    fn()
+    ms = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "ms": ms}
+
+
+def phase_recsys(out: dict) -> None:
+    """bert4rec at its full configuration (1 M items, d 64, 2 blocks, 2
+    heads, seq 200): serve_p99, retrieval_cand, serve_bulk and
+    train_batch, each timed and checked."""
+    import torch
+    from repro_torch.configs import RECSYS_ARCHS
+    from repro_torch.configs.families.recsys import FULL
+    from repro_torch.models import bert4rec as B
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig
+    _reset_launches()
+    cfg = RECSYS_ARCHS["bert4rec"].full_cfg
+    gen = torch.Generator(device=GNN_DEVICE).manual_seed(SEED + 70)
+    params = B.init_params(cfg, gen, device=GNN_DEVICE)
+    res = {"n_params": cfg.n_params()}
+
+    # serve_p99: score_next at batch 512
+    bsz = FULL["serve_p99"]["batch"]
+    items = _item_rows(cfg, bsz, gen)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        lat = _latencies(lambda: B.score_next(cfg, params, items), P99_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy = _device_busy(lambda: B.score_next(cfg, params, items))
+        got = B.score_next(cfg, params, items[:8])
+        want = B.score_next(cfg, _to_cpu(params), items[:8].cpu())
+    p99 = res["serve_p99"] = dict(
+        batch=bsz, rows_per_s=bsz / lat["p50_ms"] * 1e3,
+        memory_peak_gb=peak, profile=busy,
+        idle_share=_idle_share(busy["device_ms"], lat["p50_ms"]),
+        cpu_err=_scale_err(got.cpu(), want), **lat)
+    if p99["cpu_err"] > F32_SCALE_TOL:
+        raise AssertionError(f"recsys: score_next differs from the CPU's by "
+                             f"{p99['cpu_err']} of scale")
+    print(f"recsys: bert4rec N={cfg.n_params()}; serve_p99 batch {bsz}: "
+          f"score_next p50 {p99['p50_ms']:.3f} ms, p99 {p99['p99_ms']:.3f} "
+          f"ms ({p99['rows_per_s']:.1f} rows/s), device {busy} (idle share "
+          f"{p99['idle_share']}), peak {peak:.3f} GB; card vs CPU "
+          f"{p99['cpu_err']:.3e} of scale")
+
+    # retrieval_cand: one query against 1 M candidates
+    n_cand = FULL["retrieval_cand"]["n_cand"]
+    cands = torch.randperm(cfg.n_items, generator=gen,
+                           device=GNN_DEVICE)[:n_cand]
+    q = items[:1]
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        lat = _latencies(lambda: B.score_candidates(cfg, params, q, cands),
+                         P99_CALLS)
+        busy = _device_busy(lambda: B.score_candidates(cfg, params, q,
+                                                       cands))
+        got = B.score_candidates(cfg, params, q, cands)
+        want = B.score_next(cfg, params, q)[0, cands]
+    if not torch.allclose(got, want, rtol=2e-4, atol=1e-4):
+        raise AssertionError("recsys: score_candidates differs from "
+                             "score_next's columns")
+    rc = res["retrieval_cand"] = dict(
+        n_cand=n_cand, candidates_per_s=n_cand / lat["p50_ms"] * 1e3,
+        memory_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profile=busy, idle_share=_idle_share(busy["device_ms"],
+                                             lat["p50_ms"]),
+        max_abs_err=(got - want).abs().max().item(), **lat)
+    print(f"recsys: retrieval_cand {n_cand} candidates: p50 "
+          f"{rc['p50_ms']:.3f} ms, p99 {rc['p99_ms']:.3f} ms, device {busy} "
+          f"(idle share {rc['idle_share']}); against score_next's columns "
+          f"max |err| {rc['max_abs_err']:.3e}")
+
+    # serve_bulk: score_topk, k 100, chunk 4096, as many chunks as fit
+    bulk = FULL["serve_bulk"]
+    k, chunk = bulk["topk"], bulk["chunk"]
+    with torch.no_grad():
+        first = _item_rows(cfg, chunk, gen)
+        torch.cuda.reset_peak_memory_stats()
+        one = _latencies(lambda: B.score_topk(cfg, params, first, k=k,
+                                              chunk=chunk), 1)["ms"][0]
+        n_chunks = int(min(bulk["batch"] // chunk,
+                           max(1, BULK_SECONDS * 1e3 // one)))
+        rows = _item_rows(cfg, n_chunks * chunk, gen)
+        rows[:chunk] = first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, idx = B.score_topk(cfg, params, rows, k=k, chunk=chunk)
+        torch.cuda.synchronize()
+        bulk_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        busy = _device_busy(lambda: B.score_topk(cfg, params, first, k=k,
+                                                 chunk=chunk))
+        scores = B.score_next(cfg, params, first)
+        want_v, want_i = torch.topk(scores, k + 1)
+        untied = (want_v[:, 1:] != want_v[:, :-1]).all(dim=1)
+        ok = (torch.equal(vals[:chunk], want_v[:, :k])
+              and torch.equal(torch.gather(scores, 1, idx[:chunk]),
+                              vals[:chunk])
+              and torch.equal(idx[:chunk][untied], want_i[untied, :k]))
+        del scores
+    if not ok:
+        raise AssertionError("recsys: score_topk differs from torch.topk of "
+                             "score_next")
+    sb = res["serve_bulk"] = dict(
+        rows=n_chunks * chunk, cell_rows=bulk["batch"], k=k, chunk=chunk,
+        seconds=bulk_s, rows_per_s=n_chunks * chunk / bulk_s,
+        chunk_ms=bulk_s / n_chunks * 1e3, memory_peak_gb=peak,
+        profile_one_chunk=busy, idle_share=_idle_share(
+            busy["device_ms"], bulk_s / n_chunks * 1e3),
+        checked_rows=chunk, tied_rows=int((~untied).sum()))
+    cut_note = "all of them" if sb["rows"] == bulk["batch"] else \
+        f"cut to ~{BULK_SECONDS:.0f} s"
+    print(f"recsys: serve_bulk {sb['rows']} of {bulk['batch']} rows "
+          f"({n_chunks} chunks of {chunk}, {cut_note}), "
+          f"top {k}: {bulk_s:.2f} s ({sb['rows_per_s']:.1f} rows/s, "
+          f"{sb['chunk_ms']:.1f} ms a chunk), device a chunk {busy} (idle "
+          f"share {sb['idle_share']}), peak {peak:.3f} GB; first chunk "
+          f"against torch.topk: equal ({sb['tied_rows']} rows with ties)")
+    del rows, vals, idx, first
+    torch.cuda.empty_cache()
+
+    # train_batch: 65536 sequences, 20 masks, 8192 shared negatives, as 8
+    # microbatches of 8192 through Trainer(grad_accum=8)
+    tb = FULL["train_batch"]
+    micro = tb["batch"] // RECSYS_ACCUM
+
+    def batch_at(step):
+        g = torch.Generator(device=GNN_DEVICE).manual_seed(SEED + 80 + step)
+        seq = torch.randint(2, cfg.n_items, (tb["batch"], cfg.seq_len),
+                            generator=g, device=GNN_DEVICE)
+        pos = torch.argsort(torch.rand((tb["batch"], cfg.seq_len),
+                                       generator=g, device=GNN_DEVICE),
+                            dim=1)[:, :tb["n_mask"]]
+        tgt = torch.gather(seq, 1, pos)
+        seq.scatter_(1, pos, cfg.MASK)
+        neg = torch.randint(2, cfg.n_items, (tb["n_neg"],), generator=g,
+                            device=GNN_DEVICE)
+        return dict(items=seq.reshape(RECSYS_ACCUM, micro, -1),
+                    pos=pos.reshape(RECSYS_ACCUM, micro, -1),
+                    tgt=tgt.reshape(RECSYS_ACCUM, micro, -1),
+                    neg=neg.expand(RECSYS_ACCUM, -1))
+
+    tr = Trainer(TrainerConfig(ckpt_dir=str(ROOT / "build" / "recsys_ckpt"),
+                               ckpt_every=10 ** 9, grad_accum=RECSYS_ACCUM),
+                 adamw.AdamWConfig(),
+                 lambda p, b: B.sampled_masked_loss(cfg, p, b["items"],
+                                                    b["pos"], b["tgt"],
+                                                    b["neg"]),
+                 params, device=GNN_DEVICE)
+    del params
+    _train_timed(tr, [batch_at(0)], "recsys train_batch")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = _train_timed(tr, [batch_at(1)], "recsys train_batch")
+    batch = batch_at(2)
+    prof = _device_busy(lambda: tr.step(batch))
+    tr_res = res["train_batch"] = dict(
+        sequences=tb["batch"], microbatches=RECSYS_ACCUM, n_mask=tb["n_mask"],
+        n_neg=tb["n_neg"], step_ms=step_ms, losses=losses,
+        sequences_per_s=tb["batch"] / step_ms[0] * 1e3,
+        memory_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profile=prof, idle_share=_idle_share(prof["device_ms"], step_ms[0]))
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"recsys: train_batch {tb['batch']} sequences as {RECSYS_ACCUM} x "
+          f"{micro}, {tb['n_mask']} masks, {tb['n_neg']} shared negatives: "
+          f"step {step_ms[0]:.1f} ms ({tr_res['sequences_per_s']:.1f} "
+          f"sequences/s), device {prof} (idle share {tr_res['idle_share']}),"
+          f" peak {tr_res['memory_peak_gb']:.3f} GB, loss {losses}")
+    res["launches"] = _assert_no_launches("recsys")
+    out["recsys"] = res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3262,7 +3876,8 @@ def main() -> int:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    for phase in (phase_lm_serve, phase_lm_moe, phase_lm_train):
+    for phase in (phase_lm_serve, phase_lm_moe, phase_lm_train,
+                  phase_gnn_molecule, phase_gnn_gat, phase_recsys):
         t0 = time.perf_counter()
         phase(out)
         print(f"{phase.__name__[6:]}: phase took "
@@ -3290,6 +3905,9 @@ def main() -> int:
         k["verify_launches"] = out["verify"]["launches"][name]
         k["lm_launches"] = {phase: out[phase]["launches"][name]
                             for phase in ("lm_serve", "lm_moe", "lm_train")}
+        k["gnn_launches"] = {phase: out[phase]["launches"][name]
+                             for phase in ("gnn_molecule", "gnn_gat")}
+        k["recsys_launches"] = out["recsys"]["launches"][name]
         k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
                            + out["dynamic"]["shapes"].get(name, [])
                            + out["mapreduce"]["shapes"].get(name, []))

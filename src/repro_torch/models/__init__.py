@@ -1,5 +1,7 @@
-"""Models of the substrate.  This slice holds the LM family
-(:mod:`repro_torch.models.transformer`); bert4rec and the GNNs follow."""
-from . import transformer
+"""Models of the substrate: the LM family
+(:mod:`repro_torch.models.transformer`), the GNN family
+(:mod:`repro_torch.models.gnn`) and bert4rec
+(:mod:`repro_torch.models.bert4rec`)."""
+from . import bert4rec, gnn, transformer
 
-__all__ = ["transformer"]
+__all__ = ["bert4rec", "gnn", "transformer"]

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.session import _resolve_device
+from ..tree import tensor_from_numpy
 
 Params = Dict[str, Any]
 
@@ -161,14 +162,6 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     return p
 
 
-def _from_numpy(x, device) -> torch.Tensor:
-    a = np.asarray(x)
-    if a.dtype.name == "bfloat16":       # ml_dtypes: torch cannot take it
-        return torch.from_numpy(a.astype(np.float32)).to(
-            device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(np.array(a)).to(device)
-
-
 def params_from_jax(cfg: LMConfig, tree, device=None) -> Params:
     """The reference's parameter tree (numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``, layers stacked on axis 0) as this
@@ -176,14 +169,14 @@ def params_from_jax(cfg: LMConfig, tree, device=None) -> Params:
     dev = _resolve_device(device)
     stacked = tree["layers"]
     p = dict(
-        embed=_from_numpy(tree["embed"], dev),
-        ln_f=_from_numpy(tree["ln_f"], dev),
-        layers=[{k: _from_numpy(np.asarray(v)[i], dev)
+        embed=tensor_from_numpy(tree["embed"], dev),
+        ln_f=tensor_from_numpy(tree["ln_f"], dev),
+        layers=[{k: tensor_from_numpy(np.asarray(v)[i], dev)
                  for k, v in stacked.items()}
                 for i in range(cfg.n_layers)],
     )
     if not cfg.tie_embeddings:
-        p["lm_head"] = _from_numpy(tree["lm_head"], dev)
+        p["lm_head"] = tensor_from_numpy(tree["lm_head"], dev)
     return p
 
 

@@ -12,6 +12,9 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Sequence, Tuple
 
+import numpy as np
+import torch
+
 Path = Tuple[Any, ...]
 
 
@@ -99,3 +102,20 @@ def tree_map(fn: Callable, tree, *rest):
     if _is_namedtuple(tree):
         return type(tree)(*mapped)
     return type(tree)(mapped)
+
+
+def tensor_from_numpy(x, device) -> torch.Tensor:
+    """A copy of the array ``x`` as a tensor on ``device``, value for
+    value: an ml_dtypes bfloat16 array (which torch cannot take) goes
+    through f32, which holds every bf16 value exactly."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def from_numpy(tree, device):
+    """``tree`` (e.g. ``jax.tree.map(np.asarray, params)``) with every
+    leaf as a tensor on ``device`` (:func:`tensor_from_numpy`)."""
+    return tree_map(lambda x: tensor_from_numpy(x, device), tree)

@@ -745,3 +745,64 @@ def test_trainer_replay_on_card_is_bitwise(cuda, tmp_path, monkeypatch):
                     leaves(failed.state["params"])):
         assert torch.equal(a, b)
     assert int(failed.state["step"]) == 10
+
+
+@pytest.mark.gpu
+def test_segment_ops_on_card_match_cpu(cuda):
+    """The GNN substrate's segment ops and the embedding bags on the card
+    against their CPU results (the card's atomic sums add in another
+    order: f32 within 1e-5)."""
+    from repro_torch.models.gnn import common
+    from repro_torch.recsys import embedding_bag
+    rng = np.random.default_rng(18)
+    n, e = 300, 2000
+    s, r = rng.integers(0, n - 10, e), rng.integers(0, n - 10, e)
+    graphs = [common.pad_graph(s, r, n - 5, e + 48, n, device=dev)
+              for dev in ("cpu", cuda)]
+    msgs = torch.from_numpy(rng.normal(size=(e + 48, 6)).astype(np.float32))
+    table = torch.from_numpy(rng.normal(size=(40, 6)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 40, 500))
+    bags = torch.from_numpy(np.sort(rng.integers(0, 64, 500)))
+    w = torch.from_numpy(rng.normal(size=500).astype(np.float32))
+
+    def run(g, dev):
+        out = [common.segment_mp(msgs.to(dev), g.receivers, n, red)
+               for red in ("sum", "max", "mean")]
+        out.append(common.edge_softmax(msgs[:, :3].to(dev), g.receivers,
+                                       g.edge_mask, n))
+        out += [embedding_bag(table.to(dev), ids.to(dev), bags.to(dev), 70,
+                              mode, weights=w.to(dev))
+                for mode in ("sum", "mean", "max")]
+        return out
+
+    for want, got in zip(run(graphs[0], "cpu"), run(graphs[1], cuda)):
+        assert got.is_cuda
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_bert4rec_score_topk_on_card_matches_torch_topk(cuda):
+    """score_topk on the card (chunked, one- and two-stage) against
+    torch.topk of score_next on the same chunks of rows (cuBLAS may round
+    a product of another shape differently): equal values, and equal item
+    ids wherever the row has no tied score among its top k + 1."""
+    import dataclasses
+    from repro_torch.models import bert4rec as B
+    cfg = dataclasses.replace(B.Bert4RecConfig(), n_items=20_000,
+                              seq_len=32)
+    params = B.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    items = torch.randint(2, cfg.n_items, (96, cfg.seq_len), device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(1))
+    with torch.no_grad():
+        scores = torch.cat([B.score_next(cfg, params, items[lo:lo + 40])
+                            for lo in range(0, len(items), 40)])
+        want_v, want_i = torch.topk(scores, 51)
+        for ways in (0, 16):
+            v, i = B.score_topk(dataclasses.replace(cfg, topk_ways=ways),
+                                params, items, k=50, chunk=40)
+            assert torch.equal(v, want_v[:, :50])
+            assert torch.equal(torch.gather(scores, 1, i), v)
+            untied = (want_v[:, 1:] != want_v[:, :-1]).all(dim=1)
+            assert torch.equal(i[untied], want_i[untied, :50])
