@@ -154,10 +154,9 @@ non-zero and prints no result line):
              the card), and under a seeded rotation and shift (energies
              invariant, forces rotated): f32 within 1e-4 of the values'
              scale, bf16 within 0.1 of it (0.2 under the rotation, two
-             bf16 evaluations); then Trainer steps on the reference's
-             molecule loss
-             (energy + 0.1 x force MSE, whose gradient differentiates the
-             forces again), timed and traced.
+             bf16 evaluations); then Trainer steps on the molecule
+             cell's loss (energy + 0.1 x force MSE, whose gradient
+             differentiates the forces again), timed and traced.
 17. gnn_gat — gat-cora at full width: on a Cora-sized random graph (2708
              nodes, 10556 edges, 1433 features), forward held against the
              CPU and timed, then Trainer steps on ``gat.loss``; on a
@@ -180,6 +179,22 @@ non-zero and prints no result line):
              idle share and memory peak.  The three phases run in f32
              (TF32 off) and must launch none of the query kernels
              (``gnn_launches``, ``recsys_launches``).
+19. cells  — the cell programs (``repro_torch.configs.all_cells()``): the
+             36 runnable cells and the three optimized builds at
+             ``reduced=True``, one step each on the card held against the
+             same step on the CPU; the reduced qwen2-1.5b train_4k cell
+             placed by its arg_specs (``reshard``) on a one-rank NCCL
+             mesh and run through DTensor, equal to the plain run; every
+             cell that fits one card at full width on real inputs (see
+             ``LM_FULL_CELLS``, ``GNN_FULL_SHAPES``, ``RECSYS_FULL_SHAPES``;
+             minibatch_lg where its reckoned peak stays under 70 GB): the
+             model function called directly, the first step against it
+             (traced: device busy and idle share; FLOPs counted by
+             FlopCounterMode beside the cell's model_flops at the dims
+             that ran), then three timed steps (median) with their memory
+             peak, every cut printed; the dry run of all 40 cells on both
+             production meshes.  It launches none of the query kernels
+             (``cells_launches``).
 
 The min-plus wrapper's operand copies are asserted 0 on the main,
 one-shot, dynamic and serve paths as well.  When the source of an earlier
@@ -193,7 +208,7 @@ kernel, with its launches on each path (``launches`` on the main path,
 by mode, ``baselines_launches``, ``mapreduce_launches``,
 ``sharded_repair_launches`` by mode, ``verify_launches``,
 ``lm_launches`` by LM phase, ``gnn_launches`` by GNN phase,
-``recsys_launches``, ...) and its new
+``recsys_launches``, ``cells_launches``, ...) and its new
 launch shapes (``new_shapes``); the last is ``{"ok": true, "device":
 {...}}``.  Times come from
 CUDA events after a warm-up; bounds are reckoned from the H100 SXM data
@@ -2844,14 +2859,16 @@ def _device_busy(fn) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 if dev \
-        else None
+    # the trace's raw events: prof.events() builds a Python object per
+    # event, slow over the 336k events of a full-width training step
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation()]
+    busy = sum(e.duration_ns() for e in dev) / 1e6 if dev else None
     by_name: dict = {}
     for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us() / 1e3
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + \
+            e.duration_ns() / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return {"device_ms": busy, "device_events": len(dev),
             "top_ms": [(name[:48], round(ms, 3)) for name, ms in top]}
@@ -3294,6 +3311,7 @@ BF16_SCALE_TOL = 0.1
 F32_SCALE_TOL = 1e-4
 GAT_TRAIN_STEPS = 2
 REDDIT = dict(n=232_965, m=114_615_892, d=602)     # Reddit's published size
+CORA = (2_708, 10_556)                              # Cora's nodes and edges
 MINIBATCH_FANOUTS = [15, 10]
 BULK_SECONDS = 20.0          # serve_bulk runs the chunks that fit in this
 P99_CALLS = 20
@@ -3360,8 +3378,8 @@ def _molecule_batch(seed: int):
 def _molecule_arch(arch_id, mol, rot, shift, cut, **changes) -> dict:
     """One architecture on the molecule batch: energy_and_forces timed and
     checked against the CPU and under a rotation and shift; one Trainer
-    step on the reference's molecule loss (energy + 0.1 x force MSE,
-    whose gradient differentiates the forces again), timed."""
+    step on the molecule cell's loss (energy + 0.1 x force MSE, whose
+    gradient differentiates the forces again), timed."""
     import dataclasses
     import torch
     from repro_torch.configs import GNN_ARCHS
@@ -3428,11 +3446,14 @@ def _molecule_arch(arch_id, mol, rot, shift, cut, **changes) -> dict:
         raise AssertionError(f"gnn_molecule {arch_id} {changes}: "
                              f"invariance or CPU check failed: {res}")
 
+    # the molecule cell's loss (energy + 0.1 x force MSE); optimized=True
+    # is the fused_agg build
+    cell = arch.build("molecule", optimized=fused)
+    gd = {f: getattr(g, f) for f in ("senders", "receivers", "node_mask",
+                                     "edge_mask", "graph_ids")}
+
     def loss_fn(p, b):
-        _, f = mod.energy_and_forces(cfg, p, b["x"], b["coords"], g)
-        e_all = energies(p, b["x"], b["coords"], g)
-        return torch.mean((e_all - b["e"]) ** 2) + \
-            0.1 * torch.mean((f - b["f"]) ** 2)
+        return cell.loss_fn(p, b["x"], b["coords"], gd, b["e"], b["f"])
 
     tr = Trainer(TrainerConfig(ckpt_dir=str(ROOT / "build" / "gnn_ckpt"),
                                ckpt_every=10 ** 9),
@@ -3503,6 +3524,56 @@ def _csr_on_card(n: int, src: np.ndarray, dst: np.ndarray):
     return indptr.cpu().numpy(), indices, keys
 
 
+def _cora_edges(seed: int):
+    """(senders, receivers) of a random graph of Cora's sizes."""
+    rng = np.random.default_rng(seed)
+    n, e = CORA
+    return rng.integers(0, n, e), rng.integers(0, n, e)
+
+
+def _reddit_sample(n_seeds: int) -> dict:
+    """A Reddit-sized Erdos-Renyi graph (CSR sorted on the card) sampled
+    15-10 by the host sampler around ``n_seeds`` GraphEpochStream seeds:
+    the sample's node ids and edges (every pair checked to be an edge of
+    the graph) and the clock at each step."""
+    import torch
+    from repro_torch.data import GraphEpochStream
+    from repro_torch.graph import erdos_renyi
+    from repro_torch.models.gnn import sampler
+    t0 = time.perf_counter()
+    graph = erdos_renyi(REDDIT["n"], REDDIT["m"], seed=SEED + 62)
+    t1 = time.perf_counter()
+    indptr, indices, keys = _csr_on_card(graph.n, graph.src, graph.dst)
+    t2 = time.perf_counter()
+    del graph
+    seeds = GraphEpochStream(REDDIT["n"], n_seeds, seed=SEED + 63,
+                             device="cpu").seeds_at(0).numpy()
+    t3 = time.perf_counter()
+    node_ids, s, r = sampler.sample_subgraph_host(
+        indptr, indices, seeds, MINIBATCH_FANOUTS, seed=SEED + 64)
+    t4 = time.perf_counter()
+    del indptr, indices
+    # each sampled pair (neighbour -> seed) is an edge seed -> neighbour
+    # of the graph: degree-0 self-loops aside, none is made up
+    gid = torch.from_numpy(node_ids).to(GNN_DEVICE)
+    pair = gid[torch.from_numpy(r).to(GNN_DEVICE).long()] * REDDIT["n"] + \
+        gid[torch.from_numpy(s).to(GNN_DEVICE).long()]
+    found = torch.isin(pair, keys) | torch.from_numpy(s == r).to(GNN_DEVICE)
+    if not bool(found.all()):
+        raise AssertionError(f"gnn_gat: {int((~found).sum())} sampled pairs "
+                             f"are not edges of the graph")
+    return dict(node_ids=node_ids, s=s, r=r, seeds=seeds,
+                clock=(t0, t1, t2, t3, t4))
+
+
+def _sample_padding(sample: dict, dims: dict):
+    """(N, E) the sample is padded to: FULL_DIMS' sizes, or what it drew
+    where that is more."""
+    from repro_torch.configs.families.gnn import _pad
+    return (max(dims["N"], _pad(len(sample["node_ids"]))),
+            max(dims["E"], _pad(len(sample["s"]))))
+
+
 def _gat_timed(cfg, params, x, g, labels, mask, what: str) -> dict:
     """gat.forward timed, then Trainer steps on gat.loss (one warm-up,
     GAT_TRAIN_STEPS timed, one profiled)."""
@@ -3538,10 +3609,8 @@ def phase_gnn_gat(out: dict) -> None:
     padded (minibatch_lg), one training step."""
     import torch
     from repro_torch.configs import GNN_ARCHS
-    from repro_torch.configs.families.gnn import FULL_DIMS, _pad
-    from repro_torch.data import GraphEpochStream
-    from repro_torch.graph import erdos_renyi
-    from repro_torch.models.gnn import common, gat, sampler
+    from repro_torch.configs.families.gnn import FULL_DIMS
+    from repro_torch.models.gnn import common, gat
     _reset_launches()
     arch = GNN_ARCHS["gat-cora"]
     res = {}
@@ -3549,11 +3618,9 @@ def phase_gnn_gat(out: dict) -> None:
     # full_graph_sm: Cora's sizes (2708 nodes, 10556 edges, 1433 features)
     d = FULL_DIMS["full_graph_sm"]
     cfg = arch.full_cfg_fn(d["d"])
-    n_real, e_real = 2_708, 10_556
-    rng = np.random.default_rng(SEED + 60)
-    g = common.pad_graph(rng.integers(0, n_real, e_real),
-                         rng.integers(0, n_real, e_real), n_real, d["E"],
-                         d["N"], device=GNN_DEVICE)
+    n_real, e_real = CORA
+    g = common.pad_graph(*_cora_edges(SEED + 60), n_real, d["E"], d["N"],
+                         device=GNN_DEVICE)
     gen = torch.Generator(device=GNN_DEVICE).manual_seed(SEED + 61)
     params = gat.init_params(cfg, gen, device=GNN_DEVICE)
     x = torch.zeros((d["N"], d["d"]), device=GNN_DEVICE)
@@ -3584,33 +3651,14 @@ def phase_gnn_gat(out: dict) -> None:
     # minibatch_lg: Reddit's sizes, host sampler 15-10 around 1024 seeds
     d = FULL_DIMS["minibatch_lg"]
     cfg = arch.full_cfg_fn(d["d"])
-    t0 = time.perf_counter()
-    graph = erdos_renyi(REDDIT["n"], REDDIT["m"], seed=SEED + 62)
-    t1 = time.perf_counter()
-    indptr, indices, keys = _csr_on_card(graph.n, graph.src, graph.dst)
-    t2 = time.perf_counter()
-    del graph
-    seeds = GraphEpochStream(REDDIT["n"], d["seeds"], seed=SEED + 63,
-                             device="cpu").seeds_at(0).numpy()
-    t3 = time.perf_counter()
-    node_ids, s, r = sampler.sample_subgraph_host(
-        indptr, indices, seeds, MINIBATCH_FANOUTS, seed=SEED + 64)
-    t4 = time.perf_counter()
-    del indptr, indices
-    # each sampled pair (neighbour -> seed) is an edge seed -> neighbour
-    # of the graph: degree-0 self-loops aside, none is made up
+    sample = _reddit_sample(d["seeds"])
+    node_ids, s, r, seeds = (sample[k] for k in ("node_ids", "s", "r",
+                                                 "seeds"))
+    t0, t1, t2, t3, t4 = sample["clock"]
     gid = torch.from_numpy(node_ids).to(GNN_DEVICE)
-    pair = gid[torch.from_numpy(r).to(GNN_DEVICE).long()] * REDDIT["n"] + \
-        gid[torch.from_numpy(s).to(GNN_DEVICE).long()]
-    found = torch.isin(pair, keys) | torch.from_numpy(s == r).to(GNN_DEVICE)
-    if not bool(found.all()):
-        raise AssertionError(f"gnn_gat: {int((~found).sum())} sampled pairs "
-                             f"are not edges of the graph")
-    del keys, pair, found
     # the reference's second hop samples around the first hop's seeds too,
     # so it can draw more edges than FULL_DIMS' 168960: pad up to them
-    N = max(d["N"], _pad(len(node_ids)))
-    E = max(d["E"], _pad(len(s)))
+    N, E = _sample_padding(sample, d)
     g = common.pad_graph(s, r, len(node_ids), E, N, device=GNN_DEVICE)
     gen = torch.Generator(device=GNN_DEVICE).manual_seed(SEED + 65)
     params = gat.init_params(cfg, gen, device=GNN_DEVICE)
@@ -3643,6 +3691,7 @@ def phase_gnn_gat(out: dict) -> None:
           f"{lg['profile']} (idle share {lg['idle_share']}), peak "
           f"{lg['memory_peak_gb']:.3f} GB, losses {lg['losses']}")
     res["launches"] = _assert_no_launches("gnn_gat")
+    res["sample"] = sample                   # the cells phase reuses it
     out["gnn_gat"] = res
 
 
@@ -3841,6 +3890,612 @@ def phase_recsys(out: dict) -> None:
     out["recsys"] = res
 
 
+# ---------------------------------------------------------------------------
+# 19. cells: the cell programs of every architecture
+# ---------------------------------------------------------------------------
+
+CELL_SEED = 9
+CELL_REPS = 3                # timed steps of a full-width cell, after one
+# a reduced train cell's optimizer step: past OPT_CFG's 200 warm-up steps,
+# where lr is ~1e-4 and a parameter of ~0.05 moves by ~1e-4, so the update
+# reads above F32_SCALE_TOL of the parameters' scale (at step 0 lr is 5e-7
+# and the update is lost under it)
+CELL_STEP = 1000
+# and its update (new minus old params, m and v) on the card within this
+# share of the CPU's largest |update|, leaf by leaf (f32; the bf16
+# fused_agg build within BF16_SCALE_TOL)
+UPDATE_SCALE_TOL = 1e-3
+# the cells test_optimized_builds_smoke builds with optimized=True
+OPTIMIZED_CELLS = [("bert4rec", "serve_bulk"), ("mace", "molecule"),
+                   ("qwen2-1.5b", "train_4k")]
+# a bf16 model's first step against its direct call: the same kernels on
+# the same inputs, within bf16's rounding of the values' scale
+BF16_DIRECT_TOL = 1e-2
+# the LM cells at full width and full sequence length on one card, the
+# batch cut through the arch's own shapes record (LMShapes): train 8 x
+# 4096 in 8 microbatches of 1 (the cell's 32 x 4096 microbatch makes
+# 80 GB of f32 logits), prefill 1 x 32768, decode 8 of a 32768-slot cache.
+# The last entry, where not None, is the number of timed steps instead of
+# CELL_REPS: chatglm3-6b's prefill takes 21.9 s a step on an H100 at its
+# 28 layers, so it is timed once, after the direct call and the profiled
+# step, and runs at full depth
+LM_FULL_CELLS = [
+    ("qwen2-1.5b", "train_4k", dict(train_batch=8, grad_accum=8), None),
+    ("qwen2-1.5b", "prefill_32k", dict(prefill_batch=1), None),
+    ("qwen2-1.5b", "decode_32k", dict(decode_batch=8), None),
+    ("olmoe-1b-7b", "prefill_32k", dict(prefill_batch=1), None),
+    ("olmoe-1b-7b", "decode_32k", dict(decode_batch=8), None),
+    ("chatglm3-6b", "prefill_32k", dict(prefill_batch=1), 1),
+    ("chatglm3-6b", "decode_32k", dict(decode_batch=8), None)]
+GNN_FULL_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+RECSYS_FULL_SHAPES = ("serve_p99", "serve_bulk", "retrieval_cand")
+# minibatch_lg runs where its peak, reckoned from the same arch's
+# full_graph_sm peak in this run times the larger of the two cells' node
+# and edge ratios, stays under this
+RECKON_LIMIT_GB = 70.0
+# why a cell runs in the dry run only
+DRY_ONLY = {
+    "mixtral-8x7b": "93 GB of bf16 weights: more than one card holds",
+    "qwen1.5-32b": "70 GB of bf16 weights: with its logits, caches or "
+                   "optimizer state more than one card holds",
+    ("olmoe-1b-7b", "train_4k"): "bf16 params, f32 grads and AdamW "
+                                 "moments: ~97 GB",
+    ("chatglm3-6b", "train_4k"): "bf16 params, f32 grads and AdamW "
+                                 "moments: ~87 GB",
+    ("bert4rec", "train_batch"): "65536 sequences in one step: the "
+                                 "[65536, 2, 200, 200] attention and "
+                                 "[65536, 20, 8192] negative logits are "
+                                 "21 and 43 GB each, with their gradients "
+                                 "over 80 GB (the recsys phase runs it as "
+                                 "8 microbatches)",
+    "ogb_products": "61.9 M edges: several cards' worth of activations"}
+
+
+def _leaves_close(got, want, tol: float, what: str) -> float:
+    """Every leaf of ``got`` (on the card) against ``want``: floats within
+    ``tol`` of their scale and finite, others equal.  The largest scale
+    error."""
+    import torch
+    from repro_torch.tree import leaves
+    worst = 0.0
+    gl, wl = leaves(got), leaves(want)
+    if len(gl) != len(wl) or not gl:
+        raise AssertionError(f"cells {what}: {len(gl)} outputs, want "
+                             f"{len(wl)}")
+    for g, w in zip(gl, wl):
+        g, w = g.detach().cpu(), w.detach().cpu()
+        if g.dtype.is_floating_point:
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"cells {what}: non-finite output")
+            err = _scale_err(g, w)
+            worst = max(worst, err)
+            if not err <= tol:
+                raise AssertionError(f"cells {what}: an output differs by "
+                                     f"{err} of its scale (> {tol})")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"cells {what}: an integer output differs")
+    return worst
+
+
+def _reduced_args(aid: str, sid: str, prog):
+    """A reduced cell's arguments on the CPU: zeros_from_abstract's, a
+    train cell at CELL_STEP, and a GNN cell's graph drawn in range (no
+    self-loops, masks half set, GAT's labels and the equivariant nets'
+    species within their counts): all-zero integers mask every node and
+    edge out, and the gradients vanish."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.families.base import zeros_from_abstract
+    from repro_torch.configs.families.gnn import REDUCED_DIMS
+    args = list(zeros_from_abstract(prog.abstract_args, seed=CELL_SEED,
+                                    device="cpu"))
+    if prog.kind == "train":
+        args[3] = torch.tensor(CELL_STEP, dtype=torch.int32)
+    arch = ARCHS[aid]
+    if arch.family != "gnn":
+        return tuple(args)
+    dims = REDUCED_DIMS[sid]
+    N, E = dims["N"], dims["E"]
+    cfg = arch.smoke_cfg_fn(dims["d"])
+    gen = torch.Generator().manual_seed(CELL_SEED)
+
+    def ints(bound, n):
+        return torch.randint(0, bound, (n,), generator=gen)
+
+    receivers = ints(N, E)
+    at = 5 if arch.kind == "gat" else 6           # the graph's argument
+    graph = dict(senders=(receivers + 1 + ints(N - 1, E)) % N,
+                 receivers=receivers, node_mask=ints(2, N) == 1,
+                 edge_mask=ints(2, E) == 1,
+                 graph_ids=ints(dims["n_graphs"], N))
+    args[at] = {k: graph[k].to(v.dtype) for k, v in args[at].items()}
+    if arch.kind == "gat":
+        args[6] = ints(cfg.n_classes, args[6].numel()).to(args[6].dtype)
+    elif arch.kind != "egnn":
+        args[4] = ints(cfg.n_species, args[4].numel()).to(args[4].dtype)
+    return tuple(args)
+
+
+def _update_close(args, got, want, tol: float, what: str) -> float:
+    """A train step's update (outputs 0-2, new params, m and v, minus the
+    arguments) on the card against the CPU's: every leaf within ``tol`` of
+    the CPU update's largest magnitude, which is not 0.  The largest such
+    error."""
+    from repro_torch.tree import leaves
+    worst = 0.0
+    for part in range(3):
+        for o, g, w in zip(leaves(args[part]), leaves(got[part]),
+                           leaves(want[part])):
+            o = o.detach().cpu().double()
+            du = g.detach().cpu().double() - o
+            dw = w.detach().cpu().double() - o
+            scale = dw.abs().max().item()
+            if not scale > 0:
+                raise AssertionError(f"cells {what}: a leaf did not move")
+            err = (du - dw).abs().max().item() / scale
+            worst = max(worst, err)
+            if not err <= tol:
+                raise AssertionError(f"cells {what}: an update differs by "
+                                     f"{err} of its scale (> {tol})")
+    return worst
+
+
+def _cells_reduced(res: dict) -> None:
+    """Every runnable cell at reduced=True, and the three optimized
+    builds: one step on the card, held against the same step on the CPU
+    (f32 within 1e-4 of the scale; the bf16 fused_agg build within 0.1),
+    and a train cell's update within UPDATE_SCALE_TOL of its scale (bf16:
+    BF16_SCALE_TOL)."""
+    import torch
+    from repro_torch.configs import ARCHS, all_cells, get_arch
+    from repro_torch.tree import tree_map
+    runs = [(a, s, False) for a, s in all_cells()
+            if ARCHS[a].skip_reason(s) is None]
+    runs += [(a, s, True) for a, s in OPTIMIZED_CELLS]
+    t0 = time.perf_counter()
+    errs, update_errs = {}, {}
+    for aid, sid, opt in runs:
+        prog = get_arch(aid).build(sid, reduced=True, optimized=opt)
+        args = _reduced_args(aid, sid, prog)
+        on_card = tree_map(lambda x: x.to(GNN_DEVICE), args)
+        want = prog.step_fn(*args)
+        got = prog.step_fn(*on_card)
+        bf16 = opt and aid == "mace"
+        label = f"{aid}/{sid}{' optimized' if opt else ''}"
+        errs[label] = _leaves_close(
+            got, want, BF16_SCALE_TOL if bf16 else F32_SCALE_TOL,
+            f"reduced {label}")
+        if prog.kind == "train":
+            update_errs[label] = _update_close(
+                args, got, want,
+                BF16_SCALE_TOL if bf16 else UPDATE_SCALE_TOL,
+                f"reduced {label}")
+    torch.cuda.synchronize()
+    bf16_label = "mace/molecule optimized"
+    r = res["reduced"] = dict(
+        cells=len(runs), seconds=time.perf_counter() - t0, errs=errs,
+        worst_f32=max(e for k, e in errs.items() if k != bf16_label),
+        bf16=errs[bf16_label], step=CELL_STEP, update_errs=update_errs,
+        worst_f32_update=max(e for k, e in update_errs.items()
+                             if k != bf16_label),
+        bf16_update=update_errs[bf16_label])
+    print(f"cells: {len(runs)} reduced cells ({len(runs) - 3} + 3 optimized)"
+          f" on the card against the CPU in {r['seconds']:.1f} s; worst "
+          f"scale error f32 {r['worst_f32']:.3e} (bound {F32_SCALE_TOL}), "
+          f"bf16 {r['bf16']:.3e} (bound {BF16_SCALE_TOL}); "
+          f"{len(update_errs)} train cells at step {CELL_STEP}, worst update "
+          f"error f32 {r['worst_f32_update']:.3e} of its scale (bound "
+          f"{UPDATE_SCALE_TOL}), bf16 {r['bf16_update']:.3e} (bound "
+          f"{BF16_SCALE_TOL})")
+
+
+def _cells_dtensor(res: dict) -> None:
+    """The reduced qwen2-1.5b train_4k cell through DTensor on the card:
+    its arguments placed by their arg_specs (``reshard``) on a
+    make_host_mesh(1) over a one-rank NCCL group, the step (at CELL_STEP)
+    run under implicit_replication, equal to the plain run, and its update
+    within UPDATE_SCALE_TOL of the plain run's."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.families.base import spec_lookup
+    from repro_torch.launch.collective_stats import (collective_bytes,
+                                                     record_step_collectives)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import reshard
+    from repro_torch.tree import leaves, tree_map
+    _nccl_rank()
+    try:
+        mesh = make_host_mesh(1)
+        prog = get_arch("qwen2-1.5b").build("train_4k", reduced=True)
+        args = tree_map(lambda x: x.to(GNN_DEVICE),
+                        _reduced_args("qwen2-1.5b", "train_4k", prog))
+        want = prog.step_fn(*tree_map(lambda x: x.clone(), args))
+        placed = reshard(args, mesh, spec_lookup(prog.arg_specs))
+        with record_step_collectives() as rec, implicit_replication():
+            got = prog.step_fn(*placed)
+        n_dt = sum(isinstance(x, DTensor) for x in leaves(got))
+        got = tree_map(lambda x: x.full_tensor()
+                       if isinstance(x, DTensor) else x, got)
+        err = _leaves_close(got, want, F32_SCALE_TOL, "dtensor")
+        update_err = _update_close(args, got, want, UPDATE_SCALE_TOL,
+                                   "dtensor")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    res["dtensor"] = dict(mesh=str(mesh), outputs=len(leaves(got)),
+                          dtensors=n_dt, scale_err=err, step=CELL_STEP,
+                          update_err=update_err,
+                          collectives=collective_bytes(rec))
+    print(f"cells: DTensor qwen2-1.5b/train_4k reduced on {mesh}: "
+          f"{n_dt} of {len(leaves(got))} outputs DTensors, against the plain "
+          f"run {err:.3e} of scale, its update at step {CELL_STEP} "
+          f"{update_err:.3e} of the update's scale; collectives "
+          f"{collective_bytes(rec)}")
+
+
+def _lm_full_inputs(arch, sid, prog, gen):
+    """Seeded weights at the model's dtype and random tokens; decode: a
+    KV cache filled with random keys and values at positions 0..S-1, and
+    the batch's next token at position S-1 (every slot attended)."""
+    import torch
+    from repro_torch.models import transformer as T
+    cfg = arch._cfg(sid, False)
+    params = T.init_params(cfg, gen, device=GNN_DEVICE)
+    V = cfg.vocab
+
+    def tokens(shape):
+        return torch.randint(0, V, shape, generator=gen, device=GNN_DEVICE,
+                             dtype=torch.int32)
+
+    if sid == "train_4k":
+        _, m, v, st, tok, _ = prog.abstract_args
+        f32 = torch.float32
+        return cfg, (params, *(_zeros_like(t, f32) for t in (m, v)),
+                     torch.zeros((), dtype=torch.int32, device=GNN_DEVICE),
+                     tokens(tok.shape), tokens(tok.shape))
+    if sid == "prefill_32k":
+        return cfg, (params, tokens(prog.abstract_args[1].shape))
+    B = prog.abstract_args[2].shape[0]
+    S = arch.shapes.decode_seq
+    cache = T.init_cache(cfg, B, S, device=GNN_DEVICE)
+    for name in ("k", "v"):
+        cache[name].normal_(generator=gen)
+    cache["pos"].copy_(torch.arange(S, dtype=torch.int32,
+                                    device=GNN_DEVICE).expand_as(
+                                        cache["pos"]))
+    return cfg, (params, cache, tokens((B,)),
+                 torch.full((B,), S - 1, dtype=torch.int32,
+                            device=GNN_DEVICE))
+
+
+def _zeros_like(tree, dtype):
+    """Zeros on the card in the shapes of a tree of meta tensors."""
+    import torch
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype,
+                                          device=GNN_DEVICE), tree)
+
+
+def _lm_direct(cfg, sid, args):
+    """The model function called directly on a cell's inputs: lm_loss
+    averaged over the microbatches, forward's logits, or decode_step's."""
+    import torch
+    from repro_torch.models import transformer as T
+    if sid == "train_4k":
+        tok, tgt = args[4], args[5]
+        return torch.stack([T.lm_loss(cfg, args[0], tok[i], tgt[i])
+                            for i in range(tok.shape[0])]).mean()
+    if sid == "prefill_32k":
+        return T.forward(cfg, args[0], args[1])[0]
+    return T.decode_step(cfg, *args)[0]
+
+
+def _first_of(sid: str, first):
+    """The part of an LM step's output the direct call gives: the train
+    step's loss, the decode step's logits, or prefill's logits."""
+    if sid == "train_4k":
+        return first[-1]
+    if sid == "decode_32k":
+        return first[0]
+    return first
+
+
+def _gnn_full_inputs(arch, sid, prog, gen, data: dict):
+    """Seeded weights, zero moments, and the shape's real data: a
+    Cora-sized random graph, the molecule batch, or the Reddit-sized
+    15-10 sample padded to what it drew; features, species, coordinates
+    (a 4 A box) and targets drawn from ``gen``."""
+    import torch
+    from repro_torch.configs.families.gnn import FULL_DIMS, _eq_init
+    from repro_torch.models.gnn import common, gat
+    d = FULL_DIMS[sid]
+    cfg = arch.full_cfg_fn(d["d"])
+    if sid == "molecule":
+        mol = data["molecule"]
+        g, N = mol["g"], d["N"]
+    elif sid == "full_graph_sm":
+        N = d["N"]
+        g = common.pad_graph(*_cora_edges(SEED + 60), CORA[0], d["E"], N,
+                             device=GNN_DEVICE)
+    else:
+        sample = data["sample"]
+        N, E = _sample_padding(sample, d)
+        g = common.pad_graph(sample["s"], sample["r"],
+                             len(sample["node_ids"]), E, N,
+                             device=GNN_DEVICE)
+    gd = dict(senders=g.senders.int(), receivers=g.receivers.int(),
+              node_mask=g.node_mask, edge_mask=g.edge_mask,
+              graph_ids=g.graph_ids.int())
+    E = g.senders.shape[0]
+    params = (gat.init_params(cfg, gen, device=GNN_DEVICE)
+              if arch.kind == "gat" else
+              _eq_init(arch.kind, cfg, gen, GNN_DEVICE))
+    m, v = (_zeros_like(t, torch.float32) for t in prog.abstract_args[1:3])
+    st = torch.zeros((), dtype=torch.int32, device=GNN_DEVICE)
+    n_graphs = d["n_graphs"]
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=GNN_DEVICE)
+
+    if arch.kind == "gat":
+        if sid == "molecule":
+            labels = torch.randint(0, cfg.n_classes, (n_graphs,),
+                                   generator=gen, device=GNN_DEVICE)
+            mask = torch.ones(n_graphs, device=GNN_DEVICE)
+        else:
+            labels = torch.randint(0, cfg.n_classes, (N,), generator=gen,
+                                   device=GNN_DEVICE)
+            mask = g.node_mask.float()
+        x = normal(N, d["d"]) * g.node_mask[:, None]
+        args = (params, m, v, st, x, gd, labels.int(), mask)
+    else:
+        if arch.kind == "egnn":
+            x = normal(N, d["d"]) * g.node_mask[:, None]
+        else:
+            x = torch.randint(0, cfg.n_species, (N,), generator=gen,
+                              device=GNN_DEVICE, dtype=torch.int32)
+        coords = mol["coords"] if sid == "molecule" else \
+            torch.rand((N, 3), generator=gen, device=GNN_DEVICE) * MOL_BOX
+        if sid == "molecule":
+            extra = (normal(n_graphs), normal(N, 3))
+        else:
+            extra = (normal(n_graphs), torch.ones(n_graphs,
+                                                  device=GNN_DEVICE))
+        args = (params, m, v, st, x, coords, gd) + extra
+    return cfg, N, E, args
+
+
+def _recsys_full_inputs(arch, sid, prog, gen):
+    import torch
+    from repro_torch.models import bert4rec as B
+    cfg = arch.full_cfg
+    params = B.init_params(cfg, gen, device=GNN_DEVICE)
+    if sid == "retrieval_cand":
+        n = prog.abstract_args[2].shape[0]
+        cands = torch.randperm(cfg.n_items, generator=gen,
+                               device=GNN_DEVICE)[:n].int()
+        return cfg, (params, _item_rows(cfg, 1, gen).int(), cands)
+    rows = prog.abstract_args[1].shape[0]
+    return cfg, (params, _item_rows(cfg, rows, gen).int())
+
+
+def _recsys_direct(cfg, sid, args):
+    """score_next, score_candidates, or score_topk on the first chunk of
+    rows, called directly."""
+    from repro_torch.configs.families.recsys import FULL
+    from repro_torch.models import bert4rec as B
+    if sid == "serve_p99":
+        return B.score_next(cfg, *args)
+    if sid == "retrieval_cand":
+        return B.score_candidates(cfg, *args)
+    bulk = FULL["serve_bulk"]
+    chunk = bulk["chunk"]
+    return B.score_topk(cfg, args[0], args[1][:chunk], k=bulk["topk"],
+                        chunk=chunk)
+
+
+def _bulk_compare(first, want) -> float:
+    """serve_bulk: the first chunk's top-k indices equal, values within
+    the scale error returned."""
+    import torch
+    chunk = want[1].shape[0]
+    if not torch.equal(first[1][:chunk], want[1]):
+        raise AssertionError("cells serve_bulk: top-k indices differ from "
+                             "score_topk's on the first chunk")
+    return _scale_err(first[0][:chunk], want[0])
+
+
+def _finite(x) -> bool:
+    """Whether every element of ``x`` is finite, from one f32 sum (a NaN
+    or an infinity makes it non-finite): ``torch.isfinite`` builds
+    full-size temporaries, 34 GB over olmoe-1b-7b's KV cache."""
+    import torch
+    return bool(torch.isfinite(x.sum(dtype=torch.float32)))
+
+
+def _full_step(label, prog, args, flops_ran, dtype, direct, compare,
+               reduced, reps: int = CELL_REPS) -> dict:
+    """One cell at full width: the model function called directly
+    (``direct()``, also the warm-up); the first step under FlopCounterMode
+    and the profiler (device busy), its output held against the direct
+    call (``compare(first, want)``, a scale error) and checked finite;
+    then ``reps`` timed steps (median) and their memory peak."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.tree import leaves
+    resident = torch.cuda.memory_allocated() / 1e9
+    t_start = time.perf_counter()
+    with torch.no_grad():
+        want = direct()
+    torch.cuda.synchronize()
+    kept = []
+    with FlopCounterMode(display=False) as fc:
+        busy = _device_busy(lambda: kept.append(prog.step_fn(*args)))
+    first = kept.pop()
+    t_profiled = time.perf_counter()
+    for x in leaves(first):
+        if x.dtype.is_floating_point and not _finite(x):
+            raise AssertionError(f"cells {label}: non-finite output")
+    err = compare(first, want)
+    tol = BF16_DIRECT_TOL if dtype == torch.bfloat16 else F32_SCALE_TOL
+    if not err <= tol:
+        raise AssertionError(f"cells {label}: the step's output differs "
+                             f"from the direct call by {err} of scale")
+    del first, want
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prog.step_fn(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(ms)
+    counted = float(fc.get_total_flops())
+    r = dict(kind=prog.kind, step_ms=step_ms, ms=ms, memory_peak_gb=peak,
+             resident_gb=resident, profile=busy,
+             idle_share=_idle_share(busy["device_ms"], step_ms),
+             counted_flops=counted, model_flops=flops_ran,
+             counted_over_model=counted / flops_ran if flops_ran else None,
+             direct_err=err, reduced=reduced,
+             seconds=time.perf_counter() - t_start,
+             direct_and_profiled_s=t_profiled - t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"cells: {label} {prog.kind}: step {step_ms:.1f} ms median of "
+          f"{[round(t, 1) for t in ms]}, peak {peak:.3f} GB (inputs "
+          f"{resident:.3f} GB), device {busy['device_ms']} ms in "
+          f"{busy['device_events']} events (idle share {r['idle_share']}), "
+          f"top {busy['top_ms'][:2]}, FLOPs counted {counted:.4e} / model "
+          f"{flops_ran:.4e}, against the direct call {err:.3e} of scale; "
+          f"cuts {reduced}; {r['seconds']:.1f} s in all")
+    return r
+
+
+def _cells_full(res: dict, data: dict) -> None:
+    """The cells that fit one card, at full width (see LM_FULL_CELLS,
+    GNN_FULL_SHAPES, RECSYS_FULL_SHAPES); minibatch_lg where its reckoned
+    peak stays under RECKON_LIMIT_GB."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import GNN_ARCHS, get_arch
+    from repro_torch.configs.families.gnn import FULL_DIMS
+    from repro_torch.configs.families.gnn import model_flops as \
+        gnn_model_flops
+    from repro_torch.configs.families.lm import LMShapes
+    from repro_torch.configs.families.recsys import FULL
+    full = res["full"] = {}
+    gen = torch.Generator(device=GNN_DEVICE).manual_seed(SEED + 90)
+    t0 = time.perf_counter()
+    for aid, sid, cut, reps in LM_FULL_CELLS:
+        arch = dataclasses.replace(get_arch(aid), shapes=LMShapes(**cut))
+        cuts = [f"{k} {v}" for k, v in cut.items()]
+        prog = arch.build(sid)
+        cfg, args = _lm_full_inputs(arch, sid, prog, gen)
+        full[f"{aid}/{sid}"] = _full_step(
+            f"{aid}/{sid}", prog, args, prog.model_flops, cfg.dtype,
+            lambda: _lm_direct(cfg, sid, args),
+            lambda first, want: _scale_err(_first_of(sid, first), want),
+            cuts, CELL_REPS if reps is None else reps)
+        del prog, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    for sid in GNN_FULL_SHAPES:
+        for aid, arch in GNN_ARCHS.items():
+            label = f"{aid}/{sid}"
+            d = FULL_DIMS[sid]
+            if sid == "minibatch_lg":
+                sm, N, E = FULL_DIMS["full_graph_sm"], *_sample_padding(
+                    data["sample"], d)
+                ratio = max(N / sm["N"], E / sm["E"])
+                reckon = full[f"{aid}/full_graph_sm"]["memory_peak_gb"] * \
+                    ratio
+                if reckon >= RECKON_LIMIT_GB:
+                    full[label] = dict(skipped=True, reckoned_peak_gb=reckon,
+                                       ratio=ratio)
+                    print(f"cells: {label} dry run only: its peak reckoned "
+                          f"from full_graph_sm's x {ratio:.1f} is "
+                          f"{reckon:.1f} GB (limit {RECKON_LIMIT_GB})")
+                    continue
+            prog = arch.build(sid)
+            cfg, N, E, args = _gnn_full_inputs(arch, sid, prog, gen, data)
+            flops = gnn_model_flops(arch.kind, cfg, N, E, d["d"])
+            cuts = [] if (N, E) == (d["N"], d["E"]) else \
+                [f"sample padded to N {N}, E {E} (cell N {d['N']}, E "
+                 f"{d['E']})"]
+            full[label] = _full_step(
+                label, prog, args, flops, torch.float32,
+                lambda: prog.loss_fn(args[0], *args[4:]).detach(),
+                lambda first, want: _scale_err(first[-1], want), cuts)
+            if sid == "minibatch_lg":
+                full[label]["reckoned_peak_gb"] = reckon
+            del prog, args
+    arch = get_arch("bert4rec")
+    for sid in RECSYS_FULL_SHAPES:
+        prog = arch.build(sid)
+        cfg, args = _recsys_full_inputs(arch, sid, prog, gen)
+        full[f"bert4rec/{sid}"] = _full_step(
+            f"bert4rec/{sid}", prog, args, prog.model_flops, torch.float32,
+            lambda: _recsys_direct(cfg, sid, args),
+            _bulk_compare if sid == "serve_bulk" else _scale_err, [])
+        if sid == "serve_bulk":
+            full[f"bert4rec/{sid}"]["rows"] = FULL[sid]["batch"]
+        del prog, args
+    res["full_seconds"] = time.perf_counter() - t0
+
+
+def _cells_dryrun(res: dict) -> None:
+    """The dry run of all 40 cells on both production meshes, as a
+    table, with the reason each cell not run at full width has."""
+    from repro_torch.configs import ARCHS, all_cells
+    from repro_torch.launch import dryrun
+    recs = [dryrun.run_cell(a, s, mp, verbose=False)
+            for a, s in all_cells() for mp in (False, True)]
+    res["dryrun"] = recs
+    print("cells: dry run (args whole GB / per device GiB / fit one card):")
+    for r in recs:
+        if r["status"] != "ok":
+            print(f"  {r['arch']:13s} {r['shape']:14s} {r['mesh']:8s} "
+                  f"skipped: {r['reason'][:60]}")
+            continue
+        print(f"  {r['arch']:13s} {r['shape']:14s} {r['mesh']:8s} "
+              f"{r['kind']:11s} {r['arg_bytes'] / 1e9:9.3f} "
+              f"{r['arg_bytes_per_dev'] / 2**30:7.3f} "
+              f"{'fits' if r['args_fit_one_card'] else 'no'}  flops "
+              f"{r['model_flops']:.3e}")
+    ran = {k for k, v in res["full"].items() if not v.get("skipped")}
+    for aid, sid in all_cells():
+        if f"{aid}/{sid}" in ran or ARCHS[aid].skip_reason(sid):
+            continue
+        why = DRY_ONLY.get((aid, sid)) or DRY_ONLY.get(aid) or \
+            DRY_ONLY.get(sid) or "peak reckoned over " \
+            f"{RECKON_LIMIT_GB} GB from full_graph_sm's"
+        print(f"cells: {aid}/{sid} not run at full width: {why}")
+
+
+def phase_cells(out: dict) -> None:
+    """The cell programs (repro_torch.configs): every runnable cell and
+    the three optimized builds at reduced size, card against CPU; the
+    reduced qwen2-1.5b train cell through DTensor on the NCCL rank; every
+    cell that fits one card at full width, timed, traced and counted; the
+    dry run of all 40 cells on both meshes."""
+    _reset_launches()
+    res: dict = {}
+    _cells_reduced(res)
+    _cells_dtensor(res)
+    _cells_full(res, dict(molecule=_molecule_batch(SEED + 51),
+                          sample=out["gnn_gat"]["sample"]))
+    _cells_dryrun(res)
+    res["launches"] = _assert_no_launches("cells")
+    out["cells"] = res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3877,7 +4532,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for phase in (phase_lm_serve, phase_lm_moe, phase_lm_train,
-                  phase_gnn_molecule, phase_gnn_gat, phase_recsys):
+                  phase_gnn_molecule, phase_gnn_gat, phase_recsys,
+                  phase_cells):
         t0 = time.perf_counter()
         phase(out)
         print(f"{phase.__name__[6:]}: phase took "
@@ -3908,6 +4564,7 @@ def main() -> int:
         k["gnn_launches"] = {phase: out[phase]["launches"][name]
                              for phase in ("gnn_molecule", "gnn_gat")}
         k["recsys_launches"] = out["recsys"]["launches"][name]
+        k["cells_launches"] = out["cells"]["launches"][name]
         k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
                            + out["dynamic"]["shapes"].get(name, [])
                            + out["mapreduce"]["shapes"].get(name, []))

@@ -1,1 +1,1 @@
-"""Family records of the configurations (the LM family so far)."""
+"""Family records of the configurations and their cell programs."""

@@ -17,8 +17,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from ..core.session import _resolve_device
+from ..launch.constraints import P, hint, placements
 from ..recsys.embedding import embedding_lookup
 from ..tree import from_numpy, tree_map
 
@@ -36,8 +39,8 @@ class Bert4RecConfig:
     d_ff_mult: int = 4
     dtype: Any = torch.float32
     # two-stage top-k: a top-k in each of ``topk_ways`` equal slices of the
-    # item axis, then one over the ways * k survivors (the reference runs
-    # the slices on the devices of its model axis; here on one device)
+    # item axis, then one over the ways * k survivors; the slices run on
+    # the ranks of the "model" mesh dim when the scores are a DTensor
     topk_ways: int = 0
 
     MASK: int = 1
@@ -181,16 +184,56 @@ def _top_k(x: torch.Tensor, k: int):
     return v2.reshape(v.shape), i2.reshape(i.shape)
 
 
+def _topk_ways_sharded(scores, k: int, W: int):
+    """The two-stage top-k over a mesh: the ways' slices of the item axis
+    sit on "model" and the rows on "data", each rank takes the top-k of
+    the slices it holds (``local_map``: local by construction, as the
+    reference's ``shard_map``), only the [rows, ways * k] survivors are
+    gathered over "model", and each rank finishes its rows."""
+    mesh = scores.device_mesh
+    rows, V = scores.shape
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if W % sizes["model"] or rows % sizes["data"]:
+        raise ValueError(f"{W} ways and {rows} rows do not split evenly "
+                         f"over the mesh {sizes}")
+    ways = placements(P("model", "data", None), mesh)
+    s3 = hint(scores.reshape(rows, W, V // W).transpose(0, 1),
+              "model", "data", None)                     # [W, rows, V/W]
+    v_loc, i_loc = local_map(lambda block: _top_k(block, k),
+                             out_placements=(ways, ways),
+                             in_placements=(ways,), device_mesh=mesh)(s3)
+    by_rows = placements(P(None, "data", None), mesh)
+
+    def finish(v_l, i_l):                                # [W, rows', k]
+        r = v_l.shape[1]
+        i_l = i_l + (torch.arange(W, device=i_l.device) * (V // W)
+                     )[:, None, None]
+        v_all = v_l.transpose(0, 1).reshape(r, W * k)
+        i_all = i_l.transpose(0, 1).reshape(r, W * k)
+        v, j = _top_k(v_all, k)                          # tiny global pass
+        return v, torch.gather(i_all, 1, j)
+
+    out = placements(P("data", None), mesh)
+    return local_map(finish, out_placements=(out, out),
+                     in_placements=(by_rows, by_rows), device_mesh=mesh)(
+        v_loc.redistribute(mesh, by_rows), i_loc.redistribute(mesh, by_rows))
+
+
 def _topk_scores(cfg: Bert4RecConfig, scores, k: int):
     """Exact top-k; with cfg.topk_ways, two-stage: a top-k in each of the
     ways' slices of the item axis, then one over the [rows, ways*k]
-    survivors.  Both give ``lax.top_k``'s answer."""
+    survivors.  Both give ``lax.top_k``'s answer.  On a DTensor whose
+    mesh has "model" and "data" dims the first stage runs where the
+    slices live (:func:`_topk_ways_sharded`); otherwise on one device."""
     if not cfg.topk_ways:
         return _top_k(scores, k)
     rows, V = scores.shape
     W = cfg.topk_ways
     if V % W:
         raise ValueError(f"topk_ways {W} does not divide {V} items")
+    if isinstance(scores, DTensor) and {"model", "data"} <= set(
+            scores.device_mesh.mesh_dim_names or ()):
+        return _topk_ways_sharded(scores, k, W)
     v_loc, i_loc = _top_k(scores.reshape(rows, W, V // W), k)  # [rows, W, k]
     i_loc = i_loc + (torch.arange(W, device=scores.device) * (V // W)
                      )[None, :, None]

@@ -16,6 +16,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ...core.session import _resolve_device
 
@@ -43,7 +44,19 @@ def segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
 
 def segment_max(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """Rows of ``x`` maximised into ``n`` segments by ``ids``; an empty
-    segment is ``-inf``, as ``jax.ops.segment_max`` gives."""
+    segment is ``-inf``, as ``jax.ops.segment_max`` gives.
+
+    DTensor has no sharding rule for ``scatter_reduce``: DTensor operands
+    are gathered whole (an explicit, counted all-gather), the maximum is
+    taken on each rank's full copy, and the result is a replicated
+    DTensor.  GSPMD would keep the operands sharded here."""
+    if isinstance(x, DTensor) or isinstance(ids, DTensor):
+        mesh = (x if isinstance(x, DTensor) else ids).device_mesh
+        whole = [Replicate()] * mesh.ndim
+        out = segment_max(*(t.redistribute(mesh, whole).to_local()
+                            if isinstance(t, DTensor) else t
+                            for t in (x, ids)), n)
+        return DTensor.from_local(out, mesh, whole, run_check=False)
     idx = ids.reshape((-1,) + (1,) * (x.dim() - 1)).expand_as(x)
     out = x.new_full((n,) + tuple(x.shape[1:]), -math.inf)
     return out.scatter_reduce(0, idx, x, "amax", include_self=False)

@@ -9,10 +9,10 @@
   scalar readouts summed into the site energy.
 
 Uniform channel width per l, as in the reference.  ``fused_agg`` is the
-reference's single-device bf16 path: one aggregation per output l over
-the concatenated path messages, with the node features carried in bf16
-and the energy readout in f32.  Its mesh hints (``shard_axes``) are not
-supported yet.
+reference's bf16 path: one aggregation per output l over the
+concatenated path messages, with the node features carried in bf16 and
+the energy readout in f32; with ``shard_axes`` its messages and
+aggregates carry the reference's mesh hints.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ...core.session import _resolve_device
+from ...launch.constraints import hint
 from ...tree import from_numpy, tree_map
 from .common import (GraphData, forces_of, graph_readout, mlp_apply,
                      mlp_init, segment_sum, silu)
@@ -64,14 +65,10 @@ class EquivariantConfig:
     # one bf16 aggregation per output l instead of one f32 aggregation
     # per path, node features carried in bf16
     fused_agg: bool = False
-    # mesh hints of the reference's sharded programs; not supported yet
+    # the fused path's distribution hints: edge messages and aggregated
+    # node arrays sharded on these (flat) mesh dims
+    # (``launch.constraints.hint``; nothing without a DTensor mesh)
     shard_axes: tuple = ()
-
-    def __post_init__(self):
-        if self.shard_axes:
-            raise NotImplementedError(
-                "EquivariantConfig.shard_axes (mesh hints for a sharded "
-                "program) is not supported by the PyTorch port yet")
 
     def n_params(self) -> int:
         C, P = self.channels, len(_paths(self.l_max))
@@ -127,10 +124,15 @@ def _conv_apply(cfg: EquivariantConfig, p: Params, feats, coords,
             cg = cg_tensor(l1, l2, l3, bf, fa.device)
             per_l[l3].append(torch.einsum("eci,ej,ijk,ec->eck",
                                           fa, sh_b[l2], cg, w))
+        ax = cfg.shard_axes
         stacked = {}
         for l3, msgs in per_l.items():
             cat = torch.cat(msgs, dim=1)                      # [E, P*C, m]
+            if ax:
+                cat = hint(cat, ax, None, None)
             agg = segment_sum(cat, dst, N)
+            if ax:
+                agg = hint(agg, ax, None, None)               # node-sharded
             agg = agg.reshape(N, len(msgs), msgs[0].shape[1], 2 * l3 + 1)
             stacked[l3] = agg.permute(0, 2, 1, 3)             # [N, C, P, m]
         return linear_mix(stacked, mix)

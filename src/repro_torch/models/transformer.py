@@ -24,9 +24,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from ..core.session import _resolve_device
+from ..launch.constraints import batch_sharded, hint
 from ..tree import tensor_from_numpy
 
 Params = Dict[str, Any]
@@ -63,14 +65,10 @@ class LMConfig:
     # The reference unrolls its scans for cost probes; eager PyTorch has
     # no scan to unroll, so this field does nothing here.
     unroll: bool = False
-    # mesh hints of the reference's sharded programs; not supported yet
+    # distribution hints: pin q/k/v and the attention accumulators to
+    # batch-sharded, otherwise replicated layouts on these mesh dims
+    # (``launch.constraints.hint``; nothing without a DTensor mesh)
     dp_axes: tuple = ()
-
-    def __post_init__(self):
-        if self.dp_axes:
-            raise NotImplementedError(
-                "LMConfig.dp_axes (mesh hints for a sharded program) is not "
-                "supported by the PyTorch port yet")
 
     @property
     def is_moe(self) -> bool:
@@ -240,6 +238,9 @@ def _qkv(cfg: LMConfig, p: Params, x):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    # heads whole on each rank, in the forward and (through the
+    # redistributions' backward) in the backward
+    q, k, v = (batch_sharded(t) for t in (q, k, v))
     q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
@@ -284,25 +285,34 @@ def _blockwise_attention(cfg: LMConfig, q, k, v):
     ar = torch.arange(C, device=dev)
     outs = []
     for i in range(n):
-        m = torch.full((B, H, G, C), -math.inf, device=dev)
-        l = torch.zeros((B, H, G, C), device=dev)
-        acc = torch.zeros((B, H, G, C, dh), device=dev)
+        m = _dp_hint(cfg, torch.full((B, H, G, C), -math.inf, device=dev))
+        l = _dp_hint(cfg, torch.zeros((B, H, G, C), device=dev))
+        acc = _dp_hint(cfg, torch.zeros((B, H, G, C, dh), device=dev))
         qpos = i * C + ar
+        qb = _dp_hint(cfg, qc[:, i])
         for j in range(i + 1):
             if (cfg.sliding_window is not None
                     and (i - j) * C >= cfg.sliding_window + C):
                 continue
-            s = (qc[:, i] @ kc[:, j]).reshape(B, H, G, C, C) * inv_sqrt
+            kb, vb = _dp_hint(cfg, kc[:, j]), _dp_hint(cfg, vc[:, j])
+            s = (qb @ kb).reshape(B, H, G, C, C) * inv_sqrt
             kpos = j * C + ar
             mask = kpos[None, :] <= qpos[:, None]
             if cfg.sliding_window is not None:
                 mask &= (qpos[:, None] - kpos[None, :]) < cfg.sliding_window
             s = torch.where(mask, s, -math.inf)
-            m, l, acc = _online_step(m, l, acc, s, vc[:, j])
+            m, l, acc = _online_step(m, l, acc, s, vb)
         outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
     out = torch.stack(outs, dim=1)                  # [B,n,H,G,C,dh]
     out = out.permute(0, 1, 4, 2, 3, 5)             # [B,n,C,H,G,dh]
     return out.reshape(B, S, H * G * dh).to(q.dtype)
+
+
+def _dp_hint(cfg: LMConfig, x):
+    """Batch dim (dim 0) on ``cfg.dp_axes``, every other dim replicated."""
+    if not cfg.dp_axes:
+        return x
+    return hint(x, cfg.dp_axes, *([None] * (x.ndim - 1)))
 
 
 def attention(cfg: LMConfig, p: Params, x, positions):
@@ -312,10 +322,11 @@ def attention(cfg: LMConfig, p: Params, x, positions):
     q, k, v = _qkv(cfg, p, x)
     q = rope(q, positions, cfg)
     k = rope(k, positions, cfg)
+    q, k, v = _dp_hint(cfg, q), _dp_hint(cfg, k), _dp_hint(cfg, v)
     K, dh = cfg.n_kv_heads, cfg.d_head
     q = q.reshape(B, S, K, g, dh)
     if cfg.attn_chunk is not None and S > cfg.attn_chunk:
-        return _blockwise_attention(cfg, q, k, v) @ p["wo"]
+        return batch_sharded(_blockwise_attention(cfg, q, k, v)) @ p["wo"]
     # scores [B, K, G, S, S] in the activation dtype, divided by sqrt(dh)
     # in that dtype
     qh = q.permute(0, 2, 3, 1, 4).reshape(B, K, g * S, dh)
@@ -332,7 +343,7 @@ def attention(cfg: LMConfig, p: Params, x, positions):
     out = probs.reshape(B, K, g * S, S) @ v.permute(0, 2, 1, 3)
     out = out.reshape(B, K, g, S, dh).permute(0, 3, 1, 2, 4)
     out = out.reshape(B, S, cfg.n_heads * dh)
-    return out @ p["wo"]
+    return batch_sharded(out) @ p["wo"]
 
 
 def _silu(x):
@@ -417,6 +428,20 @@ def block(cfg: LMConfig, p: Params, x, positions):
     return h + y, aux
 
 
+def _embed(params: Params, tokens):
+    """The token embeddings: a gather from the table.  A DTensor table is
+    gathered whole first and read through the ``embedding`` op: a lookup
+    into vocab shards gives a masked partial sum that DTensor fails to
+    reduce (torch 2.13), and the plain gather's backward, an accumulating
+    ``index_put``, has no working sharding rule (torch 2.11)."""
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        mesh = table.device_mesh
+        return F.embedding(tokens, table.redistribute(
+            mesh, [Replicate()] * mesh.ndim))
+    return table[tokens]
+
+
 def _head(cfg: LMConfig, params: Params):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -431,7 +456,7 @@ def forward(cfg: LMConfig, params: Params, tokens):
     With ``cfg.remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward."""
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = _embed(params, tokens)
     positions = torch.arange(S, device=x.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -451,7 +476,10 @@ def lm_loss(cfg: LMConfig, params: Params, tokens, targets,
     logits, aux = forward(cfg, params, tokens)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    # a DTensor's gather along its vocab shards cannot be reduced (torch
+    # 2.13 builds a mask of the wrong rank), so the vocab dim is gathered
+    # whole first; plain tensors pass through
+    gold = batch_sharded(logits).gather(-1, targets[..., None].long())[..., 0]
     nll = (logz - gold).mean()
     return nll + aux_weight * aux
 
@@ -553,7 +581,7 @@ def decode_step(cfg: LMConfig, params: Params, cache: Params, token,
     the same dict.
     """
     B = token.shape[0]
-    x = params["embed"][token[:, None]]                  # [B, 1, d]
+    x = _embed(params, token[:, None])                   # [B, 1, d]
     pos = pos.long()
     slot = pos % cache["k"].shape[2]                     # ring index
     bidx = torch.arange(B, device=x.device)
@@ -600,7 +628,7 @@ def prefill(cfg: LMConfig, params: Params, tokens, max_len: int):
     under ``cfg.kv_quant_int8``."""
     B, S = tokens.shape
     L = cache_len(cfg, max_len)
-    x = params["embed"][tokens]
+    x = _embed(params, tokens)
     dev = x.device
     positions = torch.arange(S, device=dev).expand(B, S)
     keep = min(L, S)

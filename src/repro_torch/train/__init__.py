@@ -1,7 +1,6 @@
-"""Training substrate: the fault-tolerant :class:`Trainer` and gradient
-compression.  The reference's ``reshard`` (elastic re-meshing onto a
-device mesh) waits for the port of ``launch/``."""
-from .trainer import Trainer, TrainerConfig
+"""Training substrate: the fault-tolerant :class:`Trainer`, gradient
+compression, and :func:`reshard` (a tree placed onto a DeviceMesh)."""
+from .trainer import Trainer, TrainerConfig, reshard
 from . import compression
 
-__all__ = ["Trainer", "TrainerConfig", "compression"]
+__all__ = ["Trainer", "TrainerConfig", "compression", "reshard"]

@@ -14,8 +14,8 @@
 
 A step builds the new state from new tensors and swaps it in only when
 it is complete, so a step that raises leaves the state as it was (the
-reference's immutable arrays give this for free).  The reference's
-``reshard`` (elastic re-meshing onto a device mesh) is not ported yet.
+reference's immutable arrays give this for free).  :func:`reshard`
+places a tree onto a DeviceMesh (elastic re-meshing).
 """
 from __future__ import annotations
 
@@ -30,7 +30,10 @@ import torch
 from ..ckpt import CheckpointManager
 from ..core.session import _resolve_device
 from ..optim import adamw
-from ..tree import flatten, tree_map, unflatten
+from torch.distributed.tensor import distribute_tensor
+
+from ..launch.constraints import placements
+from ..tree import flatten, keystr, tree_map, tree_map_with_path, unflatten
 from . import compression
 
 
@@ -167,3 +170,16 @@ class Trainer:
             if dt > self.cfg.straggler_factor * self._ema:
                 self.straggler_events += 1
             self._ema = 0.9 * self._ema + 0.1 * dt
+
+
+def reshard(tree: Any, mesh, pspec_fn: Callable[[str, Any], Any]) -> Any:
+    """Elastic scaling: ``tree`` placed onto ``mesh`` (a DeviceMesh), each
+    leaf as a DTensor with the placements of ``pspec_fn(path, leaf)``, a
+    :class:`~repro_torch.launch.constraints.P` (``path`` as
+    ``jax.tree_util.keystr`` renders it).  Every rank of the mesh calls
+    it; rank 0's values are the ones placed."""
+    def place(path, leaf):
+        spec = pspec_fn(keystr(path), leaf)
+        return distribute_tensor(leaf, mesh, placements(spec, mesh))
+
+    return tree_map_with_path(place, tree)

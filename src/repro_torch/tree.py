@@ -104,6 +104,26 @@ def tree_map(fn: Callable, tree, *rest):
     return type(tree)(mapped)
 
 
+def keystr(path: Path) -> str:
+    """A leaf's path as ``jax.tree_util.keystr`` renders it: ``['key']``
+    for a dict key or field, ``[i]`` for a list or tuple index."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def tree_map_with_path(fn: Callable, tree, path: Path = ()):
+    """``fn(path, leaf)`` leaf by leaf; the result has ``tree``'s
+    containers, as :func:`tree_map` keeps them."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(path, tree)
+    mapped = [tree_map_with_path(fn, child, path + (k,)) for k, child in kids]
+    if isinstance(tree, dict):
+        return dict(zip((k for k, _ in kids), mapped))
+    if _is_namedtuple(tree):
+        return type(tree)(*mapped)
+    return type(tree)(mapped)
+
+
 def tensor_from_numpy(x, device) -> torch.Tensor:
     """A copy of the array ``x`` as a tensor on ``device``, value for
     value: an ml_dtypes bfloat16 array (which torch cannot take) goes

@@ -290,9 +290,10 @@ def test_energy_and_forces_match_reference(arch_id, changes):
 
 @pytest.mark.parametrize("arch_id", ["egnn", "nequip", "mace"])
 def test_molecule_loss_gradient_matches_reference(arch_id):
-    """The loss of the reference's molecule cell (energy + 0.1 x force
-    MSE, ``configs/families/gnn.py``): its gradient differentiates the
-    forces again, through the pad edges' zero vectors too."""
+    """The loss of the molecule cell (energy + 0.1 x force MSE, the
+    port's ``configs/families/gnn.py`` against the reference's formula):
+    its gradient differentiates the forces again, through the pad edges'
+    zero vectors too."""
     jm, tm, jc, tc, tree, x = _mol_case(arch_id)
     jg, tg, coords = molecules(11)
     rng = np.random.default_rng(12)
@@ -307,11 +308,12 @@ def test_molecule_loss_gradient_matches_reference(arch_id):
         return jnp.mean((e_all - e_tgt) ** 2) + \
             0.1 * jnp.mean((-negf - f_tgt) ** 2)
 
+    cell = GNN_ARCHS[arch_id].build("molecule", reduced=True)
+    g = {f: getattr(tg, f) for f in ("senders", "receivers", "node_mask",
+                                     "edge_mask", "graph_ids")}
+
     def tloss(p, b):
-        _, f = tm.energy_and_forces(tc, p, b["x"], b["coords"], tg)
-        e_all = _energy(tm, tc, p, b["x"], b["coords"], tg)
-        return torch.mean((e_all - b["e"]) ** 2) + \
-            0.1 * torch.mean((f - b["f"]) ** 2)
+        return cell.loss_fn(p, b["x"], b["coords"], g, b["e"], b["f"])
 
     jl, jgrad = jax.jit(jax.value_and_grad(jloss))(to_jax(tree))
     tl, tgrad = _value_and_grad(
@@ -511,8 +513,18 @@ def test_init_params_shapes_match_reference(arch_id):
 
 
 def test_mesh_hints_and_missing_card_raise():
-    with pytest.raises(NotImplementedError):
-        equivariant.EquivariantConfig(fused_agg=True, shard_axes=("data",))
+    """The mesh hints (``shard_axes``) are accepted and change nothing on
+    plain tensors; without a card the entry points raise."""
+    _, tm, _, tc, tree, x = _mol_case("nequip", fused_agg=True)
+    _, tg, coords = molecules(10)
+    hinted = dataclasses.replace(tc, shard_axes=("data", "model"))
+    tp = tm.params_from_jax(tc, tree, device="cpu")
+    with torch.no_grad():
+        assert torch.equal(
+            tm.forward(tc, tp, torch.from_numpy(x),
+                       torch.from_numpy(coords), tg),
+            tm.forward(hinted, tp, torch.from_numpy(x),
+                       torch.from_numpy(coords), tg))
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = GNN_ARCHS["nequip"].smoke_cfg_fn(8)

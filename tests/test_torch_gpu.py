@@ -806,3 +806,29 @@ def test_bert4rec_score_topk_on_card_matches_torch_topk(cuda):
             assert torch.equal(torch.gather(scores, 1, i), v)
             untied = (want_v[:, 1:] != want_v[:, :-1]).all(dim=1)
             assert torch.equal(i[untied], want_i[untied, :50])
+
+
+@pytest.mark.gpu
+def test_reduced_cell_on_card_matches_cpu(cuda):
+    """The reduced qwen2-1.5b train_4k cell: one step on the card equal to
+    the same step on the CPU (f32, within 1e-4 of each output's scale), at
+    an optimizer step past the warm-up, where the update of params, m and
+    v is held within tests/torch_update.py's UPDATE_TOL of its scale."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.families.base import zeros_from_abstract
+    from repro_torch.tree import leaves, tree_map
+    from torch_update import UPDATE_TOL, at_step, update_errors
+    prog = get_arch("qwen2-1.5b").build("train_4k", reduced=True)
+    args = zeros_from_abstract(prog.abstract_args, seed=2, device="cpu")
+    args = at_step(args)
+    want = prog.step_fn(*args)
+    got = prog.step_fn(*tree_map(lambda x: x.to(cuda), args))
+    for g, w in zip(leaves(got), leaves(want)):
+        assert g.is_cuda and g.dtype == w.dtype
+        if w.dtype.is_floating_point:
+            scale = w.abs().max().item()
+            assert (g.cpu() - w).abs().max().item() <= 1e-4 * scale
+        else:
+            assert torch.equal(g.cpu(), w)
+    for path, err in update_errors(args, got, want).items():
+        assert err <= UPDATE_TOL, (path, err)

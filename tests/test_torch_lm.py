@@ -406,8 +406,15 @@ def test_bf16_forward_close_to_reference():
 
 
 def test_mesh_hints_and_missing_card_raise():
-    with pytest.raises(NotImplementedError):
-        TT.LMConfig(dp_axes=("data",))
+    """The mesh hints (``dp_axes``) are accepted and change nothing on
+    plain tensors; without a card the entry points raise."""
+    cfg = dataclasses.replace(CFGS["dense"], attn_chunk=4)
+    hinted = dataclasses.replace(cfg, dp_axes=("data",))
+    tp = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(tokens(cfg, (2, 12)))
+    with torch.no_grad():
+        assert torch.equal(TT.forward(cfg, tp, toks)[0],
+                           TT.forward(hinted, tp, toks)[0])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = CFGS["dense"]
