@@ -195,6 +195,25 @@ non-zero and prints no result line):
              peak, every cut printed; the dry run of all 40 cells on both
              production meshes.  It launches none of the query kernels
              (``cells_launches``).
+20. examples — ``examples/quickstart_torch.py`` (the paper's Fig. 1
+             graph, one mixed Reach / Dist / Rpq batch) and
+             ``examples/distributed_queries_torch.py`` (sharded
+             partial evaluation against the baselines, a warm mixed
+             batch, the ``shard_map`` backend and 32 fragments packed on
+             a one-rank NCCL group), imported and run on the card as a
+             user runs them, each asserting its own answers; the or-and
+             and min-plus kernels must launch in each
+             (``examples_launches``).
+21. dryrun — the compiled dry run (``python -m
+             repro_torch.launch.dryrun``) of qwen2-1.5b train_4k, gat-cora
+             full_graph_sm, and qwen1.5-32b decode_32k and bert4rec
+             train_batch (two cells too large for one card) on the
+             single-pod 16x16 mesh of a 256-rank fake process group, with
+             its cost probes, under this machine's torch: one CPU process
+             each, CUDA hidden, started before the first phase and read
+             here.  Each record must be ok with every compiled field
+             (temporaries, eager FLOPs and bytes, collectives, probes)
+             and is printed on a line.
 
 The min-plus wrapper's operand copies are asserted 0 on the main,
 one-shot, dynamic and serve paths as well.  When the source of an earlier
@@ -218,6 +237,7 @@ rate that the probe ``csrc/dpx_rate.cu`` measures in the same run.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -4455,7 +4475,7 @@ def _cells_dryrun(res: dict) -> None:
     table, with the reason each cell not run at full width has."""
     from repro_torch.configs import ARCHS, all_cells
     from repro_torch.launch import dryrun
-    recs = [dryrun.run_cell(a, s, mp, verbose=False)
+    recs = [dryrun.run_cell(a, s, mp, verbose=False, compiled=False)
             for a, s in all_cells() for mp in (False, True)]
     res["dryrun"] = recs
     print("cells: dry run (args whole GB / per device GiB / fit one card):")
@@ -4496,6 +4516,111 @@ def phase_cells(out: dict) -> None:
     out["cells"] = res
 
 
+# ---------------------------------------------------------------------------
+# 20. examples
+# ---------------------------------------------------------------------------
+
+def _example(name: str):
+    """``examples/<name>.py`` imported as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_examples(out: dict) -> None:
+    """The two query examples on the card, through their own entry
+    points; both kernels must launch in each."""
+    res = {}
+    for name, run in (("quickstart_torch", lambda m: m.main("cuda")),
+                      ("distributed_queries_torch", lambda m: m.run("cuda"))):
+        module = _example(name)
+        _reset_launches()
+        t0 = time.perf_counter()
+        run(module)
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+        if not (launches["or_and_matmul"] and launches["min_plus_matmul"]):
+            raise AssertionError(f"examples: {name} did not launch both "
+                                 f"query kernels: {launches}")
+        print(f"examples: {name} ok in {seconds:.1f} s, launches {launches}")
+        res[name] = dict(launches=launches, seconds=seconds)
+    out["examples"] = res
+
+
+# ---------------------------------------------------------------------------
+# 21. dryrun
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("gat-cora", "full_graph_sm"),
+                ("qwen1.5-32b", "decode_32k"), ("bert4rec", "train_batch"))
+DRYRUN_WAIT_S = 600
+DRYRUN_FIELDS = ("counter", "hlo_flops", "hlo_bytes", "temp_bytes_per_dev",
+                 "out_bytes_per_dev", "peak_bytes_per_dev", "fits_one_card",
+                 "collective_bytes", "collective_count",
+                 "collective_breakdown", "collective_schedule",
+                 "departure_collectives", "probe_flops", "probe_bytes",
+                 "probe_collective_bytes", "probe_method")
+
+
+def _start_dryrun() -> list:
+    """The dryrun phase's cells, one CPU process each (CUDA hidden, at a
+    lower priority), started before the first phase so that they run
+    beside the phases on the card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    (ROOT / "build").mkdir(exist_ok=True)
+    procs = []
+    for aid, sid in DRYRUN_CELLS:
+        path = ROOT / "build" / f"dryrun_{aid}_{sid}.json"
+        log = open(path.with_suffix(".log"), "w")
+        procs.append((aid, sid, path, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", aid,
+             "--shape", sid, "--multi-pod", "no", "--out", str(path)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(10))))
+    return procs
+
+
+def phase_dryrun(out: dict, procs: list) -> None:
+    """Each dry-run process's record: ok, with every compiled field."""
+    import torch
+    res = {}
+    for aid, sid, path, log, proc in procs:
+        rc = proc.wait(timeout=DRYRUN_WAIT_S)
+        log.close()
+        if rc != 0:
+            raise AssertionError(
+                f"dryrun: {aid}/{sid} exited {rc}:\n"
+                f"{path.with_suffix('.log').read_text()[-3000:]}")
+        (rec,) = json.loads(path.read_text())
+        missing = [k for k in DRYRUN_FIELDS if k not in rec]
+        if rec["status"] != "ok" or missing:
+            raise AssertionError(f"dryrun: {aid}/{sid} lacks {missing}: "
+                                 f"{rec}")
+        communicates = rec["collective_count"] > 0 or any(
+            d["count"] for d in rec["departure_collectives"].values())
+        if rec["torch"] != torch.__version__ or not (
+                rec["hlo_flops"] > 0 and rec["temp_bytes_per_dev"] > 0
+                and communicates):
+            raise AssertionError(f"dryrun: {aid}/{sid}: {rec}")
+        departed = sum(d["bytes"]
+                       for d in rec["departure_collectives"].values())
+        print(f"dryrun: {aid}/{sid} {rec['mesh']} under torch "
+              f"{rec['torch']} in {rec['seconds']} s: temp "
+              f"{rec['temp_bytes_per_dev'] / 2**30:.2f} GiB/device, eager "
+              f"FLOPs {rec['hlo_flops']:.4e}, collectives "
+              f"{rec['collective_bytes'] / 2**20:.1f} MiB "
+              f"({rec['collective_count']}; departures "
+              f"{departed / 2**20:.1f} MiB), fits one card: "
+              f"{rec['fits_one_card']}")
+        print("dryrun record: " + json.dumps(rec))
+        res[f"{aid}/{sid}"] = rec
+    out["dryrun"] = res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4503,6 +4628,17 @@ def main() -> int:
               "is False", file=sys.stderr)
         return 1
     _require_repo()
+    dry = _start_dryrun()
+    try:
+        return _main(dry)
+    finally:
+        for *_, proc in dry:
+            proc.kill()
+            proc.wait()
+
+
+def _main(dry: list) -> int:
+    import torch
     import torch.distributed as dist
     out: dict = {}
     out.update(phase_build())
@@ -4533,11 +4669,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     for phase in (phase_lm_serve, phase_lm_moe, phase_lm_train,
                   phase_gnn_molecule, phase_gnn_gat, phase_recsys,
-                  phase_cells):
+                  phase_cells, phase_examples,
+                  functools.partial(phase_dryrun, procs=dry)):
         t0 = time.perf_counter()
         phase(out)
-        print(f"{phase.__name__[6:]}: phase took "
-              f"{time.perf_counter() - t0:.1f} s")
+        print(f"{getattr(phase, '__name__', 'phase_dryrun')[6:]}: phase "
+              f"took {time.perf_counter() - t0:.1f} s")
     kernels = out["kernels"]
     for k in kernels:
         name = k["name"]
@@ -4565,6 +4702,9 @@ def main() -> int:
                              for phase in ("gnn_molecule", "gnn_gat")}
         k["recsys_launches"] = out["recsys"]["launches"][name]
         k["cells_launches"] = out["cells"]["launches"][name]
+        k["examples_launches"] = {
+            ex: run["launches"][name]
+            for ex, run in out["examples"].items()}
         k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
                            + out["dynamic"]["shapes"].get(name, [])
                            + out["mapreduce"]["shapes"].get(name, []))

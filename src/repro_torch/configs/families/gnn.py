@@ -17,9 +17,9 @@ from typing import Callable, Optional
 
 import torch
 
-from ...launch.constraints import P
+from ...launch.constraints import P, replicated
 from ...models.gnn import common, egnn, equivariant, gat
-from ...tree import leaves
+from ...tree import leaves, tree_map
 from .base import (CellProgram, dp, make_train_step, opt_state_like, sds,
                    spec_tree)
 
@@ -170,6 +170,7 @@ class GNNArch:
             coords_spec = P(axes, None)
 
         n_params = _n_params(params_abs)
+        loss = _whole_batch(loss)
         step = make_train_step(loss, accum=False)
         m, v, st = opt_state_like(params_abs)
         pspec = spec_tree(params_abs, lambda path, leaf: P())
@@ -185,6 +186,19 @@ class GNNArch:
                            specs, model_flops(self.kind, cfg, N, E, d_feat),
                            4.0 * 10.0 * n_params + 8.0 * E,
                            loss_fn=loss)
+
+
+def _whole_batch(loss):
+    """``loss`` with every DTensor of its batch gathered whole on every
+    rank (a departure from GSPMD, labelled ``graph_whole``): the graph
+    then runs replicated.  DTensor's indexing rules do not hold a graph
+    sharded over the device grid: torch 2.11 has none for a dim sharded
+    over two mesh dims, and over one its scatter-adds meet index and
+    source sharded unlike.  Plain tensors pass through."""
+    def whole_batch(p, *batch):
+        return loss(p, *tree_map(lambda x: replicated(x, "graph_whole"),
+                                 batch))
+    return whole_batch
 
 
 def _eq_init(kind, cfg, generator, device):

@@ -12,12 +12,19 @@ returns ``NotImplemented`` to the mode), so the mode sees the
 collectives that op turns into.  :func:`collective_bytes` sums the sizes
 of their results under the reference's kind names, as the reference
 does.
+
+Some redistributions of the port's model code have no counterpart in
+the reference's program: each steps around a DTensor gap (a departure
+from GSPMD, listed in PERF.md).  Such a call runs through
+:func:`departure`, which labels every collective it starts, in the
+forward and in its backward, with the departure's name, so that the
+dry run can count them apart (:func:`split_departures`).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple, TypeVar
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -42,6 +49,36 @@ class Collective:
     kind: str                                   # the reference's kind name
     results: Tuple[Tuple[torch.dtype, Tuple[int, ...]], ...]
     nbytes: int                                 # bytes of its results
+    departure: str = ""                         # its departure's name, if any
+
+
+# the names of the departures being run, innermost last: a departure's
+# backward runs inside the autograd engine, after its forward has returned
+_DEPARTING: List[str] = []
+T = TypeVar("T")
+
+
+def departure(name: str, redistribute: Callable[[], T]) -> T:
+    """``redistribute()``, a redistribution that GSPMD would not make,
+    with every collective it starts labelled ``name``: those of the call
+    itself and, through hooks on the result's autograd node, those of its
+    backward."""
+    _DEPARTING.append(name)
+    try:
+        out = redistribute()
+    finally:
+        _DEPARTING.pop()
+    node = getattr(out, "grad_fn", None)
+    if node is not None:
+        def enter(grads_out):
+            _DEPARTING.append(name)
+
+        def leave(grads_in, grads_out):
+            _DEPARTING.pop()
+
+        node.register_prehook(enter)
+        node.register_hook(leave)
+    return out
 
 
 def _kind(func) -> str:
@@ -80,7 +117,8 @@ class _Recorder(TorchDispatchMode):
             res = _tensors(out)
             self.record.append(Collective(
                 kind, tuple((t.dtype, tuple(t.shape)) for t in res),
-                sum(t.numel() * t.element_size() for t in res)))
+                sum(t.numel() * t.element_size() for t in res),
+                _DEPARTING[-1] if _DEPARTING else ""))
         return out
 
 
@@ -89,6 +127,7 @@ def record_step_collectives() -> Iterator[List[Collective]]:
     """``with record_step_collectives() as record:`` — ``record`` is the
     list of every collective issued inside the block, in order."""
     record: List[Collective] = []
+    _DEPARTING.clear()          # a failed backward may have left one behind
     with _Recorder(record):
         yield record
 
@@ -102,6 +141,19 @@ def collective_bytes(record: List[Collective]) -> Dict[str, int]:
     out["total"] = sum(out.values())
     out["count"] = len(record)
     return out
+
+
+def split_departures(record: List[Collective]
+                     ) -> Tuple[List[Collective], Dict[str, List[Collective]]]:
+    """(the collectives GSPMD would make too, {departure name: its
+    collectives}), each in the order they were started."""
+    kept, apart = [], {}
+    for c in record:
+        if c.departure:
+            apart.setdefault(c.departure, []).append(c)
+        else:
+            kept.append(c)
+    return kept, apart
 
 
 def _hlo_type(dtype, shape) -> str:

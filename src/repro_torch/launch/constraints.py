@@ -16,6 +16,8 @@ from typing import Sequence, Tuple, Union
 
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from .collective_stats import departure
+
 Entry = Union[None, str, Tuple[str, ...]]
 
 
@@ -103,15 +105,28 @@ def hint(x, *spec_parts: Entry):
 
 
 
-def batch_sharded(x):
+def batch_sharded(x, label: str = "batch_sharded"):
     """``x`` with every tensor dim but the first (the batch) replicated,
     when ``x`` is a DTensor; otherwise ``x`` unchanged.  DTensor cannot
     reshard a view by itself as GSPMD does (it refuses to split a sharded
     dim into heads that its shard count does not divide), so attention
     takes q, k and v in this layout: the one the reference's ``dp_axes``
-    hints pin."""
+    hints pin.  A departure from GSPMD: its collectives are labelled
+    ``label`` (``collective_stats.departure``)."""
     if not isinstance(x, DTensor):
         return x
     keep = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
             for p in x.placements]
-    return x.redistribute(x.device_mesh, keep)
+    return departure(label, lambda: x.redistribute(x.device_mesh, keep))
+
+
+def replicated(x, label: str):
+    """``x`` whole on every rank when it is a DTensor; otherwise ``x``
+    unchanged.  A departure from GSPMD: its collectives are labelled
+    ``label``."""
+    if not isinstance(x, DTensor):
+        return x
+    whole = [Replicate()] * x.device_mesh.ndim
+    if list(x.placements) == whole:
+        return x
+    return departure(label, lambda: x.redistribute(x.device_mesh, whole))

@@ -30,6 +30,18 @@ class MeshShape:
         return "x".join(str(s) for s in self.shape)
 
 
+def shard_shape(shape, spec, mesh: MeshShape):
+    """A leaf's shape on one device of ``mesh`` under ``spec``."""
+    size = dict(zip(mesh.names, mesh.shape))
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else entry
+        out[dim] = -(-out[dim] // math.prod(size[n] for n in names))
+    return tuple(out)
+
+
 # 16x16 (256 chips, one pod) and 2x16x16 (512 chips, two pods).  The
 # "pod" dim carries only data-parallel traffic (gradient all-reduce
 # between pods); "model" carries the tensor- and expert-parallel

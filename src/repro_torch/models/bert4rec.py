@@ -17,7 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..core.session import _resolve_device
@@ -168,12 +168,17 @@ def _top_k(x: torch.Tensor, k: int):
     equal values ordered by index, and where values equal to the k-th tie
     across the cut, the lower indices kept.  ``torch.topk`` promises
     neither; its picks are repaired, which reads ``x`` once more and
-    waits for the device once."""
+    waits for the device once.  A DTensor goes through
+    :func:`_top_k_rows`; a meta tensor (the dry run) holds no values and
+    so no tie to repair."""
+    if isinstance(x, DTensor):
+        return _top_k_rows(x, k)
     v, i = torch.topk(x, k, dim=-1)
     x2, v2, i2 = (t.reshape(-1, t.shape[-1]) for t in (x, v, i))
     kth = v2[:, -1:]
     n_in = (v2 == kth).sum(-1)
-    cut = torch.nonzero((x2 == kth).sum(-1) > n_in)[:, 0].tolist()
+    cut = [] if x.is_meta else \
+        torch.nonzero((x2 == kth).sum(-1) > n_in)[:, 0].tolist()
     for r in cut:                        # rare: a tie across the cut
         n = int(n_in[r])
         i2[r, k - n:] = torch.nonzero(x2[r] == kth[r])[:n, 0]
@@ -182,6 +187,19 @@ def _top_k(x: torch.Tensor, k: int):
     v2, perm = torch.sort(v2, dim=-1, descending=True, stable=True)
     i2 = torch.gather(i2, -1, perm)
     return v2.reshape(v.shape), i2.reshape(i.shape)
+
+
+def _top_k_rows(x: DTensor, k: int):
+    """:func:`_top_k` of a DTensor: its rows stay where they lie, the last
+    axis is gathered whole, and each rank repairs its own rows' picks
+    (``local_map``).  DTensor has no sharding rule for the repair's
+    ``nonzero``, whose size depends on the data."""
+    mesh = x.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim < x.ndim - 1 else Replicate()
+            for p in x.placements]
+    return local_map(lambda block: _top_k(block, k),
+                     out_placements=(rows, rows), in_placements=(rows,),
+                     device_mesh=mesh)(x.redistribute(mesh, rows))
 
 
 def _topk_ways_sharded(scores, k: int, W: int):
@@ -249,8 +267,14 @@ def score_topk(cfg: Bert4RecConfig, params: Params, items, k: int = 100,
     chunks of rows so the [chunk, n_items] logits block — not
     [B, n_items] — is the peak intermediate.  items [B, S] -> (values
     [B, k], item ids [B, k] int64); the outputs are allocated once and
-    filled chunk by chunk."""
+    filled chunk by chunk.  DTensor chunks are concatenated instead: a
+    plain tensor cannot be written in place from a DTensor."""
     B = items.shape[0]
+    if isinstance(items, DTensor):
+        parts = [_topk_scores(cfg, score_next(cfg, params,
+                                              items[lo:lo + chunk]), k)
+                 for lo in range(0, B, chunk)]
+        return tuple(torch.cat(t) for t in zip(*parts))
     vals = torch.empty((B, k), dtype=params["item_embed"].dtype,
                        device=items.device)
     idx = torch.empty((B, k), dtype=torch.int64, device=items.device)

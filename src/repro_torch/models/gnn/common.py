@@ -19,6 +19,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 
 from ...core.session import _resolve_device
+from ...launch.collective_stats import departure
 
 
 @dataclasses.dataclass
@@ -49,13 +50,14 @@ def segment_max(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     DTensor has no sharding rule for ``scatter_reduce``: DTensor operands
     are gathered whole (an explicit, counted all-gather), the maximum is
     taken on each rank's full copy, and the result is a replicated
-    DTensor.  GSPMD would keep the operands sharded here."""
+    DTensor.  GSPMD would keep the operands sharded here: the gathers are
+    a departure, labelled ``segment_max``."""
     if isinstance(x, DTensor) or isinstance(ids, DTensor):
         mesh = (x if isinstance(x, DTensor) else ids).device_mesh
         whole = [Replicate()] * mesh.ndim
-        out = segment_max(*(t.redistribute(mesh, whole).to_local()
-                            if isinstance(t, DTensor) else t
-                            for t in (x, ids)), n)
+        out = segment_max(*(departure("segment_max", lambda t=t: (
+            t.redistribute(mesh, whole))).to_local()
+            if isinstance(t, DTensor) else t for t in (x, ids)), n)
         return DTensor.from_local(out, mesh, whole, run_check=False)
     idx = ids.reshape((-1,) + (1,) * (x.dim() - 1)).expand_as(x)
     out = x.new_full((n,) + tuple(x.shape[1:]), -math.inf)

@@ -25,9 +25,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor._utils import (
+    compute_local_shape_and_global_offset)
 from torch.utils.checkpoint import checkpoint
 
 from ..core.session import _resolve_device
+from ..launch.collective_stats import departure
 from ..launch.constraints import batch_sharded, hint
 from ..tree import tensor_from_numpy
 
@@ -369,6 +372,20 @@ def _capacity_slots(flat_e, n_experts: int, cap: int):
     return pos, pos < cap
 
 
+def _take(t, *index):
+    """``t[index]`` for plain index tensors.  A DTensor ``t`` is gathered
+    whole (a departure from GSPMD, labelled ``moe_routing``) and indexed
+    on each rank's copy: torch 2.11's DTensor has no working rule for the
+    gather's backward (an ``index_put``)."""
+    if not isinstance(t, DTensor):
+        return t[index]
+    mesh = t.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    local = departure("moe_routing", lambda: t.redistribute(
+        mesh, whole)).to_local()
+    return DTensor.from_local(local[index], mesh, whole, run_check=False)
+
+
 def moe_block(cfg: LMConfig, p: Params, x) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     """Capacity-bucketed top-k MoE with index-based dispatch.
@@ -388,6 +405,13 @@ def moe_block(cfg: LMConfig, p: Params, x) -> Tuple[torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     gate_vals, idx = _top_k(probs, k)                        # [T, k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+    if isinstance(idx, DTensor):
+        # DTensor has no rule for the routing's writes by index: the
+        # choices are gathered whole (a departure from GSPMD) and every
+        # rank routes every token
+        mesh = idx.device_mesh
+        idx = departure("moe_routing", lambda: idx.redistribute(
+            mesh, [Replicate()] * mesh.ndim)).to_local()
 
     flat_e = idx.reshape(-1)                                 # [T*k]
     pos, keep = _capacity_slots(flat_e, e, cap)
@@ -401,13 +425,13 @@ def moe_block(cfg: LMConfig, p: Params, x) -> Tuple[torch.Tensor,
     token_idx = token_idx[:, :cap]
 
     x_pad = torch.cat([xt, xt.new_zeros((1, d))])
-    expert_in = x_pad[token_idx]                             # [E, C, d]
+    expert_in = _take(x_pad, token_idx)                      # [E, C, d]
     h = _silu(torch.bmm(expert_in, p["w1"]))
     h = h * torch.bmm(expert_in, p["w3"])
     expert_out = torch.bmm(h, p["w2"])                       # [E, C, d]
 
     pos_c = torch.clamp_max(pos, cap - 1)
-    vals = expert_out[flat_e, pos_c]                         # [T*k, d]
+    vals = _take(expert_out, flat_e, pos_c)                  # [T*k, d]
     vals = vals * keep[:, None].to(vals.dtype)
     y = (vals.reshape(T, k, d) * gate_vals[..., None].to(vals.dtype)).sum(1)
 
@@ -433,12 +457,14 @@ def _embed(params: Params, tokens):
     gathered whole first and read through the ``embedding`` op: a lookup
     into vocab shards gives a masked partial sum that DTensor fails to
     reduce (torch 2.13), and the plain gather's backward, an accumulating
-    ``index_put``, has no working sharding rule (torch 2.11)."""
+    ``index_put``, has no working sharding rule (torch 2.11).  Both
+    gathers of the vocab dim are departures from GSPMD, labelled
+    ``vocab_gather``."""
     table = params["embed"]
     if isinstance(table, DTensor):
         mesh = table.device_mesh
-        return F.embedding(tokens, table.redistribute(
-            mesh, [Replicate()] * mesh.ndim))
+        return F.embedding(tokens, departure("vocab_gather", lambda: (
+            table.redistribute(mesh, [Replicate()] * mesh.ndim))))
     return table[tokens]
 
 
@@ -479,7 +505,8 @@ def lm_loss(cfg: LMConfig, params: Params, tokens, targets,
     # a DTensor's gather along its vocab shards cannot be reduced (torch
     # 2.13 builds a mask of the wrong rank), so the vocab dim is gathered
     # whole first; plain tensors pass through
-    gold = batch_sharded(logits).gather(-1, targets[..., None].long())[..., 0]
+    gold = batch_sharded(logits, "vocab_gather").gather(
+        -1, targets[..., None].long())[..., 0]
     nll = (logz - gold).mean()
     return nll + aux_weight * aux
 
@@ -571,6 +598,38 @@ def _cache_attention(cfg: LMConfig, q, k_cache, v_cache, pos_cache, pos,
     return out.to(cfg.dtype)
 
 
+def _write_slots(buf, li: int, bidx, slot, value) -> None:
+    """``buf[li, bidx, slot] = value`` in place (``bidx`` is
+    ``arange(B)``): row ``b`` of layer ``li``'s cache gets ``value[b]`` at
+    slot ``slot[b]``.
+
+    DTensor cannot write by index into a sharded dim in place, so on a
+    DTensor cache each rank writes the rows it holds: the written values
+    and slots are gathered whole (a departure from GSPMD, labelled
+    ``cache_write``), and each local row takes its value where its slot
+    lies in the rank's shard and keeps its own elsewhere (static shapes,
+    no host sync)."""
+    if not isinstance(buf, DTensor):
+        buf[li, bidx, slot] = value
+        return
+    mesh = buf.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    value, slot = (departure("cache_write", lambda t=t: t.redistribute(
+        mesh, whole)).to_local() if isinstance(t, DTensor) else t
+        for t in (value, slot))
+    local = buf.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    n_rows, n_slots = local.shape[1], local.shape[2]
+    rows = torch.arange(n_rows, device=local.device)
+    at = slot[rows + offset[1]] - offset[2]
+    mine = (at >= 0) & (at < n_slots)
+    at = torch.clamp(at, 0, n_slots - 1)
+    mine = mine.reshape((-1,) + (1,) * (local.dim() - 3))
+    local[li, rows, at] = torch.where(mine, value[rows + offset[1]],
+                                      local[li, rows, at])
+
+
 def decode_step(cfg: LMConfig, params: Params, cache: Params, token,
                 pos) -> Tuple[torch.Tensor, Params]:
     """One decoding step: token [B], pos [B] -> (logits [B, V], cache).
@@ -596,16 +655,15 @@ def decode_step(cfg: LMConfig, params: Params, cache: Params, token,
         if quant:
             kq, ks = _quantize_kv(knew[:, 0])
             vq, vs = _quantize_kv(vnew[:, 0])
-            cache["k"][li, bidx, slot] = kq
-            cache["v"][li, bidx, slot] = vq
-            cache["k_scale"][li, bidx, slot] = ks
-            cache["v_scale"][li, bidx, slot] = vs
+            for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                              ("v_scale", vs)):
+                _write_slots(cache[name], li, bidx, slot, val)
             scales = (cache["k_scale"][li], cache["v_scale"][li])
         else:
-            cache["k"][li, bidx, slot] = knew[:, 0]
-            cache["v"][li, bidx, slot] = vnew[:, 0]
+            _write_slots(cache["k"], li, bidx, slot, knew[:, 0])
+            _write_slots(cache["v"], li, bidx, slot, vnew[:, 0])
             scales = (None, None)
-        cache["pos"][li, bidx, slot] = pos.to(torch.int32)
+        _write_slots(cache["pos"], li, bidx, slot, pos.to(torch.int32))
         qh = q.reshape(B, cfg.n_kv_heads, g, cfg.d_head)
         out = _cache_attention(cfg, qh, cache["k"][li], cache["v"][li],
                                cache["pos"][li], pos, *scales)

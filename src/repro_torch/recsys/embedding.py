@@ -13,12 +13,21 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..launch.constraints import replicated
 from ..models.gnn.common import segment_max, segment_sum
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Plain lookup: table [V, d], ids [...] -> [..., d]."""
+    """Plain lookup: table [V, d], ids [...] -> [..., d].  A DTensor table
+    is gathered whole and read through the ``embedding`` op, as the LM's
+    is (``transformer._embed``): torch 2.11's DTensor fails to index a
+    row-sharded table on a 3-D mesh and to accumulate the gather's
+    backward (``index_put``).  A departure from GSPMD, labelled
+    ``vocab_gather``."""
+    if isinstance(table, DTensor):
+        return F.embedding(ids, replicated(table, "vocab_gather"))
     return table[ids]
 
 
