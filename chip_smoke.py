@@ -19,7 +19,10 @@ non-zero and prints no result line):
              routes (skinny split-K up to 64 rows, tiles above) with and
              without a floor (``init=``), twice each; the bit-packed
              product also against the or-and kernel, with K = 31, 32, 33
-             and words whose bit 31 is set.
+             and words whose bit 31 is set; the or-and kernel's skinny
+             route (``csrc/or_and_skinny.cu``, up to 8 rows, b read as
+             stored with its pad bytes set) with frontiers all zero,
+             one-hot, all ones and random, with and without ``init``.
 3. main    — the query path at full size: an Erdos-Renyi graph of 16384
              nodes and 65536 edges over 8 labels, randomly cut into 16
              fragments; ``repro_torch.connect(fr)``, ``warm(with_dist=True)``,
@@ -46,11 +49,16 @@ non-zero and prints no result line):
              ``connect(fr, cache="none")``: 16 Reach and 16 Dist (8 bounded)
              checked against the host BFS and 4 Rpq ``(0|1)* 2`` (D is a
              6.4 GB matrix) against a product-graph BFS, both kernels
-             launched; one query of each kind split into local stage, D^T
-             copy and evalDG steps; ``dis_reach_sharded`` and
+             launched, the or-and evalDG steps on its skinny route with no
+             K-major copy of D (``copies`` 0); one query of each kind split
+             into local stage and evalDG steps; ``dis_reach_sharded`` and
              ``dis_rpq_sharded`` on the NCCL group, one collective of
-             ``traffic_bits`` bits each; both kernels held against their
-             plain versions at evalDG's vector-matrix shape, M = 1.
+             ``traffic_bits`` bits each, no copy; both kernels held against
+             their plain versions at evalDG's vector-matrix shape, M = 1
+             (the or-and step on D as stored with every row of x set,
+             beside the tile route through D^T), and the or-and fixpoint
+             of the split query timed against the rows its frontiers
+             hold.
 6. dynamic — graph deltas at full size through ``session.apply`` on a warm
              amortized session (reserves 64 boundary slots, 256 edges and
              64 stubs): a stream that reaches repair, repair with new
@@ -89,11 +97,12 @@ non-zero and prints no result line):
              must take more than k rounds and ``dis_reach`` one.
 9. mapreduce — the one-shot phase's 4 RPQs through ``mr_drpq``: answers
              equal to the one-shot RPQ's and the product-graph BFS, the
-             or-and kernel launched, the device memory peak below 32 GB
-             (the reference stacks 103 GB of mapper outputs), the time
-             split into map, K-major copy of D and evalDG; the or-and
-             kernel held against its plain version at the reducer's
-             evalDG step, [1, 80205] x [80205, 80205].
+             or-and skinny route launched with no K-major copy, the
+             device memory peak below 12 GB (the reference stacks 103 GB
+             of mapper outputs), the time split into map and evalDG; the
+             skinny route held against its plain version at the reducer's
+             evalDG step, [1, 80205] x [80205, 80205] on D as stored, and
+             the reducer's fixpoint timed against the rows it reads.
 10. sharded repair — ``session.apply`` on a ``backend="shard_map"``
              session over the NCCL group with a reach-only cache and the
              dynamic phase's reserves: inserts in one fragment, cross
@@ -216,7 +225,10 @@ non-zero and prints no result line):
              and is printed on a line.
 
 The min-plus wrapper's operand copies are asserted 0 on the main,
-one-shot, dynamic and serve paths as well.  When the source of an earlier
+one-shot, dynamic and serve paths as well; the or-and wrapper's K-major
+copies (``or_and_copies``) on the one-shot, baselines and MapReduce paths
+and the sharded one-shot functions, and its skinny launches
+(``or_and_skinny``) 0 on the main and dynamic paths.  When the source of an earlier
 min-plus kernel is put at ``build/former/min_plus_matmul.cu``, it is
 built in the build phase and timed beside the current kernel at every
 min-plus shape (``former_ms``).
@@ -462,11 +474,13 @@ def _counted():
 
 
 def _reset_launches():
-    """Set every kernel's launch count, and the min-plus wrapper's operand
-    copy count, to 0."""
+    """Set every kernel's launch count (the or-and skinny route's too), and
+    both wrappers' operand copy counts, to 0."""
     for ops in _counted().values():
         ops.launches = 0
     _counted()["min_plus_matmul"].copies = 0
+    bops = _counted()["or_and_matmul"]
+    bops.skinny_launches = bops.copies = 0
 
 
 def _copies() -> int:
@@ -481,8 +495,25 @@ def _assert_no_copies(what: str) -> None:
                              f"{_copies()} operands into padded storage")
 
 
+def _assert_no_b1_copies(what: str) -> None:
+    """The or-and wrapper made no K-major copy: evalDG reads D as the
+    paths store it (the skinny route), so a one-shot path makes none."""
+    n = _counted()["or_and_matmul"].copies
+    if n:
+        raise AssertionError(f"{what}: the or-and wrapper made {n} K-major "
+                             "copies")
+
+
 def _launches():
-    return {name: ops.launches for name, ops in _counted().items()}
+    """Launches by kernel since the last reset: ``or_and_skinny`` counts
+    the or-and kernel's skinny route apart (those launches are in
+    ``or_and_matmul`` too), and ``or_and_copies`` the or-and wrapper's
+    K-major copies."""
+    counts = {name: ops.launches for name, ops in _counted().items()}
+    bops = _counted()["or_and_matmul"]
+    counts["or_and_skinny"] = bops.skinny_launches
+    counts["or_and_copies"] = bops.copies
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -590,9 +621,59 @@ def phase_parity() -> None:
                      min_plus_matmul(a, b[:, ::2]),
                      min_plus_matmul_ref(a, b[:, ::2]))
         n += 2
+    n += _parity_or_and_skinny(dev)
     n += _parity_min_plus_routes(dev)
     n += _parity_bitpack(dev)
     print(f"parity: {n} kernel calls bit-equal to their plain versions")
+
+
+# the or-and kernel's skinny route: up to 8 rows, N ragged around the
+# 16-byte column groups, K around the 128-row chunks (0 included)
+OR_AND_SKINNY = [(1, 0, 17), (1, 33, 1), (2, 129, 15), (3, 1000, 1037),
+                 (8, 20011, 1037), (1, 4099, 16041)]
+
+
+def _parity_or_and_skinny(dev) -> int:
+    """The skinny route on ``b`` in padded storage whose pad bytes are set
+    (the kernel must not read them) and a strided left operand, for
+    frontiers all zero, one-hot, all ones and random, with and without
+    ``init``: bit-equal to the plain version, C's pads zero, one skinny
+    launch and no copy a call."""
+    import torch
+    from repro_torch.kernels.bool_matmul import (or_and_matmul,
+                                                 or_and_matmul_ref, pitch)
+    from repro_torch.kernels.bool_matmul import ops as bops
+    n = 0
+    for si, (m, k, n_) in enumerate(OR_AND_SKINNY):
+        rng = np.random.default_rng([SEED, si, 13])
+        bv = torch.tensor(rng.random((k, n_)) < 0.05, device=dev)
+        b = torch.ones((k, pitch(n_)), dtype=torch.bool,
+                       device=dev)[:, :n_].copy_(bv)
+        one_hot = np.zeros((m, k), dtype=bool)
+        if k:
+            one_hot[np.arange(m), rng.integers(0, k, m)] = True
+        init = torch.tensor(rng.random((m, n_)) < 0.2, device=dev)
+        for name, x in (("zero", np.zeros((m, k), dtype=bool)),
+                        ("one_hot", one_hot),
+                        ("ones", np.ones((m, k), dtype=bool)),
+                        ("random", rng.random((m, k)) < 0.01)):
+            a = torch.tensor(x.T.copy(), device=dev).T
+            for given in (None, init):
+                before = (bops.launches, bops.skinny_launches, bops.copies)
+                got = or_and_matmul(a, b, init=given)
+                if (bops.launches - before[0], bops.skinny_launches
+                        - before[1], bops.copies - before[2]) != (1, 1, 0):
+                    raise AssertionError(f"or_and skinny {m}x{k}x{n_}: not "
+                                         "one skinny launch without a copy")
+                what = (f"or_and skinny {m}x{k}x{n_} {name} init "
+                        f"{given is not None}")
+                _check_equal(what, got, or_and_matmul_ref(a, bv, init=given))
+                pads = got.as_strided((m, got.stride(0)),
+                                      (got.stride(0), 1))[:, n_:]
+                if pads.any():
+                    raise AssertionError(f"{what}: pad bytes set")
+                n += 1
+    return n
 
 
 # min-plus shapes on both routes with K split over many blocks (skinny) and
@@ -766,6 +847,9 @@ def phase_main(out: dict):
     for name in ("or_and_matmul", "min_plus_matmul"):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
+    if squarings["or_and_skinny"] or launches["or_and_skinny"]:
+        raise AssertionError("the closure squarings or the composes took the "
+                             "or-and skinny route")
     _assert_no_copies("main path")
     checked = _check_reach_dist(g, queries, results)
     print(f"main: cache build (warm, reach + dist) {warm_ms:.1f} ms; "
@@ -934,7 +1018,8 @@ def phase_main(out: dict):
          "squarings": squarings["min_plus_matmul"]},
     ]
     out["main"] = {"warm_ms": warm_ms, "run_ms": run_ms,
-                   "per_query_us": per_query_us, "nb": nb}
+                   "per_query_us": per_query_us, "nb": nb,
+                   "launches": launches}
     return g, fr, queries, results
 
 
@@ -1254,12 +1339,11 @@ ONESHOT_REGEX = "(0|1)* 2"
 def _split_one_shot(fr, s, t, kind, qa=None):
     """One one-shot query taken apart as ``session.exec_*`` runs it, with
     CUDA events around its stages: the local stage (localEval on every
-    fragment and the assembly of D), the K-major copy of D (Boolean kinds)
-    and the evalDG steps (counted by the kernel's launches).  Returns the
-    split, the answer and the operands of one evalDG step."""
+    fragment and the assembly of D, zero-padded as the paths make it) and
+    the evalDG steps (counted by the kernel's launches), which read D as
+    it is stored.  Returns the split, the answer, D and the source rows."""
     import torch
     from repro_torch.core import engine, session as S
-    from repro_torch.kernels.bool_matmul import kmajor_copy
     from repro_torch.kernels.bool_matmul import ops as bops
     from repro_torch.kernels.tropical_matmul import ops as tops
     dev = torch.device("cuda")
@@ -1273,7 +1357,7 @@ def _split_one_shot(fr, s, t, kind, qa=None):
     if kind == "reach":
         rows, block = engine.local_eval_reach(*a, s_local, t_local,
                                               n_max=fr.n_max, B=fr.B)
-        D = torch.zeros((fr.B, fr.B), dtype=torch.bool, device=dev)
+        D = bops.padded_zeros(fr.B, fr.B, dev)
         D[rows] = block
         del block
     elif kind == "dist":
@@ -1291,23 +1375,91 @@ def _split_one_shot(fr, s, t, kind, qa=None):
             n_max=fr.n_max, B=fr.B, side=fr.B * Q)
     src = S._src_rows(fr, dev, Q, start)
     tgt = S._tgt_cols(fr, t, dev, Q, final)
-    Dt = None
-    if kind != "dist":
-        clock("kmajor_copy")
-        Dt = kmajor_copy(D.T)
     clock("evaldg")
     counter = tops if kind == "dist" else bops
     before = counter.launches
     if kind == "dist":
         ans = engine.evaldg_dist(D, src, tgt)
     else:
-        ans = engine.evaldg_reach(D, src, tgt, Dt=Dt)
+        ans = engine.evaldg_reach(D, src, tgt)
     steps = counter.launches - before
     clock("end")
     split = clock.ms()
     split["steps"] = steps
     split["ms_per_step"] = split["evaldg"] / max(steps, 1)
-    return split, ans, D, Dt, src
+    return split, ans, D, src, tgt
+
+
+def _evaldg_timed(name, D, src, tgt, want, reps=3) -> dict:
+    """The whole evalDG fixpoint of a checked query (its answer ``want``)
+    on the card, CUDA events around ``reps`` runs, beside the bound of the
+    bytes its steps need: each step reads the rows of D that its frontier
+    x holds, x and writes one row, sum(nnz(x) N + K + N)."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels.bool_matmul import ops as bops
+    from repro_torch.kernels.bool_matmul import or_and_matmul
+    K, N = D.shape
+    nnz = []
+    x = src.clone()
+    while True:                                 # the fixpoint's own steps
+        nnz.append(int(x.sum()))
+        nxt = or_and_matmul(x[None, :], D, init=x[None, :])[0]
+        if torch.equal(nxt, x):
+            break
+        x = nxt
+    before = (bops.launches, bops.skinny_launches, bops.copies)
+    ms, ans = cuda_timed(lambda: engine.evaldg_reach(D, src, tgt), reps)
+    runs = reps + 1                             # with the warm-up
+    steps = (bops.launches - before[0]) / runs
+    if ans is not want or steps != len(nnz):
+        raise AssertionError(f"{name}: evalDG gave {ans} in {steps} steps, "
+                             f"expected {want} in {len(nnz)}")
+    if (bops.skinny_launches - before[1]) / runs != steps or \
+            bops.copies != before[2]:
+        raise AssertionError(f"{name}: evalDG left the skinny route")
+    nbytes = sum(r * N + K + N for r in nnz)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"time {name} fixpoint: {ms:.4f} ms in {len(nnz)} steps (frontier "
+          f"rows {nnz}), bound {bound_ms:.4f} ms (bytes {nbytes}), "
+          f"{100 * bound_ms / ms:.2f} %")
+    return {"ms": ms, "steps": len(nnz), "frontier_rows": nnz,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes}
+
+
+def _dense_step(name, D, reps=20) -> dict:
+    """evalDG's step on D as stored with every row of x set, so that every
+    row of D is read: the skinny route against its plain version
+    (bit-equal), its bound (K N + K + N bytes), the library call
+    ``(x.half() @ D.half()) > 0``, and the tile route on the same x
+    through D^T (its K-major copy made once, outside the timing)."""
+    import torch
+    from repro_torch.kernels.bool_matmul import (kmajor_copy, or_and_matmul,
+                                                 or_and_matmul_nt,
+                                                 or_and_matmul_ref)
+    from repro_torch.kernels.bool_matmul import ops as bops
+    K, N = D.shape
+    x = bops.padded_zeros(1, K, D.device)
+    x[:] = True
+    before = bops.skinny_launches
+    Dh = D.half()
+    entry = _time_shape(f"{name} step", "or_and",
+                        lambda: or_and_matmul(x, D),
+                        lambda: or_and_matmul_ref(x, D),
+                        lambda: (x.half() @ Dh) > 0, 1, K, N, 0.0,
+                        reps=reps)
+    del Dh
+    if bops.skinny_launches == before:
+        raise AssertionError(f"{name} step: not on the skinny route")
+    entry["route"] = bops._card_route(0, 1, K, N, True)._asdict()
+    Dt = kmajor_copy(D.T)
+    entry["tile_ms"], got = cuda_timed(lambda: or_and_matmul_nt(x, Dt), reps)
+    _check_equal(f"{name} step, tile route", got, or_and_matmul_ref(x, D))
+    del Dt, got
+    torch.cuda.empty_cache()
+    print(f"time {name} step: skinny {entry['ms']:.4f} ms, tile route "
+          f"through D^T {entry['tile_ms']:.4f} ms, route {entry['route']}")
+    return entry
 
 
 def _rpq_targets(g, s: int, qa) -> np.ndarray:
@@ -1360,8 +1512,6 @@ def phase_oneshot(out: dict, g, fr) -> None:
     import repro_torch
     from repro_torch import Rpq
     from repro_torch.core import distributed as Dd
-    from repro_torch.kernels.bool_matmul import (or_and_matmul_nt,
-                                                 or_and_matmul_ref)
     from repro_torch.kernels.tropical_matmul import (min_plus_matmul,
                                                      min_plus_matmul_ref)
 
@@ -1380,11 +1530,12 @@ def phase_oneshot(out: dict, g, fr) -> None:
     results = sess.run(queries)
     run_ms = (time.perf_counter() - t0) * 1e3
     launches = _launches()
-    for name in ("or_and_matmul", "min_plus_matmul"):
+    for name in ("or_and_matmul", "min_plus_matmul", "or_and_skinny"):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the one-shot "
                                  "path")
     _assert_no_copies("one-shot path")
+    _assert_no_b1_copies("one-shot path")
     if any(r.cache_version is not None for r in results):
         raise AssertionError("an uncached result carries a cache version")
     for q, r in zip(queries, results):
@@ -1404,9 +1555,10 @@ def phase_oneshot(out: dict, g, fr) -> None:
     rpq_results = sess.run(rpqs)
     rpq_ms = (time.perf_counter() - t0) * 1e3
     rpq_launches = _launches()
-    if rpq_launches["or_and_matmul"] == 0:
-        raise AssertionError("or_and_matmul never launched on the one-shot "
-                             "RPQ path")
+    if rpq_launches["or_and_skinny"] == 0:
+        raise AssertionError("the or-and skinny route never launched on the "
+                             "one-shot RPQ path")
+    _assert_no_b1_copies("one-shot RPQ path")
     for q, r in zip(rpqs, rpq_results):
         want = _rpq_oracle(g, q.s, q.t, qa)
         if r.answer != want:
@@ -1416,17 +1568,18 @@ def phase_oneshot(out: dict, g, fr) -> None:
         raise AssertionError("no one-shot RPQ answered True")
     side = fr.B * qa.n_states
     print(f"oneshot: {len(rpqs)} Rpq {ONESHOT_REGEX!r} at full size (D "
-          f"[{side}]^2, {side * side / 1e9:.2f} GB, and its K-major copy) "
+          f"[{side}]^2, {side * side / 1e9:.2f} GB, read as stored) "
           f"{rpq_ms:.1f} ms; launches {rpq_launches}; answers "
           f"{[r.answer for r in rpq_results]} match the product-graph BFS")
 
     # the per-query time split, one query of each kind
     split = {}
     s, t = int(pairs[0, 0]), int(pairs[0, 1])
-    split["reach"], ans, D, Dt, src = _split_one_shot(fr, s, t, "reach")
-    x = src | or_and_matmul_nt(src[None, :], Dt)[0]    # one step's vector
+    split["reach"], ans, D, src, tgt = _split_one_shot(fr, s, t, "reach")
+    if ans != results[0].answer:
+        raise AssertionError("the split reach query disagrees with the run")
     sd, td = int(pairs[half, 0]), int(pairs[half, 1])
-    split["dist"], _, W, _, srcd = _split_one_shot(fr, sd, td, "dist")
+    split["dist"], _, W, srcd, _ = _split_one_shot(fr, sd, td, "dist")
     from repro_torch.core.engine import INF
     from repro_torch.kernels.tropical_matmul import ops as tops
     # one step's vector, in padded storage as evaldg_dist keeps it
@@ -1434,8 +1587,10 @@ def phase_oneshot(out: dict, g, fr) -> None:
     d.masked_fill_(srcd, 0)
     d = min_plus_matmul(d[None, :], W, init=d[None, :])[0]
     sr, tr = int(rpq_pairs[0, 0]), int(rpq_pairs[0, 1])
-    split["rpq"], _, Dq, Dqt, _ = _split_one_shot(fr, sr, tr, "rpq", qa)
-    del Dq, Dqt
+    split["rpq"], ans_q, Dq, _, _ = _split_one_shot(fr, sr, tr, "rpq", qa)
+    if ans_q != rpq_results[0].answer:
+        raise AssertionError("the split RPQ disagrees with the run")
+    del Dq
     torch.cuda.empty_cache()
     for kind, sp in split.items():
         print(f"oneshot: {kind} query split (ms) "
@@ -1446,6 +1601,7 @@ def phase_oneshot(out: dict, g, fr) -> None:
     sharded = {}
     Dd.collectives = Dd.payload_bits = 0
     torch.cuda.synchronize()
+    _reset_launches()
     t0 = time.perf_counter()
     ans_s, D_host = Dd.dis_reach_sharded(fr, s, t)
     sharded["reach_ms"] = (time.perf_counter() - t0) * 1e3
@@ -1468,30 +1624,49 @@ def phase_oneshot(out: dict, g, fr) -> None:
     if ans_q != rpq_results[0].answer:
         raise AssertionError("dis_rpq_sharded disagrees with exec_rpq")
     sharded["rpq_bits"] = Dd.payload_bits
+    sharded["launches"] = _launches()
+    if sharded["launches"]["or_and_skinny"] == 0:
+        raise AssertionError("the sharded one-shot functions never took the "
+                             "or-and skinny route")
+    _assert_no_b1_copies("dis_reach_sharded / dis_rpq_sharded")
     torch.cuda.empty_cache()
     print(f"oneshot: dis_reach_sharded {sharded['reach_ms']:.1f} ms and "
           f"dis_rpq_sharded {sharded['rpq_ms']:.1f} ms on the one-rank "
           f"NCCL group, one collective each of {sharded['reach_bits']} and "
           f"{sharded['rpq_bits']} bits (traffic_bits); answers equal to "
-          "exec_reach / exec_rpq, D bit-equal")
+          f"exec_reach / exec_rpq, D bit-equal; launches "
+          f"{sharded['launches']}")
 
-    # the new launch shapes: evalDG's vector-matrix steps, M = 1
+    # the new launch shapes: evalDG's vector-matrix steps, M = 1; the
+    # or-and step on D as stored, with every row of x set, and the whole
+    # fixpoint of the split query against the rows its frontiers hold
     B = fr.B
     dpx = out["kernels"][1]["dpx_ops_per_s"]
-    Dh = D.half()
-    xr = x[None, :]
-    shapes = {"or_and_matmul": [_time_shape(
-        "evaldg_reach step", "or_and",
-        lambda: or_and_matmul_nt(xr, Dt), lambda: or_and_matmul_ref(xr, D),
-        lambda: (xr.half() @ Dh) > 0, 1, B, B, dpx)],
-        "min_plus_matmul": [_time_shape(
-            "evaldg_dist step", "min_plus",
-            lambda: min_plus_matmul(d[None, :], W, init=d[None, :]),
-            lambda: min_plus_matmul_ref(d[None, :], W, d[None, :]), None,
-            1, B, B, dpx, former=(d[None, :], W, d[None, :], 20),
-            floor=True)]}
-    del Dh, D, Dt, W
+    fixpoint = _evaldg_timed("evaldg_reach", D, src, tgt, ans)
+    step = _dense_step("evaldg_reach", D)
+    step["fixpoint"] = fixpoint
+    shapes = {"or_and_skinny": [step],
+              "min_plus_matmul": [_time_shape(
+                  "evaldg_dist step", "min_plus",
+                  lambda: min_plus_matmul(d[None, :], W, init=d[None, :]),
+                  lambda: min_plus_matmul_ref(d[None, :], W, d[None, :]),
+                  None, 1, B, B, dpx, former=(d[None, :], W, d[None, :], 20),
+                  floor=True)]}
+    del D, W
     torch.cuda.empty_cache()
+    # the or-and kernel's second route has a source of its own; its path is
+    # the one-shot one, and its launches are that run's
+    out["kernels"].append(
+        {"name": "or_and_skinny", "route": "cuda",
+         "source": "src/repro_torch/kernels/bool_matmul/csrc/or_and_skinny.cu",
+         "replaces": "src/repro/kernels/bool_matmul/bool_matmul.py:42",
+         "launches": launches["or_and_skinny"], "launches_path": "oneshot",
+         "max_abs_err": step["max_abs_err"], "ms": step["ms"],
+         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
+         "shape": step["shape"] + ", every row of x set",
+         "tile_route_ms": step["tile_ms"], "fixpoint": fixpoint,
+         **out["build"]["or_and_skinny"]})
     out["oneshot"] = {"run_ms": run_ms, "launches": launches,
                       "rpq_ms": rpq_ms, "rpq_launches": rpq_launches,
                       "split": split, "sharded": sharded, "shapes": shapes,
@@ -1693,6 +1868,9 @@ def phase_dynamic(out: dict, g):
         ms = (time.perf_counter() - t0) * 1e3
         launches = _launches()
         _assert_no_copies(f"dynamic {label} delta")
+        if launches["or_and_skinny"]:
+            raise AssertionError(f"dynamic {label} delta: the rank update "
+                                 "took the or-and skinny route")
         applies.append({"delta": label, "mode": stats.mode, "ms": ms,
                         "changed_rows": stats.changed_rows,
                         "new_boundary": stats.new_boundary,
@@ -2401,6 +2579,10 @@ def phase_baselines(out: dict, g, fr) -> None:
             rows[name].append({"ms": ms, "traffic_bits": counts[0],
                                "site_visits": counts[1], "rounds": counts[2]})
     launches = _launches()
+    if launches["or_and_skinny"] == 0:
+        raise AssertionError("the one-shot dis_reach beside the baselines "
+                             "never took the or-and skinny route")
+    _assert_no_b1_copies("baselines")
     summary = {}
     for name, rs in rows.items():
         summary[name] = {
@@ -2455,21 +2637,23 @@ def phase_baselines(out: dict, g, fr) -> None:
 # ---------------------------------------------------------------------------
 
 #: the reference stacks the k mapper outputs: k x (B*Q)^2 bytes at full
-#: size; the port's peak must stay far below it
-MR_PEAK_LIMIT = 32e9
+#: size; the port's peak must stay far below it.  With D read as stored
+#: (no D^T beside it) the peak is D, one mapper's temporaries and what the
+#: earlier phases keep, under 12 GB; a second 6.4 GB matrix would pass it
+MR_PEAK_LIMIT = 12e9
 
 
 def phase_mapreduce(out: dict, g, fr) -> None:
     """The one-shot phase's 4 RPQs ``(0|1)* 2`` through ``mr_drpq``: the
-    answers equal the one-shot RPQ's and the product-graph BFS; B1
-    launched; the device memory peak printed (the reference would stack
-    16 mapper outputs of 6.4 GB); the map / K-major copy / evalDG split;
-    B1 held against its plain version at the reducer's evalDG step."""
+    answers equal the one-shot RPQ's and the product-graph BFS; B1's
+    skinny route launched, no K-major copy; the device memory peak
+    printed (the reference would stack 16 mapper outputs of 6.4 GB); the
+    map / evalDG split; B1 held against its plain version at the reducer's
+    evalDG step, [1, 80205] x [80205, 80205] on D as stored, and the
+    reducer's whole fixpoint timed against the rows its frontiers hold."""
     import torch
     from repro_torch.core.automaton import build_query_automaton
     from repro_torch.core.mapreduce import mr_drpq
-    from repro_torch.kernels.bool_matmul import (or_and_matmul_nt,
-                                                 or_and_matmul_ref)
 
     qa = build_query_automaton(ONESHOT_REGEX, int)
     pairs = out["oneshot"]["rpq_pairs"]
@@ -2493,9 +2677,11 @@ def phase_mapreduce(out: dict, g, fr) -> None:
     run_ms = (time.perf_counter() - t0) * 1e3
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
-    if launches["or_and_matmul"] == 0:
-        raise AssertionError("or_and_matmul never launched on the MR reduce")
+    if launches["or_and_skinny"] == 0:
+        raise AssertionError("the or-and skinny route never launched on the "
+                             "MR reduce")
     _assert_no_copies("mapreduce")
+    _assert_no_b1_copies("mapreduce")
     if peak > MR_PEAK_LIMIT:
         raise AssertionError(f"mr_drpq peaked at {peak / 1e9:.2f} GB")
     stacked = fr.k * side * side
@@ -2511,36 +2697,33 @@ def phase_mapreduce(out: dict, g, fr) -> None:
           f"rvsets would be {stacked / 1e9:.1f} GB; ecc_bits "
           f"{results[0].ecc_bits}")
 
-    # the reducer's evalDG step, M = 1 at side B*Q, against its plain
-    # version (on the D of the first query, rebuilt here)
+    # the reducer's evalDG, M = 1 at side B*Q, on the D of the first
+    # query, rebuilt here
     s, t = pairs[0].tolist()
     keep = {}
     from repro_torch.core import engine
     orig = engine.evaldg_reach
 
-    def kept(D, src, tgt, Dt=None):
-        keep.update(D=D, Dt=Dt, src=src)
-        return orig(D, src, tgt, Dt=Dt)
+    def kept(D, src, tgt):
+        keep.update(D=D, src=src, tgt=tgt)
+        return orig(D, src, tgt)
 
     engine.evaldg_reach = kept
     try:
         mr_drpq(fr, s, t, qa)
     finally:
         engine.evaldg_reach = orig
-    D, Dt, x = keep["D"], keep["Dt"], keep["src"][None, :]
+    D, src, tgt = keep["D"], keep["src"], keep["tgt"]
     del keep
-    Dh = D.half()
-    dpx = out["kernels"][1]["dpx_ops_per_s"]
-    shape = _time_shape("mr evaldg step", "or_and",
-                        lambda: or_and_matmul_nt(x, Dt),
-                        lambda: or_and_matmul_ref(x, D),
-                        lambda: (x.half() @ Dh) > 0, 1, side, side, dpx)
-    del D, Dt, Dh, x
+    fixpoint = _evaldg_timed("mr evaldg", D, src, tgt, bool(want[0]))
+    shape = _dense_step("mr evaldg", D, reps=5)
+    shape["fixpoint"] = fixpoint
+    del D, src, tgt
     torch.cuda.empty_cache()
     out["mapreduce"] = {"run_ms": run_ms, "launches": launches,
                         "split_ms": split, "peak_bytes": peak,
                         "stacked_bytes": stacked,
-                        "shapes": {"or_and_matmul": [shape]}}
+                        "shapes": {"or_and_skinny": [shape]}}
 
 
 # ---------------------------------------------------------------------------
@@ -4708,6 +4891,26 @@ def _main(dry: list) -> int:
         k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
                            + out["dynamic"]["shapes"].get(name, [])
                            + out["mapreduce"]["shapes"].get(name, []))
+        if name == "or_and_matmul":
+            # the skinny route's launches within this kernel's, and the
+            # wrapper's K-major copies: 0 asserted on the one-shot,
+            # baselines and MR paths and the sharded one-shot functions
+            paths = {"main": out["main"]["launches"],
+                     "oneshot": out["oneshot"]["launches"],
+                     "oneshot_rpq": out["oneshot"]["rpq_launches"],
+                     "oneshot_sharded": out["oneshot"]["sharded"]["launches"],
+                     "baselines": out["baselines"]["launches"],
+                     "mapreduce": out["mapreduce"]["launches"],
+                     "verify": out["verify"]["launches"],
+                     "rpq": out["rpq"]["launches"],
+                     "serve_barrier": out["serve"]["barrier"]["launches"],
+                     **{f"dynamic_{mode}": n for mode, n in
+                        out["dynamic"]["launches_by_mode"].items()},
+                     **{f"sharded_repair_{mode}": n for mode, n in
+                        out["sharded_repair"]["launches_by_mode"].items()}}
+            k["skinny_launches"] = {p: n["or_and_skinny"]
+                                    for p, n in paths.items()}
+            k["copies"] = {p: n["or_and_copies"] for p, n in paths.items()}
         if name == "min_plus_matmul":
             shapes = {s["path"]: s for s in k["new_shapes"]}
             k["skinny_ms"] = shapes["evaldg_dist step"]["ms"]

@@ -62,6 +62,7 @@ import torch.distributed as dist
 from . import cache as _cache
 from . import engine
 from ..kernels.bitpack_ops.ops import pack_payload, unpack_payload
+from ..kernels.bool_matmul.ops import padded_zeros
 from .automaton import QueryAutomaton
 from .bes import bool_closure_kmajor, tropical_closure
 from .engine import INF
@@ -504,10 +505,13 @@ def _one_shot_inputs(fr: Fragmentation, s: int, t: int, group,
 
 def _merge_boolean(D: torch.Tensor, group) -> torch.Tensor:
     """The ONE collective: every rank's row-disjoint Boolean matrix,
-    bitpacked and merged with SUM (== OR, see the module docstring)."""
+    bitpacked and merged with SUM (== OR, see the module docstring).  The
+    merged matrix comes back in zero-padded storage, rows 16 bytes apart,
+    as evalDG's skinny route reads it."""
     words = pack_payload(D)
-    return unpack_payload(_all_reduce(words, dist.ReduceOp.SUM, group),
-                          D.shape[1])
+    merged = _all_reduce(words, dist.ReduceOp.SUM, group)
+    return unpack_payload(merged, D.shape[1],
+                          out=padded_zeros(*D.shape, D.device))
 
 
 def dis_reach_sharded(fr: Fragmentation, s: int, t: int, group=None,
@@ -527,7 +531,7 @@ def dis_reach_sharded(fr: Fragmentation, s: int, t: int, group=None,
     rows, block = engine.local_eval_reach(
         arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
         arrs["tgt_local"], s_local, t_local, n_max=fr.n_max, B=fr.B)
-    D = torch.zeros((fr.B, fr.B), dtype=torch.bool, device=dev)
+    D = padded_zeros(fr.B, fr.B, dev)
     D[rows] = block
     del block
     D = _merge_boolean(D, group)

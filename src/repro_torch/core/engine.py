@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
+from ..kernels.bool_matmul.ops import or_and_matmul, padded_zeros
 from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 
 INF = 1 << 29          # with int32 tensors; INF + INF still fits in int32
@@ -311,23 +311,22 @@ def local_eval_dist(esrc, edst, src_local, src_row, tgt_local, s_local,
 # evalDG: assembling at the coordinator (paper Fig. 4, Secs. 4-5)
 # ---------------------------------------------------------------------------
 
-def evaldg_reach(D, src_rows, tgt_cols, Dt=None) -> bool:
+def evaldg_reach(D, src_rows, tgt_cols) -> bool:
     """Single-source fixpoint on the dependency matrix D [B, B] bool:
     x := x | x (or-and) D until nothing changes (at most diam(G_f) steps,
     one host sync each), then whether any column in ``tgt_cols`` is
     reached.  src_rows / tgt_cols: bool masks [B].
 
-    Each step is one or-and vector-matrix product, M = 1, which takes D
-    K-major: ``Dt`` = D^T as :func:`~repro_torch.kernels.bool_matmul.ops.
-    kmajor_copy` makes it, copied here once when not given and reused by
-    every step."""
-    if Dt is None:
-        Dt = kmajor_copy(D.T)
+    Each step is one or-and vector-matrix product, M = 1, with x as its
+    ``init``.  On the card it takes the skinny route, which reads D as it
+    is stored and only the rows that x holds, when D's rows lie 16 bytes
+    apart: every path makes D that way
+    (:func:`~repro_torch.kernels.bool_matmul.ops.padded_zeros`)."""
     x = src_rows.clone()
     if bool(x.any()):
         with FIXPOINT:
             while True:
-                nxt = x | or_and_matmul_nt(x[None, :], Dt)[0]
+                nxt = or_and_matmul(x[None, :], D, init=x[None, :])[0]
                 if torch.equal(nxt, x):
                     break
                 x = nxt
@@ -521,9 +520,10 @@ def regular_rvset(esrc, edst, src_local, src_row, tgt_local, labels, gids,
     [side, side]: the first ``side`` rows and columns of the [(B*Q), (B*Q)]
     dependency matrix (``side = nb*Q`` cuts off the query slots).  Built
     one fragment at a time, so the product frontier of only one fragment
-    is alive at once; arguments as for :func:`local_eval_regular`, with
-    s_gid/t_gid scalars."""
-    D = torch.zeros((side, side), dtype=torch.bool, device=esrc.device)
+    is alive at once, into zero-padded storage (rows 16 bytes apart, as
+    evalDG's skinny route reads them); arguments as for
+    :func:`local_eval_regular`, with s_gid/t_gid scalars."""
+    D = padded_zeros(side, side, esrc.device)
     for f in range(esrc.shape[0]):
         one = slice(f, f + 1)
         rows, block = local_eval_regular(

@@ -46,7 +46,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt, pitch
+from ..kernels.bool_matmul.ops import (kmajor_copy, or_and_matmul_nt,
+                                       padded_zeros)
 from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 from . import bes, engine
 from .cache import _gather_boundary_matrix, _upload, prepare_rvset_cache
@@ -262,9 +263,7 @@ def gather_rows(fr: Fragmentation, bl, row_ids: np.ndarray):
 def _or_padded(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x | y`` in fresh padded storage (rows 16 bytes apart, zero pad),
     so the result stays a K-major operand of the or-and kernel."""
-    rows, cols = x.shape
-    buf = torch.zeros((rows, pitch(cols)), dtype=torch.bool, device=x.device)
-    return torch.bitwise_or(x, y, out=buf[:, :cols])
+    return torch.bitwise_or(x, y, out=padded_zeros(*x.shape, x.device))
 
 
 def _rank_update_bool(C, Ct, rows_new, idx):

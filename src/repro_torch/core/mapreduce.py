@@ -15,9 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-import torch
-
-from ..kernels.bool_matmul.ops import kmajor_copy
+from ..kernels.bool_matmul.ops import padded_zeros
 from . import engine
 from .automaton import QueryAutomaton
 from .cache import _upload, _upload_arrays
@@ -53,9 +51,9 @@ def mr_drpq(fr: Fragmentation, s: int, t: int, qa: QueryAutomaton,
     exactly one fragment (a write is the OR with zeros).
 
     ``mark(phase)`` is called as each phase begins (``"map"``,
-    ``"kmajor_copy"``: the K-major copy of D that the evalDG steps read,
     ``"evaldg"``) and once at the end (``"end"``); a caller can record
-    CUDA events there to time them.
+    CUDA events there to time them.  D is made in zero-padded storage, so
+    the evalDG steps read it as it is, with no copy.
 
     ``ecc_bits``, ``mapper_input_bits`` and ``reducer_input_bits`` are the
     cost model's counts, equal to the reference package's (the reducer's
@@ -74,7 +72,7 @@ def mr_drpq(fr: Fragmentation, s: int, t: int, qa: QueryAutomaton,
     # ---- map phase, one mapper per fragment (procedure mapRPQ), and the
     # shuffle to the single reducer (procedure reduceRPQ's union) ---------
     mark("map")
-    D = torch.zeros((side, side), dtype=torch.bool, device=dev)
+    D = padded_zeros(side, side, dev)       # as evalDG's skinny route reads
     for f in range(fr.k):
         one = slice(f, f + 1)
         rows, block = engine.local_eval_regular(
@@ -85,12 +83,10 @@ def mr_drpq(fr: Fragmentation, s: int, t: int, qa: QueryAutomaton,
         D[rows] = block
         del rows, block
 
-    # ---- reduce: evalDG_r on the union ----------------------------------
-    mark("kmajor_copy")
-    Dt = kmajor_copy(D.T)
+    # ---- reduce: evalDG_r on the union, reading D as it is stored -------
     mark("evaldg")
     ans = engine.evaldg_reach(D, _src_rows(fr, dev, Q, qa.start),
-                              _tgt_cols(fr, t, dev, Q, qa.final), Dt=Dt)
+                              _tgt_cols(fr, t, dev, Q, qa.final))
     mark("end")
 
     mapper_bits = int(fr.frag_sizes.max()) * 32

@@ -43,6 +43,7 @@ import torch.distributed as dist
 from . import cache as _cache
 from . import distributed, engine, incremental
 from ..errors import DeltaApplyFailed, NoCudaDevice, Status, is_device_fault
+from ..kernels.bool_matmul.ops import padded_zeros
 from ..kernels.tropical_matmul.ops import padded_i32
 from .automaton import QueryAutomaton, build_query_automaton
 from .engine import INF, QueryStats
@@ -510,7 +511,7 @@ def exec_reach(fr: Fragmentation, s: int, t: int,
     rows, block = engine.local_eval_reach(
         arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
         arrs["tgt_local"], s_local, t_local, n_max=fr.n_max, B=fr.B)
-    D = torch.zeros((fr.B, fr.B), dtype=torch.bool, device=dev)
+    D = padded_zeros(fr.B, fr.B, dev)       # as evalDG's skinny route reads
     D[rows] = block
     del block
     ans = engine.evaldg_reach(D, _src_rows(fr, dev), _tgt_cols(fr, t, dev))

@@ -30,6 +30,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 #: kernel name -> its source, relative to this package
 SOURCES = {
     "or_and_matmul": "bool_matmul/csrc/or_and_matmul.cu",
+    "or_and_skinny": "bool_matmul/csrc/or_and_skinny.cu",
     "min_plus_matmul": "tropical_matmul/csrc/min_plus_matmul.cu",
     "bitpack_matmul": "bitpack_ops/csrc/bitpack_matmul.cu",
     # throughput probe behind the min-plus bound (chip_smoke.py); no query

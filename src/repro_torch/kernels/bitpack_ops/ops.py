@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import Optional
 
 import torch
 
@@ -87,12 +88,19 @@ def pack_cols(b: torch.Tensor) -> torch.Tensor:
     return pack_rows(b.T).T.contiguous()
 
 
-def unpack_rows(ap: torch.Tensor, K: int) -> torch.Tensor:
-    """Inverse of :func:`pack_rows`.  ``(w >> b) & 1`` reads bit 31 right
-    even though int32 shifts are arithmetic.  Rows go in chunks
+def unpack_rows(ap: torch.Tensor, K: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse of :func:`pack_rows`, written into ``out`` (a bool [M, K]
+    tensor of any strides, such as a view of padded storage; a fresh
+    contiguous one when None) and returned.  ``(w >> b) & 1`` reads bit 31
+    right even though int32 shifts are arithmetic.  Rows go in chunks
     (:data:`CHUNK_ELEMENTS`)."""
     M, W = ap.shape
-    out = torch.empty((M, K), dtype=torch.bool, device=ap.device)
+    if out is None:
+        out = torch.empty((M, K), dtype=torch.bool, device=ap.device)
+    elif out.dtype != torch.bool or tuple(out.shape) != (M, K):
+        raise ValueError(f"out must be bool [{M}, {K}], got {out.dtype} "
+                         f"{tuple(out.shape)}")
     shifts = torch.arange(32, dtype=torch.int32, device=ap.device)
     for rows in _row_chunks(M, W * 32):
         bits = (ap[rows, :, None] >> shifts) & 1
@@ -106,9 +114,11 @@ def pack_payload(m: torch.Tensor) -> torch.Tensor:
     return pack_rows(m.bool())
 
 
-def unpack_payload(p: torch.Tensor, n_cols: int) -> torch.Tensor:
-    """Inverse of :func:`pack_payload` on the replicated side."""
-    return unpack_rows(p, n_cols)
+def unpack_payload(p: torch.Tensor, n_cols: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse of :func:`pack_payload` on the replicated side, into
+    ``out`` when given (:func:`unpack_rows`)."""
+    return unpack_rows(p, n_cols, out)
 
 
 @functools.cache

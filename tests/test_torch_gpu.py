@@ -24,9 +24,10 @@ from repro_torch.kernels.bitpack_ops import (bitpack_matmul,
                                              pack_rows, pack_rows_ref)
 from repro_torch.core.bes import bool_closure_kmajor
 from repro_torch.kernels.bool_matmul import ops as bops
-from repro_torch.kernels.bool_matmul import (is_kmajor, kmajor_copy,
-                                             or_and_matmul, or_and_matmul_nt,
-                                             or_and_matmul_ref, pitch)
+from repro_torch.kernels.bool_matmul import (is_kmajor, or_and_matmul,
+                                             or_and_matmul_nt,
+                                             or_and_matmul_ref, padded_zeros,
+                                             pitch, rows_aligned)
 from repro_torch.kernels.tropical_matmul import ops as tops
 from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
                                                  min_plus_matmul_ref)
@@ -123,6 +124,99 @@ def test_or_and_wgmma_unaligned_operands(cuda):
     assert torch.equal(or_and_matmul(a, b), want)
     assert torch.equal(or_and_matmul(a.T.contiguous().T, b), want)
     assert torch.equal(or_and_matmul_nt(a, b.T), want)
+
+
+# the skinny route (or_and_skinny.cu): M up to 8 rows, N ragged around the
+# 16-byte column groups, K around the 32-row warps and the 128-row chunks
+SKINNY_M = [1, 2, 3, 8]
+SKINNY_N = [1, 15, 16, 17, 1037]
+SKINNY_K = [0, 31, 32, 33, 129, 20000]
+
+
+def _frontiers(rng, m, k):
+    """Left operands of the skinny sweep: all zero, one-hot rows, all
+    ones and random."""
+    one_hot = np.zeros((m, k), dtype=bool)
+    if k:
+        one_hot[np.arange(m), rng.integers(0, k, m)] = True
+    return {"zero": np.zeros((m, k), dtype=bool), "one_hot": one_hot,
+            "ones": np.ones((m, k), dtype=bool),
+            "random": rng.random((m, k)) < 0.05}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", SKINNY_K)
+@pytest.mark.parametrize("n", SKINNY_N)
+@pytest.mark.parametrize("m", SKINNY_M)
+def test_or_and_skinny_matches_plain(cuda, m, n, k):
+    """The skinny route on b as it is stored, rows 16 bytes apart and pad
+    bytes set (they must not be read): bit-equal to the plain version for
+    each kind of frontier, with and without init, through a left operand
+    that is a strided view; C's pad bytes zero; one skinny launch and no
+    copy a call."""
+    rng = np.random.default_rng([m, n, k])
+    bv = torch.tensor(rng.random((k, n)) < 0.1, device=cuda)
+    store = torch.ones((k, pitch(n)), dtype=torch.bool, device=cuda)
+    b = store[:, :n].copy_(bv)                      # pads hold ones
+    assert rows_aligned(b)
+    for name, x in _frontiers(rng, m, k).items():
+        a = torch.tensor(x.T.copy(), device=cuda).T  # column-major view
+        init = torch.tensor(rng.random((m, n)) < 0.3, device=cuda)
+        for given in (None, init):
+            before = (bops.launches, bops.skinny_launches, bops.copies)
+            got = or_and_matmul(a, b, init=given)
+            assert (bops.launches - before[0], bops.skinny_launches
+                    - before[1], bops.copies - before[2]) == (1, 1, 0), name
+            assert torch.equal(got, or_and_matmul_ref(a, bv, init=given)), \
+                (name, given is None)
+            assert got.stride(0) == pitch(n)
+            assert not _storage(got)[:, n:].any(), name
+
+
+@pytest.mark.gpu
+def test_or_and_skinny_unaligned_b_takes_one_counted_copy(cuda):
+    """M = 1 with b's rows not 16 bytes apart: the tile route through one
+    counted copy of b^T, and the same bits as the skinny route on an
+    aligned copy of b."""
+    rng = np.random.default_rng(21)
+    k, n = 300, 1037
+    bv = torch.tensor(rng.random((k, n)) < 0.05, device=cuda)
+    a = padded_zeros(1, k, cuda)
+    a[0, rng.integers(0, k, 9)] = True
+    init = torch.tensor(rng.random((1, n)) < 0.3, device=cuda)
+    assert not rows_aligned(bv) and bops._route(1, k, n, False).kind == "tile"
+    before = (bops.launches, bops.skinny_launches, bops.copies)
+    got = or_and_matmul(a, bv, init=init)
+    assert (bops.launches - before[0], bops.skinny_launches - before[1],
+            bops.copies - before[2]) == (1, 0, 1)
+    want = or_and_matmul_ref(a, bv, init=init)
+    assert torch.equal(got, want)
+    b = padded_zeros(k, n, cuda).copy_(bv)
+    assert torch.equal(or_and_matmul(a, b, init=init), want)
+    assert bops.skinny_launches - before[1] == 1
+
+
+@pytest.mark.gpu
+def test_skinny_launches_on_evaldg_not_on_squaring(cuda):
+    """evalDG on a padded D launches only the skinny route; the closure's
+    squarings and a batch compose launch only the tile route."""
+    rng = np.random.default_rng(22)
+    B = 1037
+    D = padded_zeros(B, B, cuda).copy_(
+        torch.tensor(rng.random((B, B)) < 2.0 / B, device=cuda))
+    src = torch.zeros(B, dtype=torch.bool, device=cuda)
+    src[5] = True
+    tgt = torch.ones(B, dtype=torch.bool, device=cuda)
+    before = (bops.launches, bops.skinny_launches, bops.copies)
+    assert engine.evaldg_reach(D, src, tgt) is engine.evaldg_reach(
+        D.cpu(), src.cpu(), tgt.cpu())
+    steps = bops.launches - before[0]
+    assert steps > 1 and bops.skinny_launches - before[1] == steps
+    assert bops.copies == before[2]
+    before = (bops.launches, bops.skinny_launches)
+    C, Ct = bool_closure_kmajor(D)
+    or_and_matmul_nt(D[:256], Ct)
+    assert bops.launches > before[0] and bops.skinny_launches == before[1]
 
 
 @pytest.mark.gpu
@@ -285,8 +379,9 @@ def _dist_matrix(rng, m, n, density):
 @pytest.mark.parametrize("B", [2, 300, 1037])
 def test_evaldg_on_card_matches_cpu(cuda, B):
     """evalDG's vector-matrix steps (M = 1) on the card: the or-and steps
-    through one K-major copy of D, given or made, and the min-plus steps,
-    equal to the CPU; one launch per step."""
+    on D as it is stored, padded (the skinny route, no copy) or not (the
+    tile route through a copy of D^T), and the min-plus steps, equal to
+    the CPU; one launch per step."""
     rng = np.random.default_rng(B)
     D = rng.random((B, B)) < 3.0 / B
     W = _dist_matrix(rng, B, B, 3.0 / B)
@@ -297,13 +392,16 @@ def test_evaldg_on_card_matches_cpu(cuda, B):
         args = [torch.tensor(x) for x in (D, src, tgt)]
         want = engine.evaldg_reach(*args)
         Dc = args[0].to(cuda)
-        Dt = kmajor_copy(Dc.T)
-        for given in (None, Dt):
-            before = bops.launches
-            got = engine.evaldg_reach(Dc, args[1].to(cuda), args[2].to(cuda),
-                                      Dt=given)
+        Dp = padded_zeros(B, B, cuda).copy_(Dc)
+        for Dm in (Dc, Dp):
+            before = (bops.launches, bops.skinny_launches, bops.copies)
+            got = engine.evaldg_reach(Dm, args[1].to(cuda), args[2].to(cuda))
             assert got is want
-            assert bops.launches > before
+            steps = bops.launches - before[0]
+            assert steps > 0
+            if Dm is Dp or rows_aligned(Dc):
+                assert bops.skinny_launches - before[1] == steps
+                assert bops.copies == before[2]
         args = [torch.tensor(x) for x in (W, src, tgt)]
         before = tops.launches
         got = engine.evaldg_dist(*(a.to(cuda) for a in args))

@@ -34,6 +34,7 @@ from repro_torch.core import session as tsession
 from repro_torch.core.engine import INF
 from repro_torch.core.fragments import fragment_graph, query_slots
 from repro_torch.graph import erdos_renyi, random_partition
+from repro_torch.kernels.bool_matmul import padded_zeros
 
 from oracles import oracle_dist, oracle_reach, oracle_rpq
 
@@ -184,8 +185,8 @@ def test_local_eval_regular_matches_reference(case, regex):
 @pytest.mark.parametrize("B,density", [(9, 0.2), (70, 0.03)])
 def test_evaldg_matches_reference(B, density):
     """Single-source fixpoints on random dependency matrices: the or-and
-    vector-matrix steps (through one K-major copy of D, given or made) and
-    the min-plus steps agree with JAX's evaldg_reach / evaldg_dist."""
+    vector-matrix steps (on D as it is stored, padded or not) and the
+    min-plus steps agree with JAX's evaldg_reach / evaldg_dist."""
     rng = np.random.default_rng(B)
     D = rng.random((B, B)) < density
     W = np.where(rng.random((B, B)) < density,
@@ -198,10 +199,10 @@ def test_evaldg_matches_reference(B, density):
             src[:] = False                                 # nothing to start
         want = bool(jengine.evaldg_reach(jnp.asarray(D), jnp.asarray(src),
                                          jnp.asarray(tgt)))
-        Dt = torch.tensor(D.T.copy())
-        for given in (None, Dt):
-            assert tengine.evaldg_reach(torch.tensor(D), torch.tensor(src),
-                                        torch.tensor(tgt), Dt=given) is want
+        for Dm in (torch.tensor(D),
+                   padded_zeros(B, B, "cpu").copy_(torch.tensor(D))):
+            assert tengine.evaldg_reach(Dm, torch.tensor(src),
+                                        torch.tensor(tgt)) is want
         want = int(jengine.evaldg_dist(jnp.asarray(W), jnp.asarray(src),
                                        jnp.asarray(tgt)))
         assert tengine.evaldg_dist(torch.tensor(W), torch.tensor(src),
