@@ -22,7 +22,12 @@ non-zero and prints no result line):
              and words whose bit 31 is set; the or-and kernel's skinny
              route (``csrc/or_and_skinny.cu``, up to 8 rows, b read as
              stored with its pad bytes set) with frontiers all zero,
-             one-hot, all ones and random, with and without ``init``.
+             one-hot, all ones and random, with and without ``init``;
+             the two evalDG fixpoint kernels (``or_and_fixpoint``,
+             ``min_plus_fixpoint``), x / d and the steps, on random D and
+             W at B = 2, 300 and 1037, an empty source, a source that
+             covers every column, a row of D all true, a D and a W not in
+             padded storage (one counted copy each) and a 1024-node chain.
 3. main    — the query path at full size: an Erdos-Renyi graph of 16384
              nodes and 65536 edges over 8 labels, randomly cut into 16
              fragments; ``repro_torch.connect(fr)``, ``warm(with_dist=True)``,
@@ -48,17 +53,19 @@ non-zero and prints no result line):
 5. oneshot — the paper's one-shot algorithms on the same graph,
              ``connect(fr, cache="none")``: 16 Reach and 16 Dist (8 bounded)
              checked against the host BFS and 4 Rpq ``(0|1)* 2`` (D is a
-             6.4 GB matrix) against a product-graph BFS, both kernels
-             launched, the or-and evalDG steps on its skinny route with no
-             K-major copy of D (``copies`` 0); one query of each kind split
-             into local stage and evalDG steps; ``dis_reach_sharded`` and
-             ``dis_rpq_sharded`` on the NCCL group, one collective of
-             ``traffic_bits`` bits each, no copy; both kernels held against
+             6.4 GB matrix) against a product-graph BFS, each evalDG one
+             fixpoint launch with no per-step product and no copy of D or
+             W (``copies`` 0); one query of each kind split into local
+             stage and evalDG (its steps as the kernel counts them);
+             ``dis_reach_sharded`` and ``dis_rpq_sharded`` on the NCCL
+             group, one collective of ``traffic_bits`` bits each, one
+             fixpoint launch each, no copy; both products held against
              their plain versions at evalDG's vector-matrix shape, M = 1
              (the or-and step on D as stored with every row of x set,
-             beside the tile route through D^T), and the or-and fixpoint
-             of the split query timed against the rows its frontiers
-             hold.
+             beside the tile route through D^T); and both fixpoint kernels
+             on the split queries, against their plain versions and timed
+             beside the bytes they read (each step's new rows), the empty
+             step of the grid-barrier probe and the engine's evalDG.
 6. dynamic — graph deltas at full size through ``session.apply`` on a warm
              amortized session (reserves 64 boundary slots, 256 edges and
              64 stubs): a stream that reaches repair, repair with new
@@ -92,17 +99,19 @@ non-zero and prints no result line):
 8. baselines — the paper's baselines on the main graph: 16 seeded pairs
              through ``dis_reach_n``, ``dis_reach_m`` and the one-shot
              ``dis_reach``, each answer checked against the host BFS, with
-             rounds, site visits and traffic bits; then a 1024-node chain
-             dealt round-robin over 16 fragments, where ``dis_reach_m``
-             must take more than k rounds and ``dis_reach`` one.
+             rounds, site visits and traffic bits, each one-shot evalDG
+             one fixpoint launch; then a 1024-node chain dealt round-robin
+             over 16 fragments, where ``dis_reach_m`` must take more than
+             k rounds and ``dis_reach`` one, whose fixpoint (about 1000
+             steps) is timed alone.
 9. mapreduce — the one-shot phase's 4 RPQs through ``mr_drpq``: answers
-             equal to the one-shot RPQ's and the product-graph BFS, the
-             or-and skinny route launched with no K-major copy, the
+             equal to the one-shot RPQ's and the product-graph BFS, each
+             reducer's evalDG one fixpoint launch with no copy, the
              device memory peak below 12 GB (the reference stacks 103 GB
              of mapper outputs), the time split into map and evalDG; the
              skinny route held against its plain version at the reducer's
              evalDG step, [1, 80205] x [80205, 80205] on D as stored, and
-             the reducer's fixpoint timed against the rows it reads.
+             the reducer's fixpoint kernel timed against the rows it reads.
 10. sharded repair — ``session.apply`` on a ``backend="shard_map"``
              session over the NCCL group with a reach-only cache and the
              dynamic phase's reserves: inserts in one fragment, cross
@@ -225,10 +234,12 @@ non-zero and prints no result line):
              and is printed on a line.
 
 The min-plus wrapper's operand copies are asserted 0 on the main,
-one-shot, dynamic and serve paths as well; the or-and wrapper's K-major
-copies (``or_and_copies``) on the one-shot, baselines and MapReduce paths
-and the sharded one-shot functions, and its skinny launches
-(``or_and_skinny``) 0 on the main and dynamic paths.  When the source of an earlier
+one-shot, dynamic and serve paths as well; the or-and wrapper's copies
+(``or_and_copies``) on the one-shot, baselines and MapReduce paths and the
+sharded one-shot functions, and its skinny launches (``or_and_skinny``) 0
+on those and on the main and dynamic paths: since the fixpoint kernels
+(``or_and_fixpoint``, ``min_plus_fixpoint``) run evalDG, no query path
+launches that route.  When the source of an earlier
 min-plus kernel is put at ``build/former/min_plus_matmul.cu``, it is
 built in the build phase and timed beside the current kernel at every
 min-plus shape (``former_ms``).
@@ -474,13 +485,15 @@ def _counted():
 
 
 def _reset_launches():
-    """Set every kernel's launch count (the or-and skinny route's too), and
-    both wrappers' operand copy counts, to 0."""
+    """Set every kernel's launch count (the or-and skinny route's and both
+    fixpoint kernels' too), and both wrappers' operand copy counts, to
+    0."""
     for ops in _counted().values():
         ops.launches = 0
-    _counted()["min_plus_matmul"].copies = 0
+    tops = _counted()["min_plus_matmul"]
+    tops.copies = tops.fixpoint_launches = 0
     bops = _counted()["or_and_matmul"]
-    bops.skinny_launches = bops.copies = 0
+    bops.skinny_launches = bops.copies = bops.fixpoint_launches = 0
 
 
 def _copies() -> int:
@@ -507,13 +520,59 @@ def _assert_no_b1_copies(what: str) -> None:
 def _launches():
     """Launches by kernel since the last reset: ``or_and_skinny`` counts
     the or-and kernel's skinny route apart (those launches are in
-    ``or_and_matmul`` too), and ``or_and_copies`` the or-and wrapper's
-    K-major copies."""
+    ``or_and_matmul`` too), ``or_and_fixpoint`` and ``min_plus_fixpoint``
+    the two evalDG fixpoint kernels (in neither product's count), and
+    ``or_and_copies`` the or-and wrapper's K-major and row copies."""
     counts = {name: ops.launches for name, ops in _counted().items()}
     bops = _counted()["or_and_matmul"]
     counts["or_and_skinny"] = bops.skinny_launches
+    counts["or_and_fixpoint"] = bops.fixpoint_launches
+    counts["min_plus_fixpoint"] = \
+        _counted()["min_plus_matmul"].fixpoint_launches
     counts["or_and_copies"] = bops.copies
     return counts
+
+
+class _EvalDGCalls:
+    """``with _EvalDGCalls() as calls:`` counts the calls of
+    ``engine.evaldg_reach`` and ``engine.evaldg_dist`` (``calls.reach``,
+    ``calls.dist``), through which every path runs evalDG."""
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        self.reach = self.dist = 0
+        self._orig = (engine.evaldg_reach, engine.evaldg_dist)
+
+        def reach(*args):
+            self.reach += 1
+            return self._orig[0](*args)
+
+        def dist_(*args):
+            self.dist += 1
+            return self._orig[1](*args)
+
+        engine.evaldg_reach, engine.evaldg_dist = reach, dist_
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        engine.evaldg_reach, engine.evaldg_dist = self._orig
+        return False
+
+
+def _assert_one_fixpoint_each(what: str, launches: dict, calls) -> None:
+    """Each evalDG of a path was one fixpoint launch, with no per-step
+    product launched and no operand copied (either wrapper)."""
+    got = (launches["or_and_fixpoint"], launches["min_plus_fixpoint"])
+    if got != (calls.reach, calls.dist) or calls.reach + calls.dist == 0:
+        raise AssertionError(f"{what}: {calls.reach} reach and {calls.dist} "
+                             f"dist evalDGs made fixpoint launches {got}")
+    if any(launches[k] for k in ("or_and_matmul", "or_and_skinny",
+                                 "min_plus_matmul", "bitpack_matmul")):
+        raise AssertionError(f"{what}: evalDG launched per-step products: "
+                             f"{launches}")
+    _assert_no_copies(what)
+    _assert_no_b1_copies(what)
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +682,7 @@ def phase_parity() -> None:
         n += 2
     n += _parity_or_and_skinny(dev)
     n += _parity_min_plus_routes(dev)
+    n += _parity_fixpoints(dev)
     n += _parity_bitpack(dev)
     print(f"parity: {n} kernel calls bit-equal to their plain versions")
 
@@ -673,6 +733,94 @@ def _parity_or_and_skinny(dev) -> int:
                 if pads.any():
                     raise AssertionError(f"{what}: pad bytes set")
                 n += 1
+    return n
+
+
+# evalDG's two fixpoint kernels: random D and W at these B, a chain of
+# CHAIN_NODES nodes (one step a hop)
+FIXPOINT_B = (2, 300, 1037)
+
+
+def _fixpoint_cases(dev):
+    """(name, x0, D, d0, W, copies): the parity cases of the fixpoints,
+    with the operand copies each wrapper must make (1 for a D or W that
+    is not in padded storage, else 0)."""
+    import torch
+    from repro_torch.kernels.bool_matmul import padded_zeros
+    from repro_torch.kernels.tropical_matmul import INF
+    from repro_torch.kernels.tropical_matmul.ops import padded_i32
+
+    def weights(rng, mask):
+        return np.where(mask, rng.integers(0, 6, mask.shape),
+                        INF).astype(np.int32)
+
+    def case(name, x0, D, W, padded=True):
+        B = len(x0)
+        d0 = np.where(x0, 0, INF).astype(np.int32)
+        if padded:
+            Dt = padded_zeros(B, B, dev).copy_(torch.tensor(D, device=dev))
+            Wt = padded_i32(B, B, dev).copy_(torch.tensor(W, device=dev))
+        else:
+            Dt, Wt = (torch.tensor(v, device=dev) for v in (D, W))
+        return (name, torch.tensor(x0, device=dev), Dt,
+                torch.tensor(d0, device=dev), Wt, 0 if padded else 1)
+
+    cases = []
+    for B in FIXPOINT_B:
+        rng = np.random.default_rng([SEED, B, 17])
+        D = rng.random((B, B)) < 2.5 / B
+        W = weights(rng, rng.random((B, B)) < 2.5 / B)
+        one = np.zeros(B, dtype=bool)
+        one[rng.integers(B)] = True
+        cases.append(case(f"random B={B}", one, D, W))
+        cases.append(case(f"empty source B={B}", np.zeros(B, dtype=bool),
+                          D, W))
+        cases.append(case(f"covering source B={B}", np.ones(B, dtype=bool),
+                          D, W))
+        full = D.copy()
+        full[rng.integers(B)] = True                  # a row all true
+        cases.append(case(f"full row B={B}", one, full, W))
+    B = 1037                       # neither 16 nor 4 divides it: copied
+    rng = np.random.default_rng([SEED, B, 18])
+    one = np.zeros(B, dtype=bool)
+    one[3] = True
+    cases.append(case("unaligned D and W", one, rng.random((B, B)) < 2.5 / B,
+                      weights(rng, rng.random((B, B)) < 2.5 / B),
+                      padded=False))
+    B = CHAIN_NODES
+    chain = np.zeros((B, B), dtype=bool)
+    chain[np.arange(B - 1), np.arange(1, B)] = True
+    head = np.zeros(B, dtype=bool)
+    head[0] = True
+    cases.append(case(f"chain of {B}", head, chain, weights(rng, chain)))
+    return cases
+
+
+def _parity_fixpoints(dev) -> int:
+    """or_and_fixpoint and min_plus_fixpoint on every case of
+    :func:`_fixpoint_cases`: x / d and the steps bit-equal to the plain
+    versions, one fixpoint launch a call and the copies counted."""
+    from repro_torch.kernels.bool_matmul import (or_and_fixpoint,
+                                                 or_and_fixpoint_ref)
+    from repro_torch.kernels.bool_matmul import ops as bops
+    from repro_torch.kernels.tropical_matmul import (min_plus_fixpoint,
+                                                     min_plus_fixpoint_ref)
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    n = 0
+    for name, x0, D, d0, W, copies in _fixpoint_cases(dev):
+        for ops, fn, ref, a, b in (
+                (bops, or_and_fixpoint, or_and_fixpoint_ref, x0, D),
+                (tops, min_plus_fixpoint, min_plus_fixpoint_ref, d0, W)):
+            before = (ops.fixpoint_launches, ops.launches, ops.copies)
+            got, steps = fn(a, b)
+            if (ops.fixpoint_launches - before[0], ops.launches - before[1],
+                    ops.copies - before[2]) != (1, 0, copies):
+                raise AssertionError(f"{fn.__name__} {name}: not one "
+                                     f"fixpoint launch with {copies} copies")
+            want, want_steps = ref(a, b)
+            _check_equal(f"{fn.__name__} {name}", got, want)
+            _check_equal(f"{fn.__name__} {name} steps", steps, want_steps)
+            n += 1
     return n
 
 
@@ -1340,8 +1488,9 @@ def _split_one_shot(fr, s, t, kind, qa=None):
     """One one-shot query taken apart as ``session.exec_*`` runs it, with
     CUDA events around its stages: the local stage (localEval on every
     fragment and the assembly of D, zero-padded as the paths make it) and
-    the evalDG steps (counted by the kernel's launches), which read D as
-    it is stored.  Returns the split, the answer, D and the source rows."""
+    evalDG (one fixpoint launch, its steps as the kernel counted them),
+    which reads D as it is stored.  Returns the split, the answer, D and
+    the source rows."""
     import torch
     from repro_torch.core import engine, session as S
     from repro_torch.kernels.bool_matmul import ops as bops
@@ -1375,56 +1524,147 @@ def _split_one_shot(fr, s, t, kind, qa=None):
             n_max=fr.n_max, B=fr.B, side=fr.B * Q)
     src = S._src_rows(fr, dev, Q, start)
     tgt = S._tgt_cols(fr, t, dev, Q, final)
+    # the fixpoint's (x or d, steps), kept as the engine gets them
+    name = "min_plus_fixpoint" if kind == "dist" else "or_and_fixpoint"
+    orig, kept = getattr(engine, name), {}
+
+    def keep(*args):
+        kept["result"] = orig(*args)
+        return kept["result"]
+
     clock("evaldg")
-    counter = tops if kind == "dist" else bops
-    before = counter.launches
-    if kind == "dist":
-        ans = engine.evaldg_dist(D, src, tgt)
-    else:
-        ans = engine.evaldg_reach(D, src, tgt)
-    steps = counter.launches - before
+    setattr(engine, name, keep)
+    try:
+        if kind == "dist":
+            ans = engine.evaldg_dist(D, src, tgt)
+        else:
+            ans = engine.evaldg_reach(D, src, tgt)
+    finally:
+        setattr(engine, name, orig)
     clock("end")
     split = clock.ms()
-    split["steps"] = steps
+    split["steps"] = steps = int(kept["result"][1])
     split["ms_per_step"] = split["evaldg"] / max(steps, 1)
     return split, ans, D, src, tgt
 
 
-def _evaldg_timed(name, D, src, tgt, want, reps=3) -> dict:
+#: empty steps the grid-barrier probe times (beside a launch of none)
+PROBE_STEPS = 1000
+
+
+def _barrier_ms_per_step(blocks: int) -> float:
+    """ms of one empty fixpoint step (reading the list's length, two grid
+    barriers) on a cooperative grid of ``blocks`` blocks: the probe in
+    ``or_and_skinny.cu`` with PROBE_STEPS steps less the probe with none,
+    over PROBE_STEPS."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.library("or_and_skinny")
+    fn = lib.fixpoint_barrier_probe
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    state = torch.zeros(3, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def probe(steps):
+        return lambda: _build.check(lib, "fixpoint_barrier_probe", fn(
+            state.data_ptr(), blocks, steps, stream))
+    empty = cuda_timed(probe(0), 5)[0]
+    return (cuda_timed(probe(PROBE_STEPS), 3)[0] - empty) / PROBE_STEPS
+
+
+def _evaldg_timed(name, kind, D, src, tgt, want, reps=3) -> dict:
     """The whole evalDG fixpoint of a checked query (its answer ``want``)
-    on the card, CUDA events around ``reps`` runs, beside the bound of the
-    bytes its steps need: each step reads the rows of D that its frontier
-    x holds, x and writes one row, sum(nnz(x) N + K + N)."""
+    on the card: the fixpoint kernel alone (its wrapper) and the engine's
+    ``evaldg_reach`` / ``evaldg_dist`` around it (the answer read back),
+    CUDA events around ``reps`` runs each, and the plain version (a host
+    loop of one product and one sync a step) once; x or d and the steps
+    held equal to the plain version's.  A host loop of the per-step product
+    counts each step's new rows |Delta_t|, the rows that ever enter Delta
+    and each step's frontier.  The bound is the bytes the fixpoint must
+    read: each row that ever enters Delta once (for dist, each row whose
+    distance ends finite), N elements of D or W (1 or 4 bytes) each, plus
+    two vector passes (2 N) a step.  Printed beside it: the bytes the
+    kernel's schedule reads, a row each time it enters Delta (sum_t
+    |Delta_t| N + 2 N; the same for reach, whose rows enter once, more for
+    dist, whose rows enter again when their distance falls), and the old
+    bound, the rows each step's frontier holds (sum_t |x_t| N + 2 N).  The
+    floor is the empty step's cost (the grid-barrier probe at this
+    fixpoint's grid) times the steps."""
     import torch
     from repro_torch.core import engine
     from repro_torch.kernels.bool_matmul import ops as bops
     from repro_torch.kernels.bool_matmul import or_and_matmul
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    from repro_torch.kernels.tropical_matmul import min_plus_matmul
     K, N = D.shape
-    nnz = []
-    x = src.clone()
-    while True:                                 # the fixpoint's own steps
-        nnz.append(int(x.sum()))
-        nxt = or_and_matmul(x[None, :], D, init=x[None, :])[0]
-        if torch.equal(nxt, x):
+    if kind == "reach":
+        ops, elem, a0 = bops, 1, src
+        fix, ref = bops.or_and_fixpoint, bops.or_and_fixpoint_ref
+        evaldg, step = engine.evaldg_reach, or_and_matmul
+        grew = lambda nxt, cur: nxt & ~cur
+        held = lambda cur: cur
+    else:
+        ops, elem = tops, 4
+        a0 = torch.full((K,), engine.INF, dtype=torch.int32, device=D.device)
+        a0.masked_fill_(src, 0)
+        fix, ref = tops.min_plus_fixpoint, tops.min_plus_fixpoint_ref
+        evaldg, step = engine.evaldg_dist, min_plus_matmul
+        grew = lambda nxt, cur: nxt < cur
+        held = lambda cur: cur < engine.INF
+    delta, frontier = [], []
+    cur, prev = a0, None
+    entered = torch.zeros(K, dtype=torch.bool, device=D.device)
+    while bool(held(cur).any()):          # the fixpoint's own steps
+        new = held(cur) if prev is None else grew(cur, prev)
+        delta.append(int(new.sum()))
+        entered |= new
+        frontier.append(int(held(cur).sum()))
+        nxt = step(cur[None, :], D, init=cur[None, :])[0]
+        if torch.equal(nxt, cur):
             break
-        x = nxt
-    before = (bops.launches, bops.skinny_launches, bops.copies)
-    ms, ans = cuda_timed(lambda: engine.evaldg_reach(D, src, tgt), reps)
-    runs = reps + 1                             # with the warm-up
-    steps = (bops.launches - before[0]) / runs
-    if ans is not want or steps != len(nnz):
-        raise AssertionError(f"{name}: evalDG gave {ans} in {steps} steps, "
-                             f"expected {want} in {len(nnz)}")
-    if (bops.skinny_launches - before[1]) / runs != steps or \
-            bops.copies != before[2]:
-        raise AssertionError(f"{name}: evalDG left the skinny route")
-    nbytes = sum(r * N + K + N for r in nnz)
+        prev, cur = cur, nxt
+    before = ops.fixpoint_launches
+    ms, (got, steps) = cuda_timed(lambda: fix(a0, D), reps)
+    evaldg_ms, ans = cuda_timed(lambda: evaldg(D, src, tgt), reps)
+    if ops.fixpoint_launches - before != 2 * (reps + 1):
+        raise AssertionError(f"{name}: not one fixpoint launch a call")
+    plain_ms, (want_x, want_steps) = cuda_timed(lambda: ref(a0, D), 1,
+                                                warmup=False)
+    _check_equal(f"{name} fixpoint", got, want_x)
+    _check_equal(f"{name} fixpoint steps", steps, want_steps)
+    if ans != want or int(steps) != len(delta):
+        raise AssertionError(f"{name}: evalDG gave {ans} in {int(steps)} "
+                             f"steps, expected {want} in {len(delta)}")
+    del got, want_x
+    blocks = ops._card_fixpoint_route(0, K).blocks
+    barrier = _barrier_ms_per_step(blocks)
+    distinct = int(entered.sum())
+    del entered
+    nbytes = (distinct * N + 2 * N * len(delta)) * elem
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"time {name} fixpoint: {ms:.4f} ms in {len(nnz)} steps (frontier "
-          f"rows {nnz}), bound {bound_ms:.4f} ms (bytes {nbytes}), "
-          f"{100 * bound_ms / ms:.2f} %")
-    return {"ms": ms, "steps": len(nnz), "frontier_rows": nnz,
-            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes}
+    entry_bytes = sum(r * N + 2 * N for r in delta) * elem
+    entry_bound_ms = entry_bytes / HBM_BYTES_PER_S * 1e3
+    old_bytes = sum(r * N + 2 * N for r in frontier) * elem
+    old_bound_ms = old_bytes / HBM_BYTES_PER_S * 1e3
+    floor_ms = barrier * len(delta)
+    print(f"time {name} fixpoint: kernel {ms:.4f} ms, evaldg {evaldg_ms:.4f}"
+          f" ms, plain {plain_ms:.3f} ms, in {len(delta)} steps (new rows "
+          f"{delta}); bound {bound_ms:.4f} ms ({distinct} rows read once, "
+          f"bytes {nbytes}, {100 * bound_ms / ms:.2f} %); a row each time "
+          f"it enters Delta ({sum(delta)} rows) {entry_bound_ms:.4f} ms "
+          f"({100 * entry_bound_ms / ms:.2f} %); rows the frontiers hold "
+          f"{frontier}, {old_bound_ms:.4f} ms; {blocks} blocks, empty step "
+          f"{1e3 * barrier:.2f} us, floor {floor_ms:.4f} ms")
+    return {"ms": ms, "evaldg_ms": evaldg_ms, "plain_ms": plain_ms,
+            "steps": len(delta), "delta_rows": delta,
+            "frontier_rows": frontier, "distinct_rows": distinct,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+            "entry_bound_ms": entry_bound_ms, "entry_bytes": entry_bytes,
+            "frontier_bound_ms": old_bound_ms, "blocks": blocks,
+            "barrier_ms_per_step": barrier, "barrier_floor_ms": floor_ms,
+            "max_abs_err": 0.0, "shape": f"[{K}], [{K},{N}]"}
 
 
 def _dense_step(name, D, reps=20) -> dict:
@@ -1505,9 +1745,11 @@ def _rpq_pairs(g, qa, rng, count: int) -> np.ndarray:
 def phase_oneshot(out: dict, g, fr) -> None:
     """``connect(fr, cache="none")`` at full size: 16 Reach and 16 Dist (8
     bounded) and 4 Rpq, each a one-shot evaluation, checked against the
-    host BFS; the per-query split; the two single-query sharded functions
-    on the one-rank NCCL group; and the new launch shapes of both kernels,
-    M = 1, held against their plain versions."""
+    host BFS, each evalDG one fixpoint launch; the per-query split; the
+    two single-query sharded functions on the one-rank NCCL group; both
+    kernels at evalDG's vector-matrix shape, M = 1, held against their
+    plain versions; and both fixpoint kernels on the split queries, timed
+    against the bytes they read."""
     import torch
     import repro_torch
     from repro_torch import Rpq
@@ -1526,16 +1768,15 @@ def phase_oneshot(out: dict, g, fr) -> None:
     sess.run(queries[:1])                                # warm-up
     torch.cuda.synchronize()
     _reset_launches()
-    t0 = time.perf_counter()
-    results = sess.run(queries)
-    run_ms = (time.perf_counter() - t0) * 1e3
+    with _EvalDGCalls() as calls:
+        t0 = time.perf_counter()
+        results = sess.run(queries)
+        run_ms = (time.perf_counter() - t0) * 1e3
     launches = _launches()
-    for name in ("or_and_matmul", "min_plus_matmul", "or_and_skinny"):
-        if launches[name] == 0:
-            raise AssertionError(f"{name} never launched on the one-shot "
-                                 "path")
-    _assert_no_copies("one-shot path")
-    _assert_no_b1_copies("one-shot path")
+    _assert_one_fixpoint_each("one-shot path", launches, calls)
+    if not (calls.reach and calls.dist):
+        raise AssertionError(f"one-shot path: evalDGs {calls.reach} reach, "
+                             f"{calls.dist} dist")
     if any(r.cache_version is not None for r in results):
         raise AssertionError("an uncached result carries a cache version")
     for q, r in zip(queries, results):
@@ -1551,14 +1792,12 @@ def phase_oneshot(out: dict, g, fr) -> None:
     rpqs = [Rpq(int(s), int(t), regex=ONESHOT_REGEX) for s, t in rpq_pairs]
     torch.cuda.synchronize()
     _reset_launches()
-    t0 = time.perf_counter()
-    rpq_results = sess.run(rpqs)
-    rpq_ms = (time.perf_counter() - t0) * 1e3
+    with _EvalDGCalls() as calls:
+        t0 = time.perf_counter()
+        rpq_results = sess.run(rpqs)
+        rpq_ms = (time.perf_counter() - t0) * 1e3
     rpq_launches = _launches()
-    if rpq_launches["or_and_skinny"] == 0:
-        raise AssertionError("the or-and skinny route never launched on the "
-                             "one-shot RPQ path")
-    _assert_no_b1_copies("one-shot RPQ path")
+    _assert_one_fixpoint_each("one-shot RPQ path", rpq_launches, calls)
     for q, r in zip(rpqs, rpq_results):
         want = _rpq_oracle(g, q.s, q.t, qa)
         if r.answer != want:
@@ -1579,8 +1818,11 @@ def phase_oneshot(out: dict, g, fr) -> None:
     if ans != results[0].answer:
         raise AssertionError("the split reach query disagrees with the run")
     sd, td = int(pairs[half, 0]), int(pairs[half, 1])
-    split["dist"], _, W, srcd, _ = _split_one_shot(fr, sd, td, "dist")
+    split["dist"], ans_d, W, srcd, tgtd = _split_one_shot(fr, sd, td, "dist")
     from repro_torch.core.engine import INF
+    want_d = results[half].distance
+    if ans_d != (INF if want_d is None else want_d):
+        raise AssertionError("the split dist query disagrees with the run")
     from repro_torch.kernels.tropical_matmul import ops as tops
     # one step's vector, in padded storage as evaldg_dist keeps it
     d = tops.padded_i32(1, fr.B, "cuda")[0].fill_(INF)
@@ -1602,21 +1844,23 @@ def phase_oneshot(out: dict, g, fr) -> None:
     Dd.collectives = Dd.payload_bits = 0
     torch.cuda.synchronize()
     _reset_launches()
-    t0 = time.perf_counter()
-    ans_s, D_host = Dd.dis_reach_sharded(fr, s, t)
-    sharded["reach_ms"] = (time.perf_counter() - t0) * 1e3
-    if (Dd.collectives, Dd.payload_bits) != (1, fr.traffic_bits("reach")):
-        raise AssertionError(f"dis_reach_sharded: {Dd.collectives} "
-                             f"collectives of {Dd.payload_bits} bits")
+    with _EvalDGCalls() as calls:
+        t0 = time.perf_counter()
+        ans_s, D_host = Dd.dis_reach_sharded(fr, s, t)
+        sharded["reach_ms"] = (time.perf_counter() - t0) * 1e3
+        reach_wire = (Dd.collectives, Dd.payload_bits)
+        Dd.collectives = Dd.payload_bits = 0
+        t0 = time.perf_counter()
+        ans_q = Dd.dis_rpq_sharded(fr, sr, tr, qa)
+        sharded["rpq_ms"] = (time.perf_counter() - t0) * 1e3
+    if reach_wire != (1, fr.traffic_bits("reach")):
+        raise AssertionError(f"dis_reach_sharded: {reach_wire[0]} "
+                             f"collectives of {reach_wire[1]} bits")
     if ans_s != results[0].answer or not np.array_equal(D_host,
                                                         D.cpu().numpy()):
         raise AssertionError("dis_reach_sharded disagrees with exec_reach")
-    sharded["reach_bits"] = Dd.payload_bits
+    sharded["reach_bits"] = reach_wire[1]
     del D_host
-    Dd.collectives = Dd.payload_bits = 0
-    t0 = time.perf_counter()
-    ans_q = Dd.dis_rpq_sharded(fr, sr, tr, qa)
-    sharded["rpq_ms"] = (time.perf_counter() - t0) * 1e3
     if (Dd.collectives, Dd.payload_bits) != (
             1, fr.traffic_bits("rpq", states=qa.n_states)):
         raise AssertionError(f"dis_rpq_sharded: {Dd.collectives} "
@@ -1625,10 +1869,8 @@ def phase_oneshot(out: dict, g, fr) -> None:
         raise AssertionError("dis_rpq_sharded disagrees with exec_rpq")
     sharded["rpq_bits"] = Dd.payload_bits
     sharded["launches"] = _launches()
-    if sharded["launches"]["or_and_skinny"] == 0:
-        raise AssertionError("the sharded one-shot functions never took the "
-                             "or-and skinny route")
-    _assert_no_b1_copies("dis_reach_sharded / dis_rpq_sharded")
+    _assert_one_fixpoint_each("dis_reach_sharded / dis_rpq_sharded",
+                              sharded["launches"], calls)
     torch.cuda.empty_cache()
     print(f"oneshot: dis_reach_sharded {sharded['reach_ms']:.1f} ms and "
           f"dis_rpq_sharded {sharded['rpq_ms']:.1f} ms on the one-rank "
@@ -1637,14 +1879,12 @@ def phase_oneshot(out: dict, g, fr) -> None:
           f"exec_reach / exec_rpq, D bit-equal; launches "
           f"{sharded['launches']}")
 
-    # the new launch shapes: evalDG's vector-matrix steps, M = 1; the
-    # or-and step on D as stored, with every row of x set, and the whole
-    # fixpoint of the split query against the rows its frontiers hold
+    # evalDG's vector-matrix step, M = 1, for both kernels: the or-and step
+    # on D as stored with every row of x set, and the min-plus step; then
+    # the whole fixpoint of each split query through its fixpoint kernel
     B = fr.B
     dpx = out["kernels"][1]["dpx_ops_per_s"]
-    fixpoint = _evaldg_timed("evaldg_reach", D, src, tgt, ans)
     step = _dense_step("evaldg_reach", D)
-    step["fixpoint"] = fixpoint
     shapes = {"or_and_skinny": [step],
               "min_plus_matmul": [_time_shape(
                   "evaldg_dist step", "min_plus",
@@ -1652,10 +1892,15 @@ def phase_oneshot(out: dict, g, fr) -> None:
                   lambda: min_plus_matmul_ref(d[None, :], W, d[None, :]),
                   None, 1, B, B, dpx, former=(d[None, :], W, d[None, :], 20),
                   floor=True)]}
+    fixpoints = {"or_and_fixpoint": _evaldg_timed(
+                     "evaldg_reach", "reach", D, src, tgt, ans),
+                 "min_plus_fixpoint": _evaldg_timed(
+                     "evaldg_dist", "dist", W, srcd, tgtd, ans_d)}
     del D, W
     torch.cuda.empty_cache()
-    # the or-and kernel's second route has a source of its own; its path is
-    # the one-shot one, and its launches are that run's
+    # the or-and kernel's second route has a source of its own; since the
+    # fixpoint kernels took evalDG over, no path launches it (0 asserted
+    # on the one-shot path, whose count this is)
     out["kernels"].append(
         {"name": "or_and_skinny", "route": "cuda",
          "source": "src/repro_torch/kernels/bool_matmul/csrc/or_and_skinny.cu",
@@ -1665,12 +1910,31 @@ def phase_oneshot(out: dict, g, fr) -> None:
          "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
          "bound_by": step["bound_by"], "library_ms": step["library_ms"],
          "shape": step["shape"] + ", every row of x set",
-         "tile_route_ms": step["tile_ms"], "fixpoint": fixpoint,
+         "tile_route_ms": step["tile_ms"],
          **out["build"]["or_and_skinny"]})
+    # the two fixpoint kernels: their launches are the one-shot run's (one
+    # for each Reach, one for each Dist); no one PyTorch call computes a
+    # fixpoint, so no library time
+    for name, source, replaces in (
+            ("or_and_fixpoint", "bool_matmul/csrc/or_and_skinny.cu",
+             "bool_matmul/bool_matmul.py:42"),
+            ("min_plus_fixpoint", "tropical_matmul/csrc/min_plus_matmul.cu",
+             "tropical_matmul/tropical_matmul.py:51")):
+        fx = fixpoints[name]
+        out["kernels"].append(
+            {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/{source}",
+             "replaces": f"src/repro/kernels/{replaces}",
+             "launches": launches[name], "launches_path": "oneshot",
+             "max_abs_err": fx["max_abs_err"], "ms": fx["ms"],
+             "plain_ms": fx["plain_ms"], "bound_ms": fx["bound_ms"],
+             "bound_by": fx["bound_by"], "library_ms": None,
+             "shape": fx["shape"] + f", {fx['steps']} steps",
+             "fixpoint": fx})
     out["oneshot"] = {"run_ms": run_ms, "launches": launches,
                       "rpq_ms": rpq_ms, "rpq_launches": rpq_launches,
                       "split": split, "sharded": sharded, "shapes": shapes,
-                      "rpq_pairs": rpq_pairs,
+                      "fixpoints": fixpoints, "rpq_pairs": rpq_pairs,
                       "rpq_answers": [r.answer for r in rpq_results]}
 
 
@@ -2562,27 +2826,26 @@ def phase_baselines(out: dict, g, fr) -> None:
     table = _bfs_distances(g, pairs[:, 0])
     rows = {"n": [], "m": [], "oneshot": []}
     _reset_launches()
-    for s, t in pairs.tolist():
-        want = s == t or table[s][t] >= 0
-        for name, fn in (("n", lambda: dis_reach_n(fr, s, t)),
-                         ("m", lambda: dis_reach_m(fr, s, t)),
-                         ("oneshot", lambda: dis_reach(fr, s, t))):
-            ms, res = cuda_timed(fn, 1, warmup=False)
-            if res.answer != want:
-                raise AssertionError(f"baselines: {name} ({s}, {t}) got "
-                                     f"{res.answer}, BFS {want}")
-            if name == "oneshot":           # each site visited once
-                counts = (res.stats.payload_bits, fr.k,
-                          res.stats.collective_rounds)
-            else:
-                counts = (res.traffic_bits, res.site_visits, res.rounds)
-            rows[name].append({"ms": ms, "traffic_bits": counts[0],
-                               "site_visits": counts[1], "rounds": counts[2]})
+    with _EvalDGCalls() as calls:
+        for s, t in pairs.tolist():
+            want = s == t or table[s][t] >= 0
+            for name, fn in (("n", lambda: dis_reach_n(fr, s, t)),
+                             ("m", lambda: dis_reach_m(fr, s, t)),
+                             ("oneshot", lambda: dis_reach(fr, s, t))):
+                ms, res = cuda_timed(fn, 1, warmup=False)
+                if res.answer != want:
+                    raise AssertionError(f"baselines: {name} ({s}, {t}) got "
+                                         f"{res.answer}, BFS {want}")
+                if name == "oneshot":           # each site visited once
+                    counts = (res.stats.payload_bits, fr.k,
+                              res.stats.collective_rounds)
+                else:
+                    counts = (res.traffic_bits, res.site_visits, res.rounds)
+                rows[name].append({"ms": ms, "traffic_bits": counts[0],
+                                   "site_visits": counts[1],
+                                   "rounds": counts[2]})
     launches = _launches()
-    if launches["or_and_skinny"] == 0:
-        raise AssertionError("the one-shot dis_reach beside the baselines "
-                             "never took the or-and skinny route")
-    _assert_no_b1_copies("baselines")
+    _assert_one_fixpoint_each("baselines", launches, calls)
     summary = {}
     for name, rs in rows.items():
         summary[name] = {
@@ -2613,8 +2876,11 @@ def phase_baselines(out: dict, g, fr) -> None:
     cfr = fragment_graph(chain, (np.arange(n) % k).astype(np.int32), k)
     m_ms, m_res = cuda_timed(lambda: dis_reach_m(cfr, 0, n - 1), 1,
                              warmup=False)
-    o_ms, o_res = cuda_timed(lambda: dis_reach(cfr, 0, n - 1), 1,
-                             warmup=False)
+    _reset_launches()
+    with _EvalDGCalls() as calls:
+        o_ms, o_res = cuda_timed(lambda: dis_reach(cfr, 0, n - 1), 1,
+                                 warmup=False)
+    _assert_one_fixpoint_each("chain disReach", _launches(), calls)
     if not (m_res.answer and o_res.answer):
         raise AssertionError("the chain's end is not reached")
     if m_res.rounds <= k or o_res.stats.collective_rounds != 1:
@@ -2624,12 +2890,36 @@ def phase_baselines(out: dict, g, fr) -> None:
           f"disReach_m {m_res.rounds} rounds, {m_res.site_visits} site "
           f"visits, {m_res.traffic_bits} bits, {m_ms:.1f} ms; disReach 1 "
           f"round, {o_res.stats.payload_bits} bits, {o_ms:.1f} ms")
+    # the chain's evalDG alone: one fixpoint of about n steps
+    D, src, tgt = _kept_evaldg(lambda: dis_reach(cfr, 0, n - 1))
+    chain_fx = _evaldg_timed("chain evaldg", "reach", D, src, tgt, True)
+    del D, src, tgt
     out["baselines"] = {"pairs": summary, "launches": launches,
                         "chain": {"m_rounds": m_res.rounds, "m_ms": m_ms,
                                   "m_visits": m_res.site_visits,
                                   "m_bits": m_res.traffic_bits,
                                   "oneshot_ms": o_ms,
-                                  "oneshot_bits": o_res.stats.payload_bits}}
+                                  "oneshot_bits": o_res.stats.payload_bits,
+                                  "fixpoint": chain_fx}}
+
+
+def _kept_evaldg(run):
+    """(D, src, tgt) of the last ``engine.evaldg_reach`` that ``run()``
+    made."""
+    from repro_torch.core import engine
+    keep = {}
+    orig = engine.evaldg_reach
+
+    def kept(D, src, tgt):
+        keep.update(D=D, src=src, tgt=tgt)
+        return orig(D, src, tgt)
+
+    engine.evaldg_reach = kept
+    try:
+        run()
+    finally:
+        engine.evaldg_reach = orig
+    return keep["D"], keep["src"], keep["tgt"]
 
 
 # ---------------------------------------------------------------------------
@@ -2645,12 +2935,13 @@ MR_PEAK_LIMIT = 12e9
 
 def phase_mapreduce(out: dict, g, fr) -> None:
     """The one-shot phase's 4 RPQs ``(0|1)* 2`` through ``mr_drpq``: the
-    answers equal the one-shot RPQ's and the product-graph BFS; B1's
-    skinny route launched, no K-major copy; the device memory peak
-    printed (the reference would stack 16 mapper outputs of 6.4 GB); the
-    map / evalDG split; B1 held against its plain version at the reducer's
-    evalDG step, [1, 80205] x [80205, 80205] on D as stored, and the
-    reducer's whole fixpoint timed against the rows its frontiers hold."""
+    answers equal the one-shot RPQ's and the product-graph BFS; each
+    reducer's evalDG one fixpoint launch, no per-step product, no copy;
+    the device memory peak printed (the reference would stack 16 mapper
+    outputs of 6.4 GB); the map / evalDG split; B1's skinny route held
+    against its plain version at the reducer's evalDG step, [1, 80205] x
+    [80205, 80205] on D as stored, and the reducer's whole fixpoint through
+    the fixpoint kernel, timed against the bytes it reads."""
     import torch
     from repro_torch.core.automaton import build_query_automaton
     from repro_torch.core.mapreduce import mr_drpq
@@ -2665,23 +2956,20 @@ def phase_mapreduce(out: dict, g, fr) -> None:
     base = torch.cuda.memory_allocated()
     _reset_launches()
     splits, results = [], []
-    t0 = time.perf_counter()
-    for (s, t), w in zip(pairs.tolist(), want):
-        clock = _PhaseClock()
-        res = mr_drpq(fr, s, t, qa, mark=clock)
-        splits.append(clock.ms())
-        if res.answer != w or res.answer != _rpq_oracle(g, s, t, qa):
-            raise AssertionError(f"mr_drpq ({s}, {t}) got {res.answer}, "
-                                 f"one-shot {w}")
-        results.append(res)
-    run_ms = (time.perf_counter() - t0) * 1e3
+    with _EvalDGCalls() as calls:
+        t0 = time.perf_counter()
+        for (s, t), w in zip(pairs.tolist(), want):
+            clock = _PhaseClock()
+            res = mr_drpq(fr, s, t, qa, mark=clock)
+            splits.append(clock.ms())
+            if res.answer != w or res.answer != _rpq_oracle(g, s, t, qa):
+                raise AssertionError(f"mr_drpq ({s}, {t}) got {res.answer}, "
+                                     f"one-shot {w}")
+            results.append(res)
+        run_ms = (time.perf_counter() - t0) * 1e3
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
-    if launches["or_and_skinny"] == 0:
-        raise AssertionError("the or-and skinny route never launched on the "
-                             "MR reduce")
-    _assert_no_copies("mapreduce")
-    _assert_no_b1_copies("mapreduce")
+    _assert_one_fixpoint_each("mapreduce", launches, calls)
     if peak > MR_PEAK_LIMIT:
         raise AssertionError(f"mr_drpq peaked at {peak / 1e9:.2f} GB")
     stacked = fr.k * side * side
@@ -2700,29 +2988,15 @@ def phase_mapreduce(out: dict, g, fr) -> None:
     # the reducer's evalDG, M = 1 at side B*Q, on the D of the first
     # query, rebuilt here
     s, t = pairs[0].tolist()
-    keep = {}
-    from repro_torch.core import engine
-    orig = engine.evaldg_reach
-
-    def kept(D, src, tgt):
-        keep.update(D=D, src=src, tgt=tgt)
-        return orig(D, src, tgt)
-
-    engine.evaldg_reach = kept
-    try:
-        mr_drpq(fr, s, t, qa)
-    finally:
-        engine.evaldg_reach = orig
-    D, src, tgt = keep["D"], keep["src"], keep["tgt"]
-    del keep
-    fixpoint = _evaldg_timed("mr evaldg", D, src, tgt, bool(want[0]))
+    D, src, tgt = _kept_evaldg(lambda: mr_drpq(fr, s, t, qa))
+    fixpoint = _evaldg_timed("mr evaldg", "reach", D, src, tgt,
+                             bool(want[0]))
     shape = _dense_step("mr evaldg", D, reps=5)
-    shape["fixpoint"] = fixpoint
     del D, src, tgt
     torch.cuda.empty_cache()
     out["mapreduce"] = {"run_ms": run_ms, "launches": launches,
                         "split_ms": split, "peak_bytes": peak,
-                        "stacked_bytes": stacked,
+                        "stacked_bytes": stacked, "fixpoint": fixpoint,
                         "shapes": {"or_and_skinny": [shape]}}
 
 
@@ -4859,6 +5133,19 @@ def _main(dry: list) -> int:
         print(f"{getattr(phase, '__name__', 'phase_dryrun')[6:]}: phase "
               f"took {time.perf_counter() - t0:.1f} s")
     kernels = out["kernels"]
+    paths = {"main": out["main"]["launches"],
+             "oneshot": out["oneshot"]["launches"],
+             "oneshot_rpq": out["oneshot"]["rpq_launches"],
+             "oneshot_sharded": out["oneshot"]["sharded"]["launches"],
+             "baselines": out["baselines"]["launches"],
+             "mapreduce": out["mapreduce"]["launches"],
+             "verify": out["verify"]["launches"],
+             "rpq": out["rpq"]["launches"],
+             "serve_barrier": out["serve"]["barrier"]["launches"],
+             **{f"dynamic_{mode}": n for mode, n in
+                out["dynamic"]["launches_by_mode"].items()},
+             **{f"sharded_repair_{mode}": n for mode, n in
+                out["sharded_repair"]["launches_by_mode"].items()}}
     for k in kernels:
         name = k["name"]
         k["rpq_launches"] = out["rpq"]["launches"][name]
@@ -4892,26 +5179,19 @@ def _main(dry: list) -> int:
                            + out["dynamic"]["shapes"].get(name, [])
                            + out["mapreduce"]["shapes"].get(name, []))
         if name == "or_and_matmul":
-            # the skinny route's launches within this kernel's, and the
-            # wrapper's K-major copies: 0 asserted on the one-shot,
-            # baselines and MR paths and the sharded one-shot functions
-            paths = {"main": out["main"]["launches"],
-                     "oneshot": out["oneshot"]["launches"],
-                     "oneshot_rpq": out["oneshot"]["rpq_launches"],
-                     "oneshot_sharded": out["oneshot"]["sharded"]["launches"],
-                     "baselines": out["baselines"]["launches"],
-                     "mapreduce": out["mapreduce"]["launches"],
-                     "verify": out["verify"]["launches"],
-                     "rpq": out["rpq"]["launches"],
-                     "serve_barrier": out["serve"]["barrier"]["launches"],
-                     **{f"dynamic_{mode}": n for mode, n in
-                        out["dynamic"]["launches_by_mode"].items()},
-                     **{f"sharded_repair_{mode}": n for mode, n in
-                        out["sharded_repair"]["launches_by_mode"].items()}}
+            # the skinny route's launches within this kernel's, the
+            # fixpoint kernel's beside them, and the wrapper's K-major and
+            # row copies: 0 skinny launches and copies asserted on the
+            # one-shot, baselines and MR paths and the sharded one-shot
+            # functions, each evalDG there one fixpoint launch
             k["skinny_launches"] = {p: n["or_and_skinny"]
                                     for p, n in paths.items()}
+            k["fixpoint_launches"] = {p: n["or_and_fixpoint"]
+                                      for p, n in paths.items()}
             k["copies"] = {p: n["or_and_copies"] for p, n in paths.items()}
         if name == "min_plus_matmul":
+            k["fixpoint_launches"] = {p: n["min_plus_fixpoint"]
+                                      for p, n in paths.items()}
             shapes = {s["path"]: s for s in k["new_shapes"]}
             k["skinny_ms"] = shapes["evaldg_dist step"]["ms"]
             k["p_ms"] = shapes["rank update P"]["ms"]

@@ -507,7 +507,7 @@ def _merge_boolean(D: torch.Tensor, group) -> torch.Tensor:
     """The ONE collective: every rank's row-disjoint Boolean matrix,
     bitpacked and merged with SUM (== OR, see the module docstring).  The
     merged matrix comes back in zero-padded storage, rows 16 bytes apart,
-    as evalDG's skinny route reads it."""
+    as evalDG's fixpoint reads it."""
     words = pack_payload(D)
     merged = _all_reduce(words, dist.ReduceOp.SUM, group)
     return unpack_payload(merged, D.shape[1],

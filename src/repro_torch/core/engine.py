@@ -2,12 +2,13 @@
 
 The paper's localEval (Sections 3-5) as batched frontier propagation over
 each fragment's padded edge list, and its evalDG as a single-source
-fixpoint on the assembled dependency matrix, one or-and or min-plus
-vector-matrix product (the hand-written kernels, M = 1) per step.  Every
-localEval function takes the fragment axis
+fixpoint on the assembled dependency matrix, on the card one launch of a
+hand-written kernel (or-and or min-plus) that runs every step on the
+device and reads nothing back, as the reference's ``while_loop`` does.
+Every localEval function takes the fragment axis
 written out as the leading dimension (one row per fragment, or one row per
 query with that query's fragment gathered in), so one ``gather`` and one
-``scatter_reduce_`` per step cover every fragment at once.  A fixpoint
+``scatter_reduce_`` per step cover every fragment at once.  A localEval
 loop stops when a step changes nothing: one host sync per step, which is
 cheap because a fragment's diameter is small.
 
@@ -26,8 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.bool_matmul.ops import or_and_matmul, padded_zeros
-from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
+from ..kernels.bool_matmul.ops import or_and_fixpoint, padded_zeros
+from ..kernels.tropical_matmul.ops import min_plus_fixpoint
 
 INF = 1 << 29          # with int32 tensors; INF + INF still fits in int32
 
@@ -313,43 +314,37 @@ def local_eval_dist(esrc, edst, src_local, src_row, tgt_local, s_local,
 
 def evaldg_reach(D, src_rows, tgt_cols) -> bool:
     """Single-source fixpoint on the dependency matrix D [B, B] bool:
-    x := x | x (or-and) D until nothing changes (at most diam(G_f) steps,
-    one host sync each), then whether any column in ``tgt_cols`` is
-    reached.  src_rows / tgt_cols: bool masks [B].
+    x := x | x (or-and) D until nothing changes (at most diam(G_f) + 1
+    steps), then whether any column in ``tgt_cols`` is reached.
+    src_rows / tgt_cols: bool masks [B].
 
-    Each step is one or-and vector-matrix product, M = 1, with x as its
-    ``init``.  On the card it takes the skinny route, which reads D as it
-    is stored and only the rows that x holds, when D's rows lie 16 bytes
-    apart: every path makes D that way
-    (:func:`~repro_torch.kernels.bool_matmul.ops.padded_zeros`)."""
-    x = src_rows.clone()
-    if bool(x.any()):
-        with FIXPOINT:
-            while True:
-                nxt = or_and_matmul(x[None, :], D, init=x[None, :])[0]
-                if torch.equal(nxt, x):
-                    break
-                x = nxt
+    The fixpoint is :func:`~repro_torch.kernels.bool_matmul.ops.
+    or_and_fixpoint`: on the card one launch whose steps each read only
+    the rows of D that the step before reached, on D as it is stored when
+    its rows lie 16 bytes apart, as every path makes it
+    (:func:`~repro_torch.kernels.bool_matmul.ops.padded_zeros`).  The
+    answer is read back once, at the end."""
+    with FIXPOINT:
+        x, _ = or_and_fixpoint(src_rows, D)
     return bool((x & tgt_cols).any())
 
 
 def evaldg_dist(W, src_rows, tgt_cols) -> int:
     """Single-source tropical fixpoint on W [B, B] int32 (Bellman-Ford on
     the dependency graph: the paper uses Dijkstra, Bellman-Ford is its
-    matrix form): d := min(d, d (min-plus) W) until nothing changes, one
-    min-plus vector-matrix product (M = 1) a step, with d as its floor
-    (``init``).  d lives in padded storage, as the products do, so no step
-    copies an operand.  Returns the least distance onto ``tgt_cols`` (INF if
-    none is reached)."""
-    d = padded_i32(1, W.shape[0], W.device)[0].fill_(INF)
-    d.masked_fill_(src_rows, 0)
-    if bool((d < INF).any()):
-        with FIXPOINT:
-            while True:
-                nxt = min_plus_matmul(d[None, :], W, init=d[None, :])[0]
-                if torch.equal(nxt, d):
-                    break
-                d = nxt
+    matrix form): d := min(d, d (min-plus) W) until nothing changes.
+    Returns the least distance onto ``tgt_cols`` (INF if none is reached).
+
+    The fixpoint is :func:`~repro_torch.kernels.tropical_matmul.ops.
+    min_plus_fixpoint`: on the card one launch whose steps each read only
+    the rows of W whose distance fell in the step before, on W as it is
+    stored (the paths make it in padded storage,
+    :func:`~repro_torch.kernels.tropical_matmul.ops.padded_i32`).  The
+    answer is read back once, at the end."""
+    d0 = torch.full((W.shape[0],), INF, dtype=torch.int32, device=W.device)
+    d0.masked_fill_(src_rows, 0)
+    with FIXPOINT:
+        d, _ = min_plus_fixpoint(d0, W)
     return int(torch.where(tgt_cols, d, INF).min())
 
 
@@ -521,7 +516,7 @@ def regular_rvset(esrc, edst, src_local, src_row, tgt_local, labels, gids,
     dependency matrix (``side = nb*Q`` cuts off the query slots).  Built
     one fragment at a time, so the product frontier of only one fragment
     is alive at once, into zero-padded storage (rows 16 bytes apart, as
-    evalDG's skinny route reads them); arguments as for
+    evalDG's fixpoint reads them); arguments as for
     :func:`local_eval_regular`, with s_gid/t_gid scalars."""
     D = padded_zeros(side, side, esrc.device)
     for f in range(esrc.shape[0]):

@@ -44,16 +44,16 @@ def mr_drpq(fr: Fragmentation, s: int, t: int, qa: QueryAutomaton,
     Map: one mapper per fragment runs ``engine.local_eval_regular`` and
     emits its rvset rows ``(rows, block [r, B*Q])``.  Reduce: the one
     reducer takes the union of the rvsets into ``D [B*Q, B*Q]`` and runs
-    evalDG_r through the or-and kernel.  Each mapper's block is written
-    into ``D`` as it arrives and dropped, so no more than one mapper's
-    block is alive at once; the union is the same as the reference's OR
-    over stacked ``[k, B*Q, B*Q]`` rvsets, because every row is owned by
-    exactly one fragment (a write is the OR with zeros).
+    evalDG_r through the or-and fixpoint kernel.  Each mapper's block is
+    written into ``D`` as it arrives and dropped, so no more than one
+    mapper's block is alive at once; the union is the same as the
+    reference's OR over stacked ``[k, B*Q, B*Q]`` rvsets, because every
+    row is owned by exactly one fragment (a write is the OR with zeros).
 
     ``mark(phase)`` is called as each phase begins (``"map"``,
     ``"evaldg"``) and once at the end (``"end"``); a caller can record
     CUDA events there to time them.  D is made in zero-padded storage, so
-    the evalDG steps read it as it is, with no copy.
+    evalDG's fixpoint reads it as it is, with no copy.
 
     ``ecc_bits``, ``mapper_input_bits`` and ``reducer_input_bits`` are the
     cost model's counts, equal to the reference package's (the reducer's
@@ -72,7 +72,7 @@ def mr_drpq(fr: Fragmentation, s: int, t: int, qa: QueryAutomaton,
     # ---- map phase, one mapper per fragment (procedure mapRPQ), and the
     # shuffle to the single reducer (procedure reduceRPQ's union) ---------
     mark("map")
-    D = padded_zeros(side, side, dev)       # as evalDG's skinny route reads
+    D = padded_zeros(side, side, dev)       # as evalDG's fixpoint reads
     for f in range(fr.k):
         one = slice(f, f + 1)
         rows, block = engine.local_eval_regular(

@@ -511,7 +511,7 @@ def exec_reach(fr: Fragmentation, s: int, t: int,
     rows, block = engine.local_eval_reach(
         arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
         arrs["tgt_local"], s_local, t_local, n_max=fr.n_max, B=fr.B)
-    D = padded_zeros(fr.B, fr.B, dev)       # as evalDG's skinny route reads
+    D = padded_zeros(fr.B, fr.B, dev)       # as evalDG's fixpoint reads
     D[rows] = block
     del block
     ans = engine.evaldg_reach(D, _src_rows(fr, dev), _tgt_cols(fr, t, dev))
@@ -536,7 +536,7 @@ def exec_dist(fr: Fragmentation, s: int, t: int,
     rows, block = engine.local_eval_dist(
         arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
         arrs["tgt_local"], s_local, t_local, cap, n_max=fr.n_max, B=fr.B)
-    # padded storage (rows 16 bytes apart): every evalDG step reads W as
+    # padded storage (rows 16 bytes apart): evalDG's fixpoint reads W as
     # it is, without a copy
     W = padded_i32(fr.B, fr.B, dev).fill_(INF)
     W[rows] = block

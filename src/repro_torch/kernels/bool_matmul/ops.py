@@ -12,8 +12,11 @@ the right operand's layout, so that the CPU tests reach the choice):
   answer (``core.cache.combine_bool``);
 - the skinny route, ``csrc/or_and_skinny.cu``, for at most
   :data:`SKINNY_MAX_M` rows with the right operand read as it is stored.
-  It runs evalDG's vector-matrix steps (``core.engine.evaldg_reach``), so
-  that no query copies its dependency matrix D.
+
+evalDG's whole fixpoint (``core.engine.evaldg_reach``) is one launch of a
+third kernel in the skinny route's source, :func:`or_and_fixpoint`: each
+step reads only the rows of D that the step before added to the frontier,
+on D as it is stored, so that no query copies its dependency matrix.
 
 Layout rule.  The tile route reads both operands K-major: the left operand
 ``a [M, K]`` and the right one as ``b_t [N, K]`` (the transpose of ``b [K,
@@ -36,7 +39,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from .ref import or_and_matmul_nt_ref, or_and_matmul_ref
+from .. import _fixpoint
+from .ref import or_and_fixpoint_ref, or_and_matmul_nt_ref, or_and_matmul_ref
 
 #: launches of the CUDA kernels (both routes) since the count was last set
 #: to 0
@@ -45,8 +49,12 @@ launches = 0
 #: launches of the skinny route alone, also counted in :data:`launches`
 skinny_launches = 0
 
-#: padded copies made by :func:`kmajor_copy` since the count was last set
-#: to 0
+#: launches of the fixpoint kernel (:func:`or_and_fixpoint`), which are not
+#: in :data:`launches`
+fixpoint_launches = 0
+
+#: padded copies made by :func:`kmajor_copy` and :func:`rows_copy` since the
+#: count was last set to 0
 copies = 0
 
 # guards the read-modify-write of the counters: the scheduler thread and
@@ -63,6 +71,13 @@ def _count_launch(skinny: bool = False) -> None:
         launches += 1
         if skinny:
             skinny_launches += 1
+
+
+def _count_fixpoint() -> None:
+    """Add one to :data:`fixpoint_launches`, atomically."""
+    global fixpoint_launches
+    with _count_lock:
+        fixpoint_launches += 1
 
 
 def _count_copy() -> None:
@@ -339,3 +354,78 @@ def _launch(a: torch.Tensor, b_t: torch.Tensor, c: torch.Tensor,
     _count_launch()
     from .._build import check
     check(lib, "or_and_matmul", code)
+
+
+def rows_copy(b: torch.Tensor) -> torch.Tensor:
+    """A :func:`padded_zeros` copy of ``b`` [K, N], which the skinny route
+    and the fixpoint read as it is stored, counted in :data:`copies`."""
+    _count_copy()
+    return padded_zeros(*b.shape, b.device).copy_(b)
+
+
+# ---------------------------------------------------------------------------
+# evalDG's fixpoint in one launch
+# ---------------------------------------------------------------------------
+
+#: columns of D in one strip of the fixpoint's grid
+FIXPOINT_STRIP = SKINNY_THREADS * SKINNY_COLS
+
+
+def _fixpoint_route(K: int, N: int, sms: int = 132,
+                    per_sm: Optional[int] = None) -> _fixpoint.FixRoute:
+    """The or-and fixpoint's grid (:func:`.._fixpoint.route`, blocks of
+    :data:`SKINNY_THREADS` threads over strips of :data:`FIXPOINT_STRIP`
+    bytes)."""
+    return _fixpoint.route(K, N, FIXPOINT_STRIP, sms, per_sm)
+
+
+def _card_fixpoint_route(index: int, B: int) -> _fixpoint.FixRoute:
+    """:func:`_fixpoint_route` with the card's SMs and occupancy."""
+    return _fixpoint.card_route("or_and_skinny", "or_and_fixpoint",
+                                FIXPOINT_STRIP, index, B)
+
+
+def or_and_fixpoint(x0: torch.Tensor, D: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """evalDG's single-source fixpoint on bool D [B, B] from bool x0 [B]:
+    ``x := x | x (or-and) D`` until a step changes nothing.  Returns
+    ``(x, steps)``: x [B] bool and the steps taken as a 0-d int32 tensor on
+    x0's device, counted as the naive loop counts its products (0 when x0
+    is empty).
+
+    On the card it is one launch (``csrc/or_and_skinny.cu``, counted in
+    :data:`fixpoint_launches`) that reads nothing back: each step reads
+    only the rows of D that the step before added to x.  D is read as it
+    is stored when :func:`rows_aligned`, as every path makes it
+    (:func:`padded_zeros`); any other D is copied once (:func:`rows_copy`,
+    counted).  x is a view of zero-padded storage.  On the CPU it is the
+    plain version's loop."""
+    if x0.dtype != torch.bool or D.dtype != torch.bool:
+        raise TypeError(f"or_and_fixpoint takes bool tensors, got "
+                        f"{x0.dtype} and {D.dtype}")
+    B = x0.shape[0] if x0.dim() == 1 else -1
+    if D.dim() != 2 or tuple(D.shape) != (B, B):
+        raise ValueError(f"or_and_fixpoint takes x0 [B] and D [B, B], got "
+                         f"{tuple(x0.shape)} and {tuple(D.shape)}")
+    dev = x0.device
+    if D.device != dev:
+        raise ValueError(f"operands on {dev} and {D.device}")
+    if dev.type == "cpu":
+        return or_and_fixpoint_ref(x0, D)
+    if dev.type != "cuda":
+        raise ValueError(f"or_and_fixpoint runs on cpu or cuda, not {dev}")
+    x = padded(1, B, dev)[0]
+    state = torch.zeros(3, dtype=torch.int32, device=dev)
+    if B == 0:
+        return x, state[0]
+    if not rows_aligned(D):
+        D = rows_copy(D)
+    if max(B, D.stride(0), x0.stride(0)) >= 2 ** 31:
+        raise ValueError("sizes and row pitches must fit in int32")
+    # acc (16-byte aligned, one word for every 4 bytes of x's storage),
+    # then the list of rows
+    work = torch.empty(pitch(B) // 4 + B, dtype=torch.int32, device=dev)
+    _fixpoint.launch("or_and_skinny", "or_and_fixpoint", FIXPOINT_STRIP, x0,
+                     D, x, work, work[pitch(B) // 4:], state)
+    _count_fixpoint()
+    return x, state[0]

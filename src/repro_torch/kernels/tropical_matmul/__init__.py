@@ -1,4 +1,5 @@
-from .ops import min_plus_matmul
-from .ref import INF, min_plus_matmul_ref
+from .ops import min_plus_fixpoint, min_plus_matmul
+from .ref import INF, min_plus_fixpoint_ref, min_plus_matmul_ref
 
-__all__ = ["INF", "min_plus_matmul", "min_plus_matmul_ref"]
+__all__ = ["INF", "min_plus_fixpoint", "min_plus_fixpoint_ref",
+           "min_plus_matmul", "min_plus_matmul_ref"]

@@ -51,9 +51,14 @@
 // their partial minima into C, which the wrapper filled with the floor first
 // on the same stream, by atomicMin.  Min is exact and order-free, so the
 // result is deterministic, and a product is still one launch.
+//
+// Fixpoint (min_plus_fixpoint), evalDG's whole Bellman-Ford loop in one
+// cooperative launch; its own comment is at the kernel below.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "../../fixpoint.cuh"
 
 namespace {
 
@@ -353,6 +358,184 @@ struct Skinny {
   }
 };
 
+// ---------------------------------------------------------------------------
+// evalDG's whole fixpoint in one launch: min_plus_fixpoint
+// ---------------------------------------------------------------------------
+//
+//   d_0 = d0, Delta_0 = {k : d0[k] < INF}
+//   d_{t+1}[j] = min(d_t[j], min_{k in Delta_t} d_t[k] + W[k, j]),
+//   Delta_{t+1} = {k : d_{t+1}[k] < d_t[k]}
+//
+// until Delta is empty; writes d [B] and the number of steps taken.  d0 [B]
+// is int32, read an element at a time through its stride; W [B, B] is
+// int32 with 16-byte rows as the product reads it.  Precondition, as for
+// the product: every entry of d0 and W lies in [0, INF], so no sum
+// overflows and every d_t stays in [0, INF].
+//
+// Replaces the TPU kernel tropical_matmul_pallas as the reference's evalDG
+// runs it: one min-plus vector-matrix product a step, folded with min(d,
+// ., INF), inside one jax.lax.while_loop (src/repro/core/engine.py,
+// evaldg_dist).
+//
+// Why it is exact.  The iterates are the naive loop's, d_{t+1} = min(d_t,
+// d_t (min, +) W, INF), step for step: a row k outside Delta_t has d_t[k]
+// = d_{t-1}[k], and the step before already gave d_t[j] <= d_{t-1}[k] +
+// W[k, j] = d_t[k] + W[k, j] for every j, so the row cannot lower d_t.
+// Rows outside Delta_0 hold INF, and INF + W[k, j] >= INF changes nothing
+// under the cap.  The naive loop stops after its first step that changes
+// nothing, the first whose Delta comes out empty, so the steps are counted
+// as the host loop counts its launches (0 when d0 is all INF).  Min is
+// order-free: the result is the same in every run.
+//
+// What bounds it: bytes, 4 B per entry of each row of W that enters Delta
+// (a row may enter again when its distance falls again), where the host
+// loop read all of W at every step, plus two grid barriers and a pass over
+// d a step.
+//
+// Design, as or_and_fixpoint's (bool_matmul/csrc/or_and_skinny.cu): a
+// cooperative grid of FX_THREADS-thread blocks; a step ORs, here mins, the
+// listed rows into an accumulator acc (INF where nothing fell) over
+// (row range x 512-column strip) items, each thread 4 columns with
+// __viaddmin_s32 on 16-byte loads of W, FX_U in flight, and the rows'
+// d_t[k] staged in shared memory with their numbers; a column's minimum
+// merges into acc by atomicMin only where it undercuts d_t; grid barrier;
+// the fold lowers d where acc is below it, resets acc to INF there and
+// lists those columns; grid barrier.
+
+constexpr int FX_THREADS = 128;           // threads a block
+constexpr int FX_CW = 4;                  // columns a thread (one int4)
+constexpr int FX_STRIP = FX_THREADS * FX_CW;
+constexpr int FX_U = 8;                   // row loads in flight a thread
+
+// Appends the columns 4 g + i of the lanes i set in `fell` (bit i) to the
+// list rows of length *count.  Every lane of the warp calls it.
+__device__ __forceinline__ void append_lanes(uint32_t fell, long long g,
+                                             int* count, int* rows) {
+  int pos = fixpoint::warp_append(count, __popc(fell));
+  for (uint32_t m = fell; m != 0u; m &= m - 1u)
+    rows[pos++] = static_cast<int>(g * FX_CW + __ffs(m) - 1);
+}
+
+__global__ void __launch_bounds__(FX_THREADS)
+min_plus_fixpoint_kernel(const int* __restrict__ d0, int ldd0,
+                         const int* __restrict__ w, int ldw, int* d,
+                         int* acc, int* rows, int* state, int N,
+                         int strips) {
+  __shared__ int ks[FX_THREADS];          // a chunk of a range's rows
+  __shared__ int kd[FX_THREADS];          // and their d_t[k]
+  const int t = threadIdx.x;
+  const int wl = t & 31;           // lane in the warp
+  const long long groups = (N + FX_CW - 1) / FX_CW;      // of 4 ints
+  const long long stride = static_cast<long long>(gridDim.x) * FX_THREADS;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * FX_THREADS + (t - wl);
+  int4* d4 = reinterpret_cast<int4*>(d);
+  int4* acc4 = reinterpret_cast<int4*>(acc);
+  const int4 inf4 = make_int4(INF, INF, INF, INF);
+
+  // d = d0 with INF pads, acc = INF, the first list = d0's finite columns
+  for (long long base = first; base < groups; base += stride) {
+    const long long g = base + wl;      // warp-uniform loop
+    uint32_t fell = 0u;
+    if (g < groups) {
+      int v[FX_CW];
+#pragma unroll
+      for (int i = 0; i < FX_CW; ++i) {
+        const long long col = g * FX_CW + i;
+        v[i] = col < N ? min(d0[col * ldd0], INF) : INF;
+        if (v[i] < INF) fell |= 1u << i;
+      }
+      d4[g] = make_int4(v[0], v[1], v[2], v[3]);
+      acc4[g] = inf4;
+    }
+    append_lanes(fell, g, state + 1, rows);
+  }
+  fixpoint::grid_barrier();
+
+  int step = 0;
+  for (;;) {
+    const int n = __ldcg(state + 1 + (step & 1));
+    if (n == 0) break;
+    int* next = state + 1 + ((step + 1) & 1);
+    if (blockIdx.x == 0 && t == 0) *next = 0;
+
+    // 1. min the listed rows, each plus its d_t[k], into acc where they
+    // undercut d_t
+    const fixpoint::Split sp = fixpoint::split_rows(n, strips);
+    const int items = sp.groups * strips;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int col = (item % strips) * FX_STRIP + t * FX_CW;
+      const int r0 = (item / strips) * sp.per;
+      const int r1 = min(n, r0 + sp.per);
+      const bool live = col < N;
+      const int4* wcol = reinterpret_cast<const int4*>(w + (live ? col : 0));
+      int c[FX_CW] = {INF, INF, INF, INF};
+      for (int c0 = r0; c0 < r1; c0 += FX_THREADS) {
+        const int m = min(FX_THREADS, r1 - c0);
+        __syncthreads();                  // the last chunk is read
+        if (t < m) {
+          const int k = __ldcg(rows + c0 + t);
+          ks[t] = k;
+          kd[t] = __ldcg(d + k);
+        }
+        __syncthreads();
+        if (!live) continue;
+        for (int j = 0; j < m; j += FX_U) {
+          int4 v[FX_U];
+#pragma unroll
+          for (int u = 0; u < FX_U; ++u)
+            v[u] = j + u < m
+                       ? __ldg(wcol + static_cast<size_t>(ks[j + u]) * ldw /
+                                          FX_CW)
+                       : inf4;
+#pragma unroll
+          for (int u = 0; u < FX_U; ++u) {
+            const int dk = j + u < m ? kd[j + u] : INF;
+            c[0] = dpx(dk, v[u].x, c[0]);
+            c[1] = dpx(dk, v[u].y, c[1]);
+            c[2] = dpx(dk, v[u].z, c[2]);
+            c[3] = dpx(dk, v[u].w, c[3]);
+          }
+        }
+      }
+      if (live) {
+        const int4 dv = __ldcg(reinterpret_cast<const int4*>(d + col));
+#pragma unroll
+        for (int i = 0; i < FX_CW; ++i)
+          // lanes past N may have summed pad entries of W: never merged
+          if (col + i < N && c[i] < lane(dv, i))
+            atomicMin(acc + col + i, c[i]);
+      }
+    }
+    fixpoint::grid_barrier();
+
+    // 3. fold acc into d and list the columns that fell
+    for (long long base = first; base < groups; base += stride) {
+      const long long g = base + wl;
+      uint32_t fell = 0u;
+      if (g < groups) {
+        const int4 av = __ldcg(acc4 + g);
+        if (min(min(av.x, av.y), min(av.z, av.w)) < INF) {
+          const int4 dv = __ldcg(d4 + g);
+          int nd[FX_CW];
+#pragma unroll
+          for (int i = 0; i < FX_CW; ++i) {
+            const int a = lane(av, i), o = lane(dv, i);
+            nd[i] = min(a, o);
+            if (a < o) fell |= 1u << i;
+          }
+          acc4[g] = inf4;
+          d4[g] = make_int4(nd[0], nd[1], nd[2], nd[3]);
+        }
+      }
+      append_lanes(fell, g, next, rows);
+    }
+    ++step;
+    fixpoint::grid_barrier();
+  }
+  if (blockIdx.x == 0 && t == 0) state[0] = step;
+}
+
 }  // namespace
 
 // The tile path; ``floor_`` may be null (INF).  Returns cudaGetLastError()
@@ -413,6 +596,40 @@ extern "C" int min_plus_skinny_blocks_per_sm(int rows, int cols) {
   SKINNY_CASES(OCCUPANCY)
 #undef OCCUPANCY
   return -1;
+}
+
+// evalDG's fixpoint from d0 on W [N, N] (16-byte rows) in one cooperative
+// launch of `blocks` blocks: d gets the fixpoint (pitch_i32(N) ints,
+// 16-byte aligned, pads INF), state[0] the steps.  acc (pitch_i32(N) ints,
+// 16-byte aligned) and rows (N ints) are scratch; state (3 ints) must be
+// zero before the launch.  Returns the launch's CUDA error code.
+extern "C" int min_plus_fixpoint(const void* d0, int ldd0, const void* w,
+                                 int ldw, void* d, void* acc, void* rows,
+                                 void* state, int N, int blocks,
+                                 void* stream) {
+  if (N <= 0 || ldw < N || blocks < 1) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(d) |
+       reinterpret_cast<uintptr_t>(acc)) & 15u || ldw % 4 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const auto* D0 = static_cast<const int*>(d0);
+  const auto* Wp = static_cast<const int*>(w);
+  auto* Dp = static_cast<int*>(d);
+  auto* A = static_cast<int*>(acc);
+  auto* R = static_cast<int*>(rows);
+  auto* S = static_cast<int*>(state);
+  int strips = (N + FX_STRIP - 1) / FX_STRIP;
+  void* args[] = {&D0, &ldd0, &Wp, &ldw, &Dp, &A, &R, &S, &N, &strips};
+  return fixpoint::cooperative_launch(
+      reinterpret_cast<const void*>(min_plus_fixpoint_kernel), blocks,
+      FX_THREADS, args, static_cast<cudaStream_t>(stream));
+}
+
+// Fixpoint blocks resident on one SM of the current device, -1 on error.
+extern "C" int min_plus_fixpoint_blocks_per_sm() {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, min_plus_fixpoint_kernel, FX_THREADS, 0);
+  return e == cudaSuccess ? n : -1;
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -5,10 +5,12 @@ The kernel, ``csrc/min_plus_matmul.cu``, replaces the TPU kernel
 ``src/repro/kernels/tropical_matmul/tropical_matmul.py::
 tropical_matmul_pallas``.  It squares the distance closure
 (``core.bes.tropical_closure``), composes every batched distance answer
-(``core.cache.combine_dist``), runs evalDG's vector-matrix steps
-(``core.engine.evaldg_dist``) and the rank update of a repair
+(``core.cache.combine_dist``) and runs the rank update of a repair
 (``core.incremental._rank_update_tropical``).  Operands must lie in
-[0, INF].
+[0, INF].  evalDG's whole fixpoint (``core.engine.evaldg_dist``) is one
+launch of a second kernel in the same source, :func:`min_plus_fixpoint`,
+whose steps read only the rows of W whose distance fell in the step
+before.
 
 Two routes, chosen in Python by :func:`_route` so that the CPU tests reach
 the choice: a skinny path for at most :data:`SKINNY_MAX_M` rows, which
@@ -30,14 +32,19 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .ref import INF, min_plus_matmul_ref
+from .. import _fixpoint
+from .ref import INF, min_plus_fixpoint_ref, min_plus_matmul_ref
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
+
+#: launches of the fixpoint kernel (:func:`min_plus_fixpoint`), which are
+#: not in :data:`launches`
+fixpoint_launches = 0
 
 #: operand copies made by :func:`aligned` since the count was last set to 0
 copies = 0
@@ -52,6 +59,13 @@ def _count_launch() -> None:
     global launches
     with _count_lock:
         launches += 1
+
+
+def _count_fixpoint() -> None:
+    """Add one to :data:`fixpoint_launches`, atomically."""
+    global fixpoint_launches
+    with _count_lock:
+        fixpoint_launches += 1
 
 
 def _count_copy() -> None:
@@ -274,3 +288,71 @@ def _launch(index: int, a, b, init, out) -> None:
 def _check_ints(ints) -> None:
     if max(ints) >= 2 ** 31:
         raise ValueError("sizes and row pitches must fit in int32")
+
+
+# ---------------------------------------------------------------------------
+# evalDG's fixpoint in one launch
+# ---------------------------------------------------------------------------
+
+#: int32 columns of W in one strip of the fixpoint's grid: 128 threads a
+#: block, 4 columns (one 16-byte load) a thread
+FIXPOINT_STRIP = 128 * 4
+
+
+def _fixpoint_route(K: int, N: int, sms: int = 132,
+                    per_sm: Optional[int] = None) -> _fixpoint.FixRoute:
+    """The min-plus fixpoint's grid (:func:`.._fixpoint.route`, strips of
+    :data:`FIXPOINT_STRIP` columns)."""
+    return _fixpoint.route(K, N, FIXPOINT_STRIP, sms, per_sm)
+
+
+def _card_fixpoint_route(index: int, B: int) -> _fixpoint.FixRoute:
+    """:func:`_fixpoint_route` with the card's SMs and occupancy."""
+    return _fixpoint.card_route("min_plus_matmul", "min_plus_fixpoint",
+                                FIXPOINT_STRIP, index, B)
+
+
+def min_plus_fixpoint(d0: torch.Tensor, W: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """evalDG's single-source tropical fixpoint (Bellman-Ford) on int32 W
+    [B, B] from int32 d0 [B], every entry of both in [0, INF]:
+    ``d := min(d, d (min, +) W, INF)`` until a step changes nothing.
+    Returns ``(d, steps)``: d [B] int32 and the steps taken as a 0-d int32
+    tensor on d0's device, counted as the naive loop counts its products
+    (0 when d0 is all INF).
+
+    On the card it is one launch (``csrc/min_plus_matmul.cu``, counted in
+    :data:`fixpoint_launches`) that reads nothing back: each step reads
+    only the rows of W whose distance fell in the step before.  W is read
+    as it is stored when :func:`is_aligned`, as the paths make it
+    (:func:`padded_i32`), and copied once otherwise (:func:`aligned`,
+    counted); d is a view of padded storage.  On the CPU it is the plain
+    version's loop."""
+    if d0.dtype != torch.int32 or W.dtype != torch.int32:
+        raise TypeError(f"min_plus_fixpoint takes int32 tensors, got "
+                        f"{d0.dtype} and {W.dtype}")
+    B = d0.shape[0] if d0.dim() == 1 else -1
+    if W.dim() != 2 or tuple(W.shape) != (B, B):
+        raise ValueError(f"min_plus_fixpoint takes d0 [B] and W [B, B], got "
+                         f"{tuple(d0.shape)} and {tuple(W.shape)}")
+    dev = d0.device
+    if W.device != dev:
+        raise ValueError(f"operands on {dev} and {W.device}")
+    if dev.type == "cpu":
+        return min_plus_fixpoint_ref(d0, W)
+    if dev.type != "cuda":
+        raise ValueError(f"min_plus_fixpoint runs on cpu or cuda, not {dev}")
+    d = padded_i32(1, B, dev)[0]
+    state = torch.zeros(3, dtype=torch.int32, device=dev)
+    if B == 0:
+        return d, state[0]
+    W = aligned(W)
+    if max(B, W.stride(0), d0.stride(0)) >= 2 ** 31:
+        raise ValueError("sizes and row pitches must fit in int32")
+    # acc (16-byte aligned, as long as d's storage), then the list
+    width = pitch_i32(B)
+    work = torch.empty(width + B, dtype=torch.int32, device=dev)
+    _fixpoint.launch("min_plus_matmul", "min_plus_fixpoint", FIXPOINT_STRIP,
+                     d0, W, d, work, work[width:], state)
+    _count_fixpoint()
+    return d, state[0]

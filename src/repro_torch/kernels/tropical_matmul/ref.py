@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the (min, +) semiring product."""
-from typing import Optional
+"""Plain PyTorch versions of the (min, +) semiring product and of evalDG's
+fixpoint over it."""
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,3 +33,22 @@ def min_plus_matmul_ref(a: torch.Tensor, b: torch.Tensor,
         torch.minimum(part, torch.amin(a[r0:r0 + rows, :, None]
                                        + b[None, :, :], dim=1), out=part)
     return out
+
+
+def min_plus_fixpoint_ref(d0: torch.Tensor, W: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """d0 [B], W [B, B] int32 in [0, INF] -> (d, steps): d := min(d, d
+    (min, +) W, INF) until a step changes nothing, one vector-matrix
+    product a step and one host sync a step; steps (a 0-d int32 tensor on
+    d0's device) counts the products, the last one included (0 when d0 is
+    all INF)."""
+    d = d0.clamp_max(INF)
+    steps = 0
+    if bool((d < INF).any()):
+        while True:
+            nxt = min_plus_matmul_ref(d[None, :], W, d[None, :])[0]
+            steps += 1
+            if torch.equal(nxt, d):
+                break
+            d = nxt
+    return d, torch.tensor(steps, dtype=torch.int32, device=d0.device)

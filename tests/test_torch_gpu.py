@@ -24,12 +24,16 @@ from repro_torch.kernels.bitpack_ops import (bitpack_matmul,
                                              pack_rows, pack_rows_ref)
 from repro_torch.core.bes import bool_closure_kmajor
 from repro_torch.kernels.bool_matmul import ops as bops
-from repro_torch.kernels.bool_matmul import (is_kmajor, or_and_matmul,
+from repro_torch.kernels.bool_matmul import (is_kmajor, or_and_fixpoint,
+                                             or_and_fixpoint_ref,
+                                             or_and_matmul,
                                              or_and_matmul_nt,
                                              or_and_matmul_ref, padded_zeros,
                                              pitch, rows_aligned)
 from repro_torch.kernels.tropical_matmul import ops as tops
-from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
+from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint,
+                                                 min_plus_fixpoint_ref,
+                                                 min_plus_matmul,
                                                  min_plus_matmul_ref)
 from repro_torch.kernels.tropical_matmul.ops import (is_aligned, padded_i32,
                                                      pitch_i32)
@@ -198,8 +202,10 @@ def test_or_and_skinny_unaligned_b_takes_one_counted_copy(cuda):
 
 @pytest.mark.gpu
 def test_skinny_launches_on_evaldg_not_on_squaring(cuda):
-    """evalDG on a padded D launches only the skinny route; the closure's
-    squarings and a batch compose launch only the tile route."""
+    """evalDG on a padded D is one fixpoint launch, with its steps from the
+    kernel equal to the plain version's, and no product launch (skinny or
+    tile) and no copy; the closure's squarings and a batch compose launch
+    only the tile route."""
     rng = np.random.default_rng(22)
     B = 1037
     D = padded_zeros(B, B, cuda).copy_(
@@ -207,12 +213,15 @@ def test_skinny_launches_on_evaldg_not_on_squaring(cuda):
     src = torch.zeros(B, dtype=torch.bool, device=cuda)
     src[5] = True
     tgt = torch.ones(B, dtype=torch.bool, device=cuda)
-    before = (bops.launches, bops.skinny_launches, bops.copies)
+    before = (bops.launches, bops.fixpoint_launches, bops.copies)
     assert engine.evaldg_reach(D, src, tgt) is engine.evaldg_reach(
         D.cpu(), src.cpu(), tgt.cpu())
-    steps = bops.launches - before[0]
-    assert steps > 1 and bops.skinny_launches - before[1] == steps
-    assert bops.copies == before[2]
+    assert (bops.launches, bops.fixpoint_launches, bops.copies) == \
+        (before[0], before[1] + 1, before[2])
+    x, steps = or_and_fixpoint(src, D)
+    want_x, want_steps = or_and_fixpoint_ref(src.cpu(), D.cpu())
+    assert int(steps) == int(want_steps) > 1 and steps.is_cuda
+    assert torch.equal(x.cpu(), want_x)
     before = (bops.launches, bops.skinny_launches)
     C, Ct = bool_closure_kmajor(D)
     or_and_matmul_nt(D[:256], Ct)
@@ -378,10 +387,10 @@ def _dist_matrix(rng, m, n, density):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [2, 300, 1037])
 def test_evaldg_on_card_matches_cpu(cuda, B):
-    """evalDG's vector-matrix steps (M = 1) on the card: the or-and steps
-    on D as it is stored, padded (the skinny route, no copy) or not (the
-    tile route through a copy of D^T), and the min-plus steps, equal to
-    the CPU; one launch per step."""
+    """evalDG on the card, equal to the CPU: one fixpoint launch per
+    evalDG and no per-step product, on D as it is stored, padded (no copy)
+    or not (one counted copy into padded storage), and on W; the kernels'
+    x, d and steps equal to the plain versions'."""
     rng = np.random.default_rng(B)
     D = rng.random((B, B)) < 3.0 / B
     W = _dist_matrix(rng, B, B, 3.0 / B)
@@ -391,21 +400,87 @@ def test_evaldg_on_card_matches_cpu(cuda, B):
         tgt = rng.random(B) < 0.1
         args = [torch.tensor(x) for x in (D, src, tgt)]
         want = engine.evaldg_reach(*args)
+        want_x, want_steps = or_and_fixpoint_ref(args[1], args[0])
         Dc = args[0].to(cuda)
         Dp = padded_zeros(B, B, cuda).copy_(Dc)
         for Dm in (Dc, Dp):
-            before = (bops.launches, bops.skinny_launches, bops.copies)
+            before = (bops.launches, bops.fixpoint_launches, bops.copies)
             got = engine.evaldg_reach(Dm, args[1].to(cuda), args[2].to(cuda))
             assert got is want
-            steps = bops.launches - before[0]
-            assert steps > 0
-            if Dm is Dp or rows_aligned(Dc):
-                assert bops.skinny_launches - before[1] == steps
-                assert bops.copies == before[2]
+            copies = 0 if rows_aligned(Dm) else 1
+            assert (bops.launches, bops.fixpoint_launches, bops.copies) == \
+                (before[0], before[1] + 1, before[2] + copies)
+            x, steps = or_and_fixpoint(args[1].to(cuda), Dm)
+            assert torch.equal(x.cpu(), want_x)
+            assert int(steps) == int(want_steps) > 0
         args = [torch.tensor(x) for x in (W, src, tgt)]
-        before = tops.launches
-        got = engine.evaldg_dist(*(a.to(cuda) for a in args))
-        assert got == engine.evaldg_dist(*args) and tops.launches > before
+        d0 = torch.tensor(np.where(src, 0, INF).astype(np.int32))
+        want_d, want_steps = min_plus_fixpoint_ref(d0, args[0])
+        for Wm in (args[0].to(cuda),
+                   padded_i32(B, B, cuda).copy_(args[0].to(cuda))):
+            before = (tops.launches, tops.fixpoint_launches, tops.copies)
+            got = engine.evaldg_dist(Wm, *(a.to(cuda) for a in args[1:]))
+            assert got == engine.evaldg_dist(*args)
+            copies = 0 if is_aligned(Wm) else 1
+            assert (tops.launches, tops.fixpoint_launches, tops.copies) == \
+                (before[0], before[1] + 1, before[2] + copies)
+            d, steps = min_plus_fixpoint(d0.to(cuda), Wm)
+            assert torch.equal(d.cpu(), want_d)
+            assert int(steps) == int(want_steps) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1024, 1037])
+def test_fixpoints_on_a_chain(cuda, B):
+    """A chain walked one hop a step (B steps): both fixpoint kernels
+    bit-equal to their plain versions, steps included, in one launch each;
+    a source at the chain's end takes one step."""
+    D = np.zeros((B, B), dtype=bool)
+    D[np.arange(B - 1), np.arange(1, B)] = True
+    W = np.where(D, 1, INF).astype(np.int32)
+    for head in (0, B - 1):
+        src = np.zeros(B, dtype=bool)
+        src[head] = True
+        d0 = np.where(src, 0, INF).astype(np.int32)
+        for fn, ref, ops, a, b, pad in (
+                (or_and_fixpoint, or_and_fixpoint_ref, bops, src, D,
+                 padded_zeros),
+                (min_plus_fixpoint, min_plus_fixpoint_ref, tops, d0, W,
+                 padded_i32)):
+            a, b = torch.tensor(a), torch.tensor(b)
+            want, want_steps = ref(a, b)
+            before = ops.fixpoint_launches
+            got, steps = fn(a.to(cuda), pad(B, B, cuda).copy_(b.to(cuda)))
+            assert ops.fixpoint_launches == before + 1
+            assert torch.equal(got.cpu(), want)
+            assert int(steps) == int(want_steps) == (B if head == 0 else 1)
+
+
+@pytest.mark.gpu
+def test_fixpoints_on_mr_shaped_inputs(cuda):
+    """The MR reducer's shape: a D of side B Q with a few rows set, whose
+    frontier adds one row a step, and a random W of the same side; both
+    kernels bit-equal to their plain versions, steps included."""
+    side = 5 * 1037
+    rng = np.random.default_rng(31)
+    D = padded_zeros(side, side, cuda)
+    hops = rng.choice(side, size=6, replace=False)
+    D[torch.tensor(hops[:-1]), torch.tensor(hops[1:])] = True
+    extra = rng.integers(0, side, (64, 2))
+    D[torch.tensor(extra[:, 0]), torch.tensor(extra[:, 1])] = True
+    src = torch.zeros(side, dtype=torch.bool, device=cuda)
+    src[int(hops[0])] = True
+    x, steps = or_and_fixpoint(src, D)
+    want_x, want_steps = or_and_fixpoint_ref(src.cpu(), D.cpu())
+    assert torch.equal(x.cpu(), want_x) and int(steps) == int(want_steps)
+    assert int(steps) >= 5
+    W = padded_i32(side, side, cuda).copy_(torch.tensor(
+        _dist_matrix(rng, side, side, 2.0 / side), device=cuda))
+    d0 = torch.full((side,), INF, dtype=torch.int32, device=cuda)
+    d0[int(hops[0])] = 0
+    d, steps = min_plus_fixpoint(d0, W)
+    want_d, want_steps = min_plus_fixpoint_ref(d0.cpu(), W.cpu())
+    assert torch.equal(d.cpu(), want_d) and int(steps) == int(want_steps)
 
 
 def _closure_pair(rng, nb, cuda):
@@ -512,7 +587,7 @@ def test_delta_stream_on_card_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_uncached_session_on_card_matches_cpu(cuda):
     """connect(fr, cache="none") on the card: the one-shot engine through
-    both kernels, equal to the CPU."""
+    both fixpoint kernels (no product launch), equal to the CPU."""
     g = erdos_renyi(300, 1200, n_labels=3, seed=6)
     fr = fragment_graph(g, random_partition(g, 4, seed=6), 4)
     rng = np.random.default_rng(6)
@@ -523,8 +598,10 @@ def test_uncached_session_on_card_matches_cpu(cuda):
                         Rpq(s, t, regex="(0|1)* 2")][i % 4])
     want = repro_torch.connect(fr, cache="none", device="cpu").run(queries)
     bops.launches = tops.launches = 0
+    bops.fixpoint_launches = tops.fixpoint_launches = 0
     got = repro_torch.connect(fr, cache="none").run(queries)
-    assert bops.launches > 0 and tops.launches > 0
+    assert bops.fixpoint_launches > 0 and tops.fixpoint_launches > 0
+    assert bops.launches == 0 and tops.launches == 0
     assert fr.rvset_cache is None
     assert [(r.answer, r.distance, r.stats) for r in got] == \
         [(r.answer, r.distance, r.stats) for r in want]
@@ -683,7 +760,8 @@ def test_sharded_repair_on_card_matches_host_repair(nccl_rank):
 @pytest.mark.gpu
 def test_mr_drpq_on_card_matches_one_shot_rpq(cuda):
     """mr_drpq on the card (a reduced graph) answers as the one-shot RPQ
-    does, through B1, with the reference's cost-model counts."""
+    does, its reducer one launch of B1's fixpoint kernel, with the
+    reference's cost-model counts."""
     from repro_torch.core.automaton import build_query_automaton
     from repro_torch.core.mapreduce import mr_drpq
     from repro_torch.core.session import exec_rpq
@@ -694,9 +772,10 @@ def test_mr_drpq_on_card_matches_one_shot_rpq(cuda):
     answers = []
     for s, t in rng.integers(0, g.n, size=(6, 2)):
         s, t = int(s), int(t)
-        bops.launches = 0
+        bops.launches = bops.fixpoint_launches = 0
         got = mr_drpq(fr, s, t, qa)
-        assert s == t or bops.launches > 0
+        assert (bops.fixpoint_launches, bops.launches) == \
+            ((0, 0) if s == t else (1, 0))
         assert got.answer == exec_rpq(fr, s, t, qa).answer
         assert got == mr_drpq(fr, s, t, qa, device="cpu")
         answers.append(got.answer)

@@ -28,7 +28,8 @@ from repro_torch.core import incremental as tinc
 from repro_torch.core.fragments import fragment_graph
 from repro_torch.graph import erdos_renyi, random_partition
 from repro_torch.kernels.tropical_matmul import ops as tops
-from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
+from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint,
+                                                 min_plus_matmul,
                                                  min_plus_matmul_ref)
 from repro_torch.kernels.tropical_matmul.ops import (
     ALIGN, SKINNY_MAX_M, SKINNY_MIN_K, SKINNY_THREADS, Route, _route,
@@ -285,14 +286,20 @@ def test_combine_dist_on_padded_input(N, nb):
 # ---------------------------------------------------------------------------
 
 class _Spy:
-    """Stands in for ``min_plus_matmul`` in the modules that call it and
-    records, per caller, whether every operand it was given (and the
-    floor) can be read by the kernel as it is."""
+    """Stands in for ``min_plus_matmul`` in the modules that call it, and
+    for ``min_plus_fixpoint`` in the engine's evalDG, and records, per
+    caller, whether every operand it was given (and the floor) can be read
+    by the kernel as it is."""
 
     def __init__(self, monkeypatch):
         self.calls = {}
-        for mod in (tbes, tcache, tengine, tinc):
+        for mod in (tbes, tcache, tinc):
             monkeypatch.setattr(mod, "min_plus_matmul", self._wrap(mod))
+
+        def fixpoint(d0, W):
+            self.calls.setdefault("engine", []).append(is_aligned(W))
+            return min_plus_fixpoint(d0, W)
+        monkeypatch.setattr(tengine, "min_plus_fixpoint", fixpoint)
 
     def _wrap(self, mod):
         name = mod.__name__.rsplit(".", 1)[1]
@@ -306,9 +313,9 @@ class _Spy:
 
 
 def test_paths_pass_aligned_operands(monkeypatch):
-    """Cache build (closure squarings), composes, one-shot evalDG steps and
-    a repair's rank update: every min-plus operand is already in the
-    kernel's layout, so on the card none is copied."""
+    """Cache build (closure squarings), composes, one-shot evalDG's
+    fixpoint and a repair's rank update: every min-plus operand is already
+    in the kernel's layout, so on the card none is copied."""
     spy = _Spy(monkeypatch)
     g = erdos_renyi(24, 40, n_labels=3, seed=7)
     fr = fragment_graph(g, random_partition(g, 4, 7), 4, reserve_boundary=8,
