@@ -27,7 +27,10 @@ non-zero and prints no result line):
              ``min_plus_fixpoint``), x / d and the steps, on random D and
              W at B = 2, 300 and 1037, an empty source, a source that
              covers every column, a row of D all true, a D and a W not in
-             padded storage (one counted copy each) and a 1024-node chain.
+             padded storage (one counted copy each) and a 1024-node chain;
+             the or-and floor-pair kernel (``or_and_floor_pair(a, b_t,
+             F, Ft)``) on ragged shapes with random, all-zero and all-one
+             floors: pads zero, floors unchanged.
 3. main    — the query path at full size: an Erdos-Renyi graph of 16384
              nodes and 65536 edges over 8 labels, randomly cut into 16
              fragments; ``repro_torch.connect(fr)``, ``warm(with_dist=True)``,
@@ -73,9 +76,12 @@ non-zero and prints no result line):
              rebuild, each delta followed by 256 queries checked against
              the host BFS on the updated graph and a freshly built
              session; one delta made to fail inside the repair must roll
-             back with versions, tensors and answers unchanged.  Both
-             kernels are held against their plain versions at the rank
-             update's shapes, on the operands the repair gave them.
+             back with versions, tensors and answers unchanged.  A
+             repair makes 3 B1 layout copies and one floor-pair launch.
+             Both kernels are held against their plain versions at the
+             rank update's shapes, on the operands the repair gave them;
+             the last or-and product with its floor pair also beside the
+             old composition (P and P^T, then two OR passes) and cuBLAS.
 7. serve   — ``repro_torch.QueryServer`` on the dynamic phase's warm
              session (nb = 16103 with reserves, reach + dist cache): a
              deterministic barrier flush (``start=False``) of 1024 mixed
@@ -123,7 +129,8 @@ non-zero and prints no result line):
              bits per sharded repair (none otherwise), no operand copied,
              the cache bit-equal to the host repair of the same delta on
              a copy-on-write clone, and 256 reach queries after it
-             checked through the sharded batch and the cached path.
+             checked through the sharded batch and the cached path; the
+             floor-pair product timed at the sharded rank update's K.
 11. verify — ``repro_torch.analysis.verify_session`` on that session:
              the three batch programs, the one-shot disReach and the cache
              update, one collective each of its wire model's bits, no
@@ -494,6 +501,7 @@ def _reset_launches():
     tops.copies = tops.fixpoint_launches = 0
     bops = _counted()["or_and_matmul"]
     bops.skinny_launches = bops.copies = bops.fixpoint_launches = 0
+    bops.floor_launches = 0
 
 
 def _copies() -> int:
@@ -518,14 +526,16 @@ def _assert_no_b1_copies(what: str) -> None:
 
 
 def _launches():
-    """Launches by kernel since the last reset: ``or_and_skinny`` counts
-    the or-and kernel's skinny route apart (those launches are in
-    ``or_and_matmul`` too), ``or_and_fixpoint`` and ``min_plus_fixpoint``
-    the two evalDG fixpoint kernels (in neither product's count), and
-    ``or_and_copies`` the or-and wrapper's K-major and row copies."""
+    """Launches by kernel since the last reset: ``or_and_skinny`` and
+    ``or_and_floor`` count the or-and kernel's skinny route and its
+    floor-pair kernel apart (those launches are in ``or_and_matmul`` too),
+    ``or_and_fixpoint`` and ``min_plus_fixpoint`` the two evalDG fixpoint
+    kernels (in neither product's count), and ``or_and_copies`` the or-and
+    wrapper's K-major and row copies."""
     counts = {name: ops.launches for name, ops in _counted().items()}
     bops = _counted()["or_and_matmul"]
     counts["or_and_skinny"] = bops.skinny_launches
+    counts["or_and_floor"] = bops.floor_launches
     counts["or_and_fixpoint"] = bops.fixpoint_launches
     counts["min_plus_fixpoint"] = \
         _counted()["min_plus_matmul"].fixpoint_launches
@@ -681,6 +691,7 @@ def phase_parity() -> None:
                      min_plus_matmul_ref(a, b[:, ::2]))
         n += 2
     n += _parity_or_and_skinny(dev)
+    n += _parity_or_and_floor(dev)
     n += _parity_min_plus_routes(dev)
     n += _parity_fixpoints(dev)
     n += _parity_bitpack(dev)
@@ -734,6 +745,63 @@ def _parity_or_and_skinny(dev) -> int:
                     raise AssertionError(f"{what}: pad bytes set")
                 n += 1
     return n
+
+
+# the floor-pair kernel: M and N ragged around its 128 x 128 tiles, K
+# around its 64-byte slice and 128-byte stages (0 included)
+OR_AND_FLOOR = [(1, 1, 1), (127, 64, 129), (129, 65, 127), (1037, 128, 300),
+                (300, 129, 1037), (130, 0, 17), (4113, 1024, 257)]
+
+
+def _parity_or_and_floor(dev) -> int:
+    """The floor pair, ``or_and_floor_pair(a, b_t, F, Ft)``, with floors
+    random, all zero and all one, whose pad bytes are set (the kernel must
+    not read them) and with Ft drawn apart from F (each output takes its
+    own floor): bit-equal to the plain version, both outputs' pads zero,
+    both floors unchanged, one launch of the floor-pair kernel a call."""
+    import torch
+    from repro_torch.kernels.bool_matmul import (or_and_floor_pair,
+                                                 or_and_floor_pair_ref, pitch)
+    from repro_torch.kernels.bool_matmul import ops as bops
+    n = 0
+    for si, (m, k, n_) in enumerate(OR_AND_FLOOR):
+        rng = np.random.default_rng([SEED, si, 17])
+        a = torch.tensor(rng.random((m, k)) < 0.05, device=dev)
+        b_t = torch.tensor(rng.random((n_, k)) < 0.05, device=dev)
+        for kind in ("random", "zero", "one"):
+            floors = []
+            for rows, cols in ((m, n_), (n_, m)):
+                x = (rng.random((rows, cols)) < 0.1 if kind == "random"
+                     else np.full((rows, cols), kind == "one"))
+                buf = torch.ones((rows, pitch(cols)), dtype=torch.bool,
+                                 device=dev)
+                floors.append(buf[:, :cols].copy_(torch.tensor(x,
+                                                               device=dev)))
+            F, Ft = floors
+            held = [_padded_storage(x).clone() for x in floors]
+            before = (bops.launches, bops.floor_launches)
+            c, ct = or_and_floor_pair(a, b_t, F, Ft)
+            if (bops.launches - before[0],
+                    bops.floor_launches - before[1]) != (1, 1):
+                raise AssertionError(f"or_and floor {m}x{k}x{n_}: not one "
+                                     "floor-pair launch")
+            want, want_t = or_and_floor_pair_ref(a, b_t, F, Ft)
+            what = f"or_and floor {m}x{k}x{n_} {kind}"
+            _check_equal(what, c, want)
+            _check_equal(what + " C^T", ct, want_t)
+            if (_padded_storage(c)[:, n_:].any()
+                    or _padded_storage(ct)[:, m:].any()):
+                raise AssertionError(f"{what}: pad bytes set")
+            if not all(torch.equal(_padded_storage(x), h)
+                       for x, h in zip(floors, held)):
+                raise AssertionError(f"{what}: a floor changed")
+            n += 1
+    return n
+
+
+def _padded_storage(x):
+    """The [rows, pitch] storage behind a padded view."""
+    return x.as_strided((x.shape[0], x.stride(0)), (x.stride(0), 1))
 
 
 # evalDG's two fixpoint kernels: random D and W at these B, a chain of
@@ -1401,8 +1469,16 @@ def _mixed_queries(n, rng, count):
 def _mm_bound(m, k, n, kind, dpx_per_s, transpose=False, floor=False):
     """(ms, bound_by) of one [m, k] x [k, n] product: or-and ("or_and",
     2mkn int8 tensor-core operations on 1-byte operands, C^T too when
-    ``transpose``) or min-plus ("min_plus", mkn DPX operations on int32,
-    an [m, n] floor read too when ``floor``)."""
+    ``transpose``; with ``floor`` the floor pair C [m, n] and C^T [n, m]
+    read at their logical width, whose pads the kernel never reads, and
+    C' and C'^T written to their row pitch, pads included) or min-plus
+    ("min_plus", mkn DPX operations on int32, an [m, n] floor read too
+    when ``floor``)."""
+    if kind == "or_and" and floor:
+        from repro_torch.kernels.bool_matmul import pitch
+        return _bound(2 * m * k * n, INT8_TENSOR_OPS_PER_S,
+                      m * k + k * n + 2 * m * n
+                      + m * pitch(n) + n * pitch(m))
     if kind == "or_and":
         return _bound(2 * m * k * n, INT8_TENSOR_OPS_PER_S,
                       m * k + k * n + m * n * (2 if transpose else 1))
@@ -2003,43 +2079,118 @@ class _RankUpdateProbe:
         self.inc._rank_update_bool, self.inc._rank_update_tropical = self.orig
 
 
-def _rank_update_shapes(args: dict, dpx_per_s) -> dict:
-    """The or-and and min-plus products of the rank-style update, each on
-    the operands the repair gave it: T = rows (x) C [r, nb] x [nb, nb];
-    left = C[:, R] (x) M* [nb, r] x [r, r]; P = left (x) T [nb, r] x [r, nb]
-    (or-and writing P and P^T)."""
+def _p_stage(args) -> tuple:
+    """The operands of the rank update's last product as the repair makes
+    them from the arguments it was given (C, Ct, rows, idx): T and T^T in
+    one launch, the r x r closure M* and its K-major copy, ``C[:, R]``
+    copied K-major (``Ck``) and ``left = C[:, R] (x) M*``."""
     import torch
     from repro_torch.core import bes
-    from repro_torch.kernels.bool_matmul import (kmajor_copy,
+    from repro_torch.kernels.bool_matmul import kmajor_copy, or_and_matmul_nt
+    C, Ct, rows, idx = args
+    idx = torch.as_tensor(idx, dtype=torch.long, device=C.device)
+    T, Tt = or_and_matmul_nt(rows, Ct, with_transpose=True)
+    Mc, Mct = bes.bool_closure_kmajor(T[:, idx])
+    Ck = kmajor_copy(Ct[idx].T)
+    left = or_and_matmul_nt(Ck, Mct)
+    return T, Tt, Mc, Mct, Ck, left
+
+
+P_FLOOR_TURNS = 2
+
+
+def _time_p_floor(name, C, Ct, left, Tt) -> dict:
+    """The rank update's last product with its floor pair, on the operands
+    the repair gave it: the floor-pair launch (C | P and C^T | P^T) against
+    the old composition (the tile route writing P and P^T, then an OR into
+    fresh padded storage for each closure), the two in turns (new, old,
+    old, new), each bit-equal to the plain version; the tile route's P and
+    P^T alone; and cuBLAS fp16, ``((left_h @ T_h) > 0) | C``, which writes
+    no C'^T.  The bound reads the floor pair at its logical width and
+    writes both outputs to their row pitch."""
+    import torch
+    from repro_torch.kernels.bool_matmul import (or_and_floor_pair,
+                                                 or_and_floor_pair_ref,
                                                  or_and_matmul_nt,
+                                                 padded_zeros)
+    m, k = left.shape
+    n = Tt.shape[0]
+
+    def fused():
+        return or_and_floor_pair(left, Tt, C, Ct)
+
+    def old():
+        P, Pt = or_and_matmul_nt(left, Tt, with_transpose=True)
+        return (torch.bitwise_or(C, P, out=padded_zeros(m, n, C.device)),
+                torch.bitwise_or(Ct, Pt, out=padded_zeros(n, m, C.device)))
+
+    plain_ms, want = cuda_timed(
+        lambda: or_and_floor_pair_ref(left, Tt, C, Ct), 1,
+        warmup=False)
+    for what, fn in (("", fused), (" old composition", old)):
+        got = fn()
+        _check_equal(name + what, got[0], want[0])
+        _check_equal(name + what + " C^T", got[1], want[1])
+        if what == "" and (_padded_storage(got[0])[:, n:].any()
+                           or _padded_storage(got[1])[:, m:].any()):
+            raise AssertionError(f"{name}: pad bytes set")
+        del got
+    turns = []                            # (new ms, old ms), in turns
+    for i in range(P_FLOOR_TURNS):
+        order = (fused, old) if i % 2 == 0 else (old, fused)
+        first, second = (cuda_timed(f, 10)[0] for f in order)
+        turns.append((first, second) if i % 2 == 0 else (second, first))
+    ms = statistics.mean(t[0] for t in turns)
+    old_ms = statistics.mean(t[1] for t in turns)
+    product_ms = cuda_timed(
+        lambda: or_and_matmul_nt(left, Tt, with_transpose=True), 10)[0]
+    left_h, T_h = left.half(), Tt.T.half()
+    lib_ms, got = cuda_timed(lambda: ((left_h @ T_h) > 0) | C, 3)
+    _check_equal(name + " cuBLAS", got, want[0])
+    del got, want, left_h, T_h
+    bound_ms, by = _mm_bound(m, k, n, "or_and", None, floor=True)
+    print(f"time {name} [{m},{k}]x[{k},{n}] with the floor pair: {ms:.4f} ms "
+          f"(bound {bound_ms:.4f} ms, {by}, {100 * bound_ms / ms:.1f} %); "
+          f"old composition {old_ms:.4f} ms (P and P^T alone "
+          f"{product_ms:.4f} ms); turns {turns}; plain {plain_ms:.3f} ms; "
+          f"cuBLAS fp16 {lib_ms:.4f} ms (C' only, no C'^T)")
+    return {"shape": f"[{m},{k}]x[{k},{n}], C | P and C^T | P^T",
+            "path": name, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "cuBLAS fp16 ((left_h @ T_h) > 0) | C, no C'^T",
+            "max_abs_err": 0.0, "old_composition_ms": old_ms,
+            "product_ms": product_ms, "turns_ms": turns}
+
+
+def _rank_update_shapes(args: dict, dpx_per_s) -> dict:
+    """The or-and and min-plus products of the rank-style update, each on
+    the operands the repair gave it: T = rows (x) C [r, nb] x [nb, nb]
+    (or-and writing T and T^T); left = C[:, R] (x) M* [nb, r] x [r, r];
+    P = left (x) T [nb, r] x [r, nb] with the floor (or-and: the floor
+    pair, ``_time_p_floor``)."""
+    import torch
+    from repro_torch.core import bes
+    from repro_torch.kernels.bool_matmul import (or_and_matmul_nt,
                                                  or_and_matmul_ref)
     from repro_torch.kernels.tropical_matmul import (min_plus_matmul,
                                                      min_plus_matmul_ref)
     C, Ct, rows, idx = args["bool"]
-    idx = torch.as_tensor(idx, dtype=torch.long, device=C.device)
     r, nb = rows.shape
-    T = or_and_matmul_nt(rows, Ct)
-    Mc, Mct = bes.bool_closure_kmajor(T[:, idx])
-    Ck = kmajor_copy(Ct[idx].T)
-    left = or_and_matmul_nt(Ck, Mct)
-    Tt = kmajor_copy(T.T)
+    T, Tt, Mc, Mct, Ck, left = _p_stage(args["bool"])
     half = lambda a: a.half()
-    rows_h, C_h, Ck_h, Mc_h, left_h, T_h = map(half, (rows, C, Ck, Mc, left,
-                                                      T))
+    rows_h, C_h, Ck_h, Mc_h = map(half, (rows, C, Ck, Mc))
     b1 = [_time_shape("rank update T", "or_and",
-                      lambda: or_and_matmul_nt(rows, Ct),
+                      lambda: or_and_matmul_nt(rows, Ct, with_transpose=True),
                       lambda: or_and_matmul_ref(rows, C),
-                      lambda: (rows_h @ C_h) > 0, r, nb, nb, dpx_per_s),
+                      lambda: (rows_h @ C_h) > 0, r, nb, nb, dpx_per_s,
+                      transpose=True),
           _time_shape("rank update left", "or_and",
                       lambda: or_and_matmul_nt(Ck, Mct),
                       lambda: or_and_matmul_ref(Ck, Mc),
-                      lambda: (Ck_h @ Mc_h) > 0, nb, r, r, dpx_per_s),
-          _time_shape("rank update P", "or_and",
-                      lambda: or_and_matmul_nt(left, Tt, with_transpose=True),
-                      lambda: or_and_matmul_ref(left, T),
-                      lambda: (left_h @ T_h) > 0, nb, r, nb, dpx_per_s,
-                      transpose=True)]
-    del rows_h, C_h, Ck_h, Mc_h, left_h, T_h
+                      lambda: (Ck_h @ Mc_h) > 0, nb, r, r, dpx_per_s)]
+    del rows_h, C_h, Ck_h, Mc_h
+    b1.append(_time_p_floor("rank update P with floor", C, Ct, left, Tt))
+    del T, Tt, Mc, Mct, Ck, left
     from repro_torch.kernels.tropical_matmul import ops as tops
     Cd, rows_d, idx_d = args["tropical"]
     idx_d = torch.as_tensor(idx_d, dtype=torch.long, device=Cd.device)
@@ -2135,6 +2286,17 @@ def phase_dynamic(out: dict, g):
         if launches["or_and_skinny"]:
             raise AssertionError(f"dynamic {label} delta: the rank update "
                                  "took the or-and skinny route")
+        if stats.mode == "repair":
+            # B1's layout copies in a repair: the r x r closure's two and
+            # C[:, R] (rows_new is gathered padded, T^T comes from T's
+            # launch); its P stage is one floor-pair launch, C | P and
+            # C^T | P^T with no OR pass after it
+            want_b1 = (3, 1) if stats.changed_rows else (0, 0)
+            got_b1 = (launches["or_and_copies"], launches["or_and_floor"])
+            if got_b1 != want_b1:
+                raise AssertionError(f"dynamic {label} delta: B1 copies and "
+                                     f"floor-pair launches {got_b1}, "
+                                     f"expected {want_b1}")
         applies.append({"delta": label, "mode": stats.mode, "ms": ms,
                         "changed_rows": stats.changed_rows,
                         "new_boundary": stats.new_boundary,
@@ -2235,6 +2397,22 @@ def phase_dynamic(out: dict, g):
 
     shapes = _rank_update_shapes(probe.args, out["kernels"][1]["dpx_ops_per_s"])
     torch.cuda.empty_cache()
+    # the floor-pair kernel: its launches are the repairs' (one a rank
+    # update), its times the P stage's on the first repair's operands
+    p = next(e for e in shapes["or_and_matmul"]
+             if e["path"] == "rank update P with floor")
+    n_floor = launches_by_mode["repair"]["or_and_floor"]
+    if n_floor == 0:
+        raise AssertionError("no repair launched the floor-pair kernel")
+    out["kernels"].append(
+        {"name": "or_and_floor", "route": "cuda",
+         "source": "src/repro_torch/kernels/bool_matmul/csrc/or_and_matmul.cu",
+         "replaces": "src/repro/kernels/bool_matmul/bool_matmul.py:42",
+         "launches": n_floor, "launches_path": "dynamic repair",
+         **{key: p[key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library", "shape", "old_composition_ms",
+             "product_ms", "turns_ms")}})
     out["dynamic"] = {"warm_ms": warm_ms, "applies": applies,
                       "launches_by_mode": launches_by_mode,
                       "rollback_ms": rollback_ms, "shapes": shapes}
@@ -3072,6 +3250,8 @@ def phase_sharded_repair(out: dict, g):
             raise AssertionError(f"sharded repair {label}: the cached path "
                                  "disagrees with the BFS")
 
+    probe = _RankUpdateProbe(incremental)
+
     def apply(label, delta, want_mode, fr=fr, sess=sess,
               tensors=REPAIR_TENSORS):
         clone = cow_clone(fr, delta)
@@ -3083,7 +3263,13 @@ def phase_sharded_repair(out: dict, g):
         _reset_launches()
         D.collectives = D.payload_bits = 0
         t0 = time.perf_counter()
-        stats = sess.apply(delta)
+        if label == "intra":
+            # keep the sharded rank update's operands (r: every in-node
+            # row of the dirty fragment)
+            with probe:
+                stats = sess.apply(delta)
+        else:
+            stats = sess.apply(delta)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = _launches()
@@ -3190,9 +3376,18 @@ def phase_sharded_repair(out: dict, g):
     apply("dist cache", GraphDelta.insert(
         [(int(rng.choice(mine)), int(rng.choice(mine))) for _ in range(32)]),
         "repair", tensors=REPAIR_TENSORS + ("bl_dist", "dist_closure"))
+    # the P stage with its floor pair at the sharded repair's K
+    C0, Ct0 = probe.args["bool"][:2]
+    Tt, left = _p_stage(probe.args["bool"])[1::4]
+    p_floor = _time_p_floor("sharded rank update P with floor", C0, Ct0,
+                            left, Tt)
+    del C0, Ct0, Tt, left, probe
+    torch.cuda.empty_cache()
+    next(k for k in out["kernels"]
+         if k["name"] == "or_and_floor")["sharded_repair"] = p_floor
     out["sharded_repair"] = {"warm_ms": warm_ms, "applies": applies,
                              "launches_by_mode": launches_by_mode,
-                             "rollback_ms": rollback_ms}
+                             "rollback_ms": rollback_ms, "p_floor": p_floor}
     return fr, sess
 
 

@@ -38,7 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
+from ..kernels.bool_matmul.ops import kmajor, kmajor_copy, or_and_matmul_nt
 from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 from . import bes, engine
 from .automaton import QueryAutomaton
@@ -222,11 +222,12 @@ def load_rvset_state(fr: Fragmentation, arrays: Dict[str, np.ndarray],
                      device) -> RvsetCache:
     """Attach a cache built elsewhere: ``arrays`` holds ``bl_frontier`` and
     ``closure`` and, optionally, ``bl_dist`` and ``dist_closure`` as numpy
-    arrays.  Every array is copied onto ``device``; the closure's K-major
-    copy is made there."""
+    arrays.  Every array is copied onto ``device``; the closure is kept
+    K-major, as the repair's floor pair needs it, and its K-major copy is
+    made there."""
     device = torch.device(device)
     dist = arrays.get("bl_dist")
-    closure = _upload(arrays["closure"], device)
+    closure = kmajor(_upload(arrays["closure"], device))
     cache = RvsetCache(
         fr=fr, device=device, arrays=_upload_arrays(fr, device),
         bl_frontier=_upload(arrays["bl_frontier"], device),

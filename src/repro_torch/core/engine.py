@@ -321,7 +321,7 @@ def evaldg_reach(D, src_rows, tgt_cols) -> bool:
     The fixpoint is :func:`~repro_torch.kernels.bool_matmul.ops.
     or_and_fixpoint`: on the card one launch whose steps each read only
     the rows of D that the step before reached, on D as it is stored when
-    its rows lie 16 bytes apart, as every path makes it
+    its rows lie a multiple of 16 bytes apart, as every path makes it
     (:func:`~repro_torch.kernels.bool_matmul.ops.padded_zeros`).  The
     answer is read back once, at the end."""
     with FIXPOINT:
@@ -515,8 +515,8 @@ def regular_rvset(esrc, edst, src_local, src_row, tgt_local, labels, gids,
     [side, side]: the first ``side`` rows and columns of the [(B*Q), (B*Q)]
     dependency matrix (``side = nb*Q`` cuts off the query slots).  Built
     one fragment at a time, so the product frontier of only one fragment
-    is alive at once, into zero-padded storage (rows 16 bytes apart, as
-    evalDG's fixpoint reads them); arguments as for
+    is alive at once, into zero-padded storage (rows a multiple of 16
+    bytes apart, as evalDG's fixpoint reads them); arguments as for
     :func:`local_eval_regular`, with s_gid/t_gid scalars."""
     D = padded_zeros(side, side, esrc.device)
     for f in range(esrc.shape[0]):

@@ -46,8 +46,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels.bool_matmul.ops import (kmajor_copy, or_and_matmul_nt,
-                                       padded_zeros)
+from ..kernels.bool_matmul.ops import (kmajor_copy, or_and_floor_pair,
+                                       or_and_matmul_nt, padded)
 from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 from . import bes, engine
 from .cache import _gather_boundary_matrix, _upload, prepare_rvset_cache
@@ -260,28 +260,24 @@ def gather_rows(fr: Fragmentation, bl, row_ids: np.ndarray):
     return out
 
 
-def _or_padded(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x | y`` in fresh padded storage (rows 16 bytes apart, zero pad),
-    so the result stays a K-major operand of the or-and kernel."""
-    return torch.bitwise_or(x, y, out=padded_zeros(*x.shape, x.device))
-
-
 def _rank_update_bool(C, Ct, rows_new, idx):
     """C' = C | C[:, R] (x) closure(T[:, R]) (x) T with T = rows_new (x) C;
     exact for monotone row updates (module docstring).  ``Ct`` is C's
     K-major copy C^T; returns the pair (C', C'^T), both in fresh padded
-    storage, so later composes read C'^T without a transposition.
+    storage, so later composes read C'^T without a transposition.  C and
+    Ct are left as they were (MVCC versions hold them).
 
-    Four or-and launches: T [r, nb] through ``Ct``; the r x r closure;
-    ``left = C[:, R] (x) M*`` [nb, r] with ``C[:, R] = Ct[R].T`` copied
-    K-major once; and ``P = left (x) T`` writing P and P^T in one launch
-    (K = r, at most a few 128-byte stages)."""
+    Or-and launches: T [r, nb] and T^T through ``Ct`` in one; the r x r
+    closure; ``left = C[:, R] (x) M*`` [nb, r] with ``C[:, R] = Ct[R].T``
+    copied K-major once; and one launch of ``left (x) T`` with the floor
+    pair (C, Ct), which writes C | P and Ct | P^T with no OR pass after it.
+    A K-major ``rows_new`` (padded, as the repair gathers it) is read as
+    it is."""
     idx_t = torch.as_tensor(idx, dtype=torch.long, device=C.device)
-    T = or_and_matmul_nt(rows_new, Ct)                     # [r, nb]
+    T, Tt = or_and_matmul_nt(rows_new, Ct, with_transpose=True)  # [r, nb]
     Mc, Mct = bes.bool_closure_kmajor(T[:, idx_t])         # [r, r]
     left = or_and_matmul_nt(kmajor_copy(Ct[idx_t].T), Mct)  # [nb, r]
-    P, Pt = or_and_matmul_nt(left, kmajor_copy(T.T), with_transpose=True)
-    return _or_padded(C, P), _or_padded(Ct, Pt)
+    return or_and_floor_pair(left, Tt, C, Ct)
 
 
 def _rank_update_tropical(Cd, rows_new, idx):
@@ -331,8 +327,11 @@ def _repair_insert(cache, dirty: np.ndarray) -> int:
     padded_sel = pad_row_ids(sel, cap=fr.n_boundary)
     idx = candidates[padded_sel]
     pick = torch.tensor(padded_sel, dtype=torch.long, device=cache.device)
+    rows = torch.index_select(rows_new, 0, pick,
+                              out=padded(len(pick), fr.n_boundary,
+                                         cache.device))
     cache.closure, cache.closure_t = _rank_update_bool(
-        cache.closure, cache.closure_t, rows_new[pick], idx)
+        cache.closure, cache.closure_t, rows, idx)
     if rows_d_new is not None:
         rows_d = torch.index_select(
             rows_d_new, 0, pick,

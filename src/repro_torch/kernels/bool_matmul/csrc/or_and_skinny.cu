@@ -234,8 +234,8 @@ struct Skinny {
 //
 // until Delta is empty; writes x [B] and the number of steps taken.  x0 [B]
 // is bool, read a byte at a time through its stride; D [B, B] is bool
-// storage as the skinny route reads B (rows 16 bytes apart, storage to the
-// last row's last 16-byte group, the bytes past B masked).
+// storage as the skinny route reads B (rows a multiple of 16 bytes apart,
+// storage to the last row's last 16-byte group, the bytes past B masked).
 //
 // Replaces the TPU kernel bool_matmul_pallas as the reference's evalDG runs
 // it: one or-and vector-matrix product a step inside one jax.lax.while_loop

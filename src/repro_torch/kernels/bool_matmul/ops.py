@@ -13,6 +13,12 @@ the right operand's layout, so that the CPU tests reach the choice):
 - the skinny route, ``csrc/or_and_skinny.cu``, for at most
   :data:`SKINNY_MAX_M` rows with the right operand read as it is stored.
 
+The rank update's last product takes a floor pair,
+:func:`or_and_floor_pair` ``(a, b_t, C, Ct)``: one persistent launch of a
+second kernel in the tile route's source writes ``C | P`` and ``Ct | P^T``
+(counted also in :data:`floor_launches`), so no OR pass over the closure
+follows the product.
+
 evalDG's whole fixpoint (``core.engine.evaldg_reach``) is one launch of a
 third kernel in the skinny route's source, :func:`or_and_fixpoint`: each
 step reads only the rows of D that the step before added to the frontier,
@@ -26,9 +32,9 @@ N]``), each row-major with K contiguous and every row starting on a
 :data:`copies`, or the tensor itself when it already is one), and the
 kernels' outputs are allocated that way (:func:`padded`), so a chain of
 products, and a closure's pair ``(C, C^T)``, never copies.  The skinny
-route reads ``b [K, N]`` itself, rows 16 bytes apart and its storage
-reaching the last row's last 16-byte group (:func:`rows_aligned`): D is
-made that way from the start (:func:`padded_zeros`).
+route reads ``b [K, N]`` itself, rows a multiple of 16 bytes apart and its
+storage reaching the last row's last 16-byte group (:func:`rows_aligned`):
+D is made that way from the start (:func:`padded_zeros`).
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from .. import _fixpoint
-from .ref import or_and_fixpoint_ref, or_and_matmul_nt_ref, or_and_matmul_ref
+from .ref import (or_and_fixpoint_ref, or_and_floor_pair_ref,
+                  or_and_matmul_nt_ref, or_and_matmul_ref)
 
 #: launches of the CUDA kernels (both routes) since the count was last set
 #: to 0
@@ -48,6 +55,10 @@ launches = 0
 
 #: launches of the skinny route alone, also counted in :data:`launches`
 skinny_launches = 0
+
+#: launches of the floor-pair kernel alone (:func:`or_and_floor_pair`),
+#: also counted in :data:`launches`
+floor_launches = 0
 
 #: launches of the fixpoint kernel (:func:`or_and_fixpoint`), which are not
 #: in :data:`launches`
@@ -62,15 +73,18 @@ copies = 0
 _count_lock = threading.Lock()
 
 
-def _count_launch(skinny: bool = False) -> None:
+def _count_launch(skinny: bool = False, floor: bool = False) -> None:
     """Add one to :data:`launches` (and to :data:`skinny_launches` for the
-    skinny route), atomically: the scheduler thread and the repair worker
-    of a server launch kernels at the same time."""
-    global launches, skinny_launches
+    skinny route, :data:`floor_launches` for the floor pair), atomically:
+    the scheduler thread and the repair worker of a server launch kernels
+    at the same time."""
+    global launches, skinny_launches, floor_launches
     with _count_lock:
         launches += 1
         if skinny:
             skinny_launches += 1
+        if floor:
+            floor_launches += 1
 
 
 def _count_fixpoint() -> None:
@@ -89,16 +103,30 @@ def _count_copy() -> None:
 #: byte alignment of a K-major operand's base and row pitch
 ALIGN = 16
 
+#: rows of at least :data:`LINE_MIN` bytes start :data:`LINE` bytes apart
+LINE, LINE_MIN = 128, 2048
+
 
 def pitch(cols: int) -> int:
     """Row pitch in bytes of a padded ``[rows, cols]`` bool matrix: ``cols``
-    rounded up to a multiple of :data:`ALIGN` (at least one)."""
-    return -(-max(cols, 1) // ALIGN) * ALIGN
+    rounded up to a multiple of :data:`ALIGN` (at least one) and, from
+    :data:`LINE_MIN` columns on, of :data:`LINE`, so that every row of a
+    wide matrix starts on a 128-byte L2 line.  Tiles whose rows straddle
+    lines slow the tensor-memory copies: the floor-pair product at nb =
+    16103, K = 64 took 0.658 ms at a pitch of 16112 bytes and 0.399 ms at
+    16128, and the squaring at nb = 16039 6.559 ms at 16048 and 4.680 ms
+    at 16128 (``tools/or_and_tile_ab.py``, H100 80GB HBM3, 700 W).  Only
+    such wide rows (nb of 16039 to 80205 on the paths) were measured;
+    :data:`LINE_MIN` is not a measured break-even but the width from which
+    the rounding costs at most 112 / 2048 = 5.5 % more bytes, and narrower
+    rows keep the 16-byte rounding."""
+    align = LINE if cols >= LINE_MIN else ALIGN
+    return -(-max(cols, 1) // align) * align
 
 
 def padded(rows: int, cols: int, device) -> torch.Tensor:
     """An uninitialised bool ``[rows, cols]`` view of ``[rows, pitch(cols)]``
-    storage: rows start 16 bytes apart."""
+    storage: rows start :func:`pitch` bytes apart, a multiple of 16."""
     buf = torch.empty((rows, pitch(cols)), dtype=torch.bool, device=device)
     return buf[:, :cols]
 
@@ -142,7 +170,11 @@ def _entry():
     fn = lib.or_and_matmul_nt
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib, fn
+    floor = lib.or_and_matmul_floor
+    floor.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                      + [ctypes.c_void_p])
+    floor.restype = ctypes.c_int
+    return lib, fn, floor
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, k_dim: int, name: str) -> None:
@@ -194,7 +226,7 @@ def rows_aligned(b: torch.Tensor) -> bool:
     K, N = b.shape
     if K == 0 or N == 0:
         return True
-    end = b.storage_offset() + (K - 1) * b.stride(0) + pitch(N)
+    end = b.storage_offset() + (K - 1) * b.stride(0) + -(-N // ALIGN) * ALIGN
     return end <= b.untyped_storage().nbytes()
 
 
@@ -338,6 +370,39 @@ def or_and_matmul_nt(a: torch.Tensor, b_t: torch.Tensor, *,
     return (c, ct) if with_transpose else c
 
 
+def or_and_floor_pair(a: torch.Tensor, b_t: torch.Tensor, init: torch.Tensor,
+                      init_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(init | C, init_t | C^T)`` with C = a @ b_t.T as in
+    :func:`or_and_matmul_nt`, for the floor pair ``init`` [M, N] and
+    ``init_t`` [N, M] (bool, on the operands' device and, on the card,
+    K-major, as the paths keep a closure and its copy C^T).  Each output is
+    a fresh view of zero-padded storage; the floors are left as they were.
+    On the card that is one launch of the floor-pair kernel, which reads
+    each floor from its own matrix; on the CPU the plain version's."""
+    _check(a, b_t, 1, "or_and_floor_pair")
+    M, N = a.shape[0], b_t.shape[0]
+    for name, x, shape in (("init", init, (M, N)), ("init_t", init_t, (N, M))):
+        if x.dtype != torch.bool:
+            raise TypeError(f"{name} must be bool, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(x.shape)}")
+        if x.device != a.device:
+            raise ValueError(f"{name} on {x.device}, operands on {a.device}")
+        if a.device.type == "cuda" and not is_kmajor(x):
+            raise ValueError(f"{name} must be K-major (padded storage, as "
+                             "padded() makes it)")
+    if a.device.type == "cpu":
+        c, ct = or_and_floor_pair_ref(a, b_t, init, init_t)
+        return (padded_zeros(M, N, a.device).copy_(c),
+                padded_zeros(N, M, a.device).copy_(ct))
+    if M == 0 or N == 0:
+        return padded_zeros(M, N, a.device), padded_zeros(N, M, a.device)
+    c, ct = padded(M, N, a.device), padded(N, M, a.device)
+    _launch_floor(kmajor(a), kmajor(b_t), init, init_t, c, ct)
+    return c, ct
+
+
 def _launch(a: torch.Tensor, b_t: torch.Tensor, c: torch.Tensor,
             ct) -> None:
     M, K = a.shape
@@ -346,7 +411,7 @@ def _launch(a: torch.Tensor, b_t: torch.Tensor, c: torch.Tensor,
             0 if ct is None else ct.stride(0))
     if max(ints) >= 2 ** 31:
         raise ValueError("sizes and row pitches must fit in int32")
-    lib, fn = _entry()
+    lib, fn, _ = _entry()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         code = fn(a.data_ptr(), b_t.data_ptr(), c.data_ptr(),
@@ -354,6 +419,28 @@ def _launch(a: torch.Tensor, b_t: torch.Tensor, c: torch.Tensor,
     _count_launch()
     from .._build import check
     check(lib, "or_and_matmul", code)
+
+
+def _launch_floor(a: torch.Tensor, b_t: torch.Tensor, init: torch.Tensor,
+                  init_t: torch.Tensor, c: torch.Tensor,
+                  ct: torch.Tensor) -> None:
+    """One launch of the floor-pair kernel: c = init | a b_t^T, ct = init_t
+    | (a b_t^T)^T, pads of both written as zeros."""
+    M, K = a.shape
+    N = b_t.shape[0]
+    ints = (M, N, K, a.stride(0), b_t.stride(0), init.stride(0),
+            init_t.stride(0), c.stride(0), ct.stride(0))
+    if max(ints) >= 2 ** 31:
+        raise ValueError("sizes and row pitches must fit in int32")
+    lib, _, fn = _entry()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = fn(a.data_ptr(), b_t.data_ptr(), init.data_ptr(),
+                  init_t.data_ptr(), c.data_ptr(), ct.data_ptr(), *ints,
+                  stream)
+    _count_launch(floor=True)
+    from .._build import check
+    check(lib, "or_and_matmul_floor", code)
 
 
 def rows_copy(b: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,15 @@ def or_and_matmul_nt_ref(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     return or_and_matmul_ref(a, b_t.T)
 
 
+def or_and_floor_pair_ref(a: torch.Tensor, b_t: torch.Tensor,
+                          init: torch.Tensor, init_t: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The product C = a b_t^T with the floor pair init [M, N] and init_t
+    [N, M]: ``(init | C, init_t | C^T)``."""
+    c = or_and_matmul_ref(a, b_t.T)
+    return c | init, c.T | init_t
+
+
 def or_and_fixpoint_ref(x0: torch.Tensor, D: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x0 [B] bool, D [B, B] bool -> (x, steps): x := x | x (or-and) D until

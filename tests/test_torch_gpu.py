@@ -26,6 +26,8 @@ from repro_torch.core.bes import bool_closure_kmajor
 from repro_torch.kernels.bool_matmul import ops as bops
 from repro_torch.kernels.bool_matmul import (is_kmajor, or_and_fixpoint,
                                              or_and_fixpoint_ref,
+                                             or_and_floor_pair,
+                                             or_and_floor_pair_ref,
                                              or_and_matmul,
                                              or_and_matmul_nt,
                                              or_and_matmul_ref, padded_zeros,
@@ -501,16 +503,80 @@ def test_rank_update_bool_keeps_the_pair_kmajor(cuda, nb, r):
     rows = torch.tensor(rng.random((r, nb)) < 2.0 / nb, device=cuda)
     idx = rng.choice(nb, size=r, replace=r > nb)
     old = (C.clone(), Ct.clone())
-    before = bops.launches
+    before = (bops.launches, bops.floor_launches)
     C2, C2t = incremental._rank_update_bool(C, Ct, rows, idx)
-    assert bops.launches - before >= 4
+    assert bops.launches - before[0] >= 4
+    # the P stage is one launch of the floor-pair kernel, C | P and
+    # C^T | P^T with no OR pass after it
+    assert bops.floor_launches - before[1] == 1
     want, want_t = incremental._rank_update_bool(C.cpu(), Ct.cpu(),
                                                  rows.cpu(), idx)
     assert torch.equal(C2.cpu(), want) and torch.equal(C2t.cpu(), want_t)
     assert torch.equal(C2.T, C2t)
     assert is_kmajor(C2) and is_kmajor(C2t)
     assert not _storage(C2)[:, nb:].any()
+    assert not _storage(C2t)[:, nb:].any()
     assert torch.equal(C, old[0]) and torch.equal(Ct, old[1])
+
+
+# the floor-pair kernel: M and N around the 128-row tiles, K around the
+# 32-byte k-steps, the 64-byte slice and the 128-byte stages
+FLOOR_MN = [1, 127, 129, 1037, 4113]
+FLOOR_K = [1, 16, 63, 64, 65, 128, 129, 1024]
+
+
+def _floors(rng, m, n, kind, cuda):
+    """A floor pair (F [m, n], Ft [n, m]) in padded storage whose pad bytes
+    are set (the kernel must not read them): random, all zero or all one;
+    Ft is drawn apart from F, so each output must take its own floor."""
+    out = []
+    for rows, cols in ((m, n), (n, m)):
+        x = {"random": lambda: rng.random((rows, cols)) < 0.1,
+             "zero": lambda: np.zeros((rows, cols), dtype=bool),
+             "one": lambda: np.ones((rows, cols), dtype=bool)}[kind]()
+        buf = torch.ones((rows, pitch(cols)), dtype=torch.bool, device=cuda)
+        out.append(buf[:, :cols].copy_(torch.tensor(x, device=cuda)))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", FLOOR_K)
+@pytest.mark.parametrize("m", FLOOR_MN)
+def test_or_and_floor_pair_matches_plain(cuda, m, k):
+    """or_and_floor_pair(a, b_t, F, Ft) on the card: one floor-pair
+    launch, (F | P, Ft | P^T) bit-equal to the plain version, both
+    outputs' pads zero, both floors unchanged."""
+    for n in FLOOR_MN:
+        rng = np.random.default_rng([m, n, k])
+        a = torch.tensor(rng.random((m, k)) < 0.05, device=cuda)
+        b_t = torch.tensor(rng.random((n, k)) < 0.05, device=cuda)
+        for kind in ("random", "zero", "one"):
+            F, Ft = _floors(rng, m, n, kind, cuda)
+            old = (_storage(F).clone(), _storage(Ft).clone())
+            want, want_t = or_and_floor_pair_ref(a, b_t, F, Ft)
+            before = (bops.launches, bops.floor_launches)
+            c, ct = or_and_floor_pair(a, b_t, F, Ft)
+            assert (bops.launches - before[0],
+                    bops.floor_launches - before[1]) == (1, 1)
+            what = f"{m}x{k}x{n} {kind}"
+            assert torch.equal(c, want) and torch.equal(ct, want_t), what
+            assert c.stride(0) == pitch(n) and ct.stride(0) == pitch(m)
+            assert not _storage(c)[:, n:].any(), what
+            assert not _storage(ct)[:, m:].any(), what
+            assert torch.equal(_storage(F), old[0]), what
+            assert torch.equal(_storage(Ft), old[1]), what
+
+
+@pytest.mark.gpu
+def test_or_and_floor_pair_refuses_a_floor_that_is_not_kmajor(cuda):
+    """On the card a floor outside padded storage raises: the kernel reads
+    it by TMA and the wrapper makes no copy of a closure."""
+    a = torch.zeros((33, 64), dtype=torch.bool, device=cuda)
+    b_t = torch.zeros((17, 64), dtype=torch.bool, device=cuda)
+    F = torch.zeros((33, 17), dtype=torch.bool, device=cuda)
+    Ft = padded_zeros(17, 33, cuda)
+    with pytest.raises(ValueError):
+        or_and_floor_pair(a, b_t, F, Ft)
 
 
 @pytest.mark.gpu

@@ -26,19 +26,18 @@ random fragments):
 Each child also prints its answers, which must be equal across trees.
 """
 import hashlib
-import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+import _ab
 
 N, M, LABELS, FRAGS, SEED = 16384, 65536, 8, 16, 0
 N_ONESHOT, N_PAIRS, CHAIN = 32, 16, 1024
 
 
 def child(tree: Path) -> dict:
-    sys.path.insert(0, str(tree / "src"))
     import numpy as np
     import torch
     import repro_torch
@@ -47,18 +46,8 @@ def child(tree: Path) -> dict:
     from repro_torch.core.fragments import fragment_graph
     from repro_torch.graph import erdos_renyi, random_partition
     from repro_torch.graph.graph import Graph
-    if not Path(engine.__file__).resolve().is_relative_to(tree.resolve()):
-        raise RuntimeError(f"imported {engine.__file__}, not from {tree}")
-
-    def events(fn, reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            out = fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps, out
+    _ab.from_tree(engine, tree)
+    events = _ab.events_ms
 
     g = erdos_renyi(N, M, n_labels=LABELS, seed=SEED)
     fr = fragment_graph(g, random_partition(g, FRAGS, seed=SEED), FRAGS)
@@ -119,12 +108,7 @@ def child(tree: Path) -> dict:
         chain_ms.append(ms)
         answers.append(res.answer)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip()
-    return {"tree": str(tree), "card": card,
-            "run_ms": statistics.median(runs), "runs_ms": runs,
+    return {"run_ms": statistics.median(runs), "runs_ms": runs,
             "dis_reach_ms": statistics.median(single),
             "dis_reach_max_ms": max(single),
             "chain_ms": statistics.median(chain_ms),
@@ -133,26 +117,6 @@ def child(tree: Path) -> dict:
             "answers": hashlib.sha256(repr(answers).encode()).hexdigest()[:16]}
 
 
-def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] == "--child":
-        print(json.dumps(child(Path(argv[1]))), flush=True)
-        return 0
-    if not argv:
-        print(__doc__, file=sys.stderr)
-        return 2
-    rows = []
-    for tree in argv:
-        out = subprocess.run([sys.executable, __file__, "--child", tree],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"child {tree} exited {out.returncode}:\n"
-                               f"{out.stderr[-3000:]}")
-        rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
-        print(json.dumps(rows[-1]), flush=True)
-    if len({r["answers"] for r in rows}) != 1:
-        raise AssertionError("the trees' answers differ")
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(_ab.main(sys.argv[1:], __file__, __doc__, child,
+                      agree="answers"))
