@@ -1,0 +1,106 @@
+"""The benchmark's inputs come from the seed alone, in fixed counts."""
+from __future__ import annotations
+
+import numpy as np
+
+from bench.data import generate as gen
+
+CONFIG = {"generator": "erdos_renyi", "n_nodes": 512, "n_edges": 2048,
+          "n_labels": 8, "partitioner": "random_partition", "n_fragments": 8,
+          "graph_seed": 0}
+MIX = {"mix": {"shares": {"reach": 1, "dist": 1, "bounded": 1}, "bound": 6},
+       "pairs": {"sampler": "uniform"}}
+DELTAS = {"rate_per_s": 10, "edges": 8, "shapes": {"intra": 3, "cross": 1}}
+ARRIVALS = {"process": "poisson_quantiles"}
+
+
+def _arrivals(count, seconds, seed):
+    return gen.make_arrivals(count, seconds, ARRIVALS, seed, gen.ARRIVALS)
+BIG = 2 ** 31 + 12345
+
+
+def _same_graph(a, b):
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("src", "dst", "labels", "part"))
+
+
+def test_same_seed_same_inputs():
+    a, b = gen.make_graph(CONFIG, BIG), gen.make_graph(CONFIG, BIG)
+    assert _same_graph(a, b)
+    assert gen.make_reads(a.n, 300, MIX, BIG) == gen.make_reads(b.n, 300,
+                                                                MIX, BIG)
+    assert gen.make_deltas(a, 40, DELTAS, BIG) == gen.make_deltas(
+        b, 40, DELTAS, BIG)
+    np.testing.assert_array_equal(_arrivals(500, 20.0, BIG),
+                                  _arrivals(500, 20.0, BIG))
+
+
+def test_other_seed_other_inputs_same_counts():
+    a, b = gen.make_graph(CONFIG, 1), gen.make_graph(CONFIG, 2)
+    assert not _same_graph(a, b)
+    assert a.src.shape == b.src.shape == (2048,)
+    ra, rb = gen.make_reads(a.n, 301, MIX, 1), gen.make_reads(a.n, 301,
+                                                              MIX, 2)
+    assert ra != rb
+    for reads in (ra, rb):
+        kinds = [r.kind for r in reads]
+        assert sorted(kinds.count(k) for k in gen.KINDS) == [100, 100, 101]
+        assert all(r.bound == 6 for r in reads if r.kind == "bounded")
+    da, db = gen.make_deltas(a, 40, DELTAS, 1), gen.make_deltas(a, 40,
+                                                                DELTAS, 2)
+    assert da != db
+    for ds in (da, db):
+        assert [d.shape for d in ds].count("cross") == 10
+        assert all(len(d.inserts) == 8 and not d.deletes for d in ds)
+
+
+def _shape(g):
+    """What a relabelling keeps: each fragment's sorted (internal edges,
+    edges out, nodes) counts, and the sorted in- and out-degrees."""
+    ps, pd = g.part[g.src], g.part[g.dst]
+    frags = sorted((int(((ps == f) & (pd == f)).sum()),
+                    int(((ps == f) & (pd != f)).sum()),
+                    int((g.part == f).sum())) for f in range(g.k))
+    return (frags, sorted(np.bincount(g.src, minlength=g.n)),
+            sorted(np.bincount(g.dst, minlength=g.n)),
+            sorted(np.bincount(g.labels)))
+
+
+def test_seeds_relabel_one_graph():
+    a, b = gen.make_graph(CONFIG, 1), gen.make_graph(CONFIG, BIG)
+    assert _shape(a) == _shape(b)
+    c = gen.make_graph(dict(CONFIG, graph_seed=1), 1)
+    assert _shape(c) != _shape(a)
+
+
+def test_deltas_leave_one_fragment():
+    g = gen.make_graph(CONFIG, 3)
+    for d in gen.make_deltas(g, 60, DELTAS, 3):
+        frags = {int(g.part[u]) for u, _ in d.inserts}
+        assert len(frags) == 1
+        if d.shape == "intra":
+            assert {int(g.part[v]) for _, v in d.inserts} == frags
+
+
+def test_arrivals_fill_the_window_at_the_rate():
+    for seed in (1, 2, BIG):
+        t = _arrivals(1000, 20.0, seed)
+        assert t[0] == 0.0 and np.all(np.diff(t) > 0) and t[-1] < 20.0
+        gaps = np.sort(np.diff(np.append(t, 20.0)))
+        # the same set of gaps for every seed, in another order
+        ref = np.sort(np.diff(np.append(_arrivals(1000, 20.0, 7), 20.0)))
+        np.testing.assert_allclose(gaps, ref, rtol=1e-9, atol=1e-12)
+
+
+def test_a_delta_shape_sees_the_edges_drawn_before_it():
+    g = gen.make_graph(CONFIG, 4)
+    ctx = gen.DeltaContext(g)
+    first = gen.make_deltas(g, 5, DELTAS, 4, ctx=ctx)
+    src, dst = ctx.edges()
+    assert len(src) == len(g.src) + 5 * 8
+    assert list(zip(src[-8:].tolist(), dst[-8:].tolist())) == first[-1].inserts
+    gone = gen.Delta("delete", [], [(int(src[0]), int(dst[0]))])
+    ctx.add(gone)
+    assert len(ctx.edges()[0]) == len(src) - 1
+    with np.testing.assert_raises(ValueError):
+        gen.apply(ctx.edges(), gen.Delta("delete", [], [(-1, -1)]))
