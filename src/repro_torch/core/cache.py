@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels.bool_matmul.ops import kmajor, kmajor_copy, or_and_matmul_nt
 from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 from . import bes, engine
@@ -125,16 +126,27 @@ class RvsetCache:
         self.rpq_closures_t = dict(snap["rpq_closures_t"])
 
 
-def _upload(x, device) -> torch.Tensor:
-    """Copy a host array onto ``device`` (never an alias of ``x``)."""
-    return torch.tensor(np.asarray(x), device=device)
+def _upload(x, device, dtype=None) -> torch.Tensor:
+    """Copy a host array onto ``device`` (never an alias of ``x``), as
+    ``dtype`` when given; counted in ``h2d.pageable_bytes``."""
+    out = torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    tracing.count("h2d.pageable_bytes", out.nbytes)
+    return out
 
 
 def _upload_padded(x, device) -> torch.Tensor:
     """An int32 host matrix copied onto ``device`` into padded storage (rows
     16 bytes apart), the min-plus kernel's operand layout."""
     x = np.asarray(x, dtype=np.int32)
+    tracing.count("h2d.pageable_bytes", x.nbytes)
     return padded_i32(*x.shape, device).copy_(torch.tensor(x))
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """``x`` read back into a host array: a blocking read of the device,
+    counted in ``host.syncs``."""
+    tracing.count("host.syncs")
+    return x.cpu().numpy()
 
 
 def _upload_arrays(fr: Fragmentation, device) -> Dict[str, torch.Tensor]:
@@ -455,8 +467,7 @@ def _batch_inputs(fr: Fragmentation, cache: RvsetCache, pairs: np.ndarray):
     s_slot = fr.owner_local[ss]
     t_slot_sfrag = slot_of[tt, frag_s]                     # [N]
     t_cols = slot_of[tt][:, cache.part_b]                  # [N, nb]
-    dev = cache.device
-    return tuple(torch.tensor(x, dtype=torch.long, device=dev)
+    return tuple(_upload(x, cache.device, torch.long)
                  for x in (frag_s, s_slot, t_slot_sfrag, t_cols))
 
 
@@ -474,11 +485,18 @@ def dis_reach_batch(fr: Fragmentation, pairs, device) -> np.ndarray:
     if len(pairs) == 0:
         return np.zeros(0, dtype=bool)
     cache = get_rvset_cache(fr, device)
-    frag_s, s_slot, t_slot_sfrag, t_cols = _batch_inputs(fr, cache, pairs)
-    direct, sb = _per_query(fr, cache, frag_s, s_slot, t_slot_sfrag,
-                            engine.single_source_reach)
-    tc = _t_column(cache.bl_frontier, t_cols)
-    return combine_bool(direct, sb, tc, cache.closure_t).cpu().numpy()
+    with tracing.span("cache.inputs"):
+        frag_s, s_slot, t_slot_sfrag, t_cols = _batch_inputs(fr, cache,
+                                                             pairs)
+    with tracing.span("cache.per_query"):
+        direct, sb = _per_query(fr, cache, frag_s, s_slot, t_slot_sfrag,
+                                engine.single_source_reach)
+    with tracing.span("cache.t_column"):
+        tc = _t_column(cache.bl_frontier, t_cols)
+    with tracing.span("cache.compose"):
+        ans = combine_bool(direct, sb, tc, cache.closure_t)
+    with tracing.span("cache.readback"):
+        return _to_host(ans)
 
 
 def dis_dist_batch(fr: Fragmentation, pairs, device,
@@ -490,12 +508,18 @@ def dis_dist_batch(fr: Fragmentation, pairs, device,
     if len(pairs) == 0:
         return np.zeros(0, dtype=bool if bound is not None else np.int64)
     cache = get_rvset_cache(fr, device, with_dist=True)
-    frag_s, s_slot, t_slot_sfrag, t_cols = _batch_inputs(fr, cache, pairs)
-    direct, sb = _per_query(fr, cache, frag_s, s_slot, t_slot_sfrag,
-                            engine.single_source_dist)
-    tc = _t_column(cache.bl_dist, t_cols)
-    d = combine_dist(direct, sb, tc,
-                     cache.dist_closure).cpu().numpy().astype(np.int64)
+    with tracing.span("cache.inputs"):
+        frag_s, s_slot, t_slot_sfrag, t_cols = _batch_inputs(fr, cache,
+                                                             pairs)
+    with tracing.span("cache.per_query"):
+        direct, sb = _per_query(fr, cache, frag_s, s_slot, t_slot_sfrag,
+                                engine.single_source_dist)
+    with tracing.span("cache.t_column"):
+        tc = _t_column(cache.bl_dist, t_cols)
+    with tracing.span("cache.compose"):
+        d = combine_dist(direct, sb, tc, cache.dist_closure)
+    with tracing.span("cache.readback"):
+        d = _to_host(d).astype(np.int64)
     if bound is not None:
         return d <= bound
     d[d >= INF] = -1

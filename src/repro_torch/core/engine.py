@@ -10,7 +10,9 @@ written out as the leading dimension (one row per fragment, or one row per
 query with that query's fragment gathered in), so one ``gather`` and one
 ``scatter_reduce_`` per step cover every fragment at once.  A localEval
 loop stops when a step changes nothing: one host sync per step, which is
-cheap because a fragment's diameter is small.
+cheap because a fragment's diameter is small.  Each step counts in
+``fixpoint.steps`` and each blocking read of the device in ``host.syncs``
+(:mod:`repro_torch.tracing`).
 
 Conventions (set up by ``fragments.fragment_graph``):
   * local node slots 0..n_max-1 are real nodes + virtual stubs; slot n_max
@@ -27,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..kernels.bool_matmul.ops import or_and_fixpoint, padded_zeros
 from ..kernels.tropical_matmul.ops import min_plus_fixpoint
 
@@ -107,13 +110,16 @@ def _propagate_bool(esrc, edst, frontier):
     shape = (F, S, esrc.shape[-1])
     src, dst = _edge_index(esrc, shape), _edge_index(edst, shape)
     seen = frontier.clone()
+    tracing.count("host.syncs")
     if not bool(seen.any()):
         return seen
     with FIXPOINT:
         while True:
+            tracing.count("fixpoint.steps")
             msgs = torch.gather(seen, 2, src).view(torch.uint8)
             new = seen.view(torch.uint8).scatter_reduce(
                 2, dst, msgs, "amax", include_self=True).view(torch.bool)
+            tracing.count("host.syncs")
             if torch.equal(new, seen):
                 return seen
             seen = new
@@ -132,14 +138,17 @@ def _propagate_dist(esrc, edst, dist, cap: int = INF):
     shape = (F, S, esrc.shape[-1])
     src, dst = _edge_index(esrc, shape), _edge_index(edst, shape)
     d = dist.clone()
+    tracing.count("host.syncs")
     if not bool((d < INF).any()):
         return d
     with FIXPOINT:
         while True:
+            tracing.count("fixpoint.steps")
             msgs = torch.gather(d, 2, src) + 1
             new = d.scatter_reduce(2, dst, msgs, "amin", include_self=True)
             if cap < INF:
                 new = torch.where(new > cap, INF, new)
+            tracing.count("host.syncs")
             if torch.equal(new, d):
                 return d
             d = new
@@ -259,6 +268,7 @@ def _target_cols(tgt_local, t_local, n_max: int, B: int):
 def _owned_rows(src_row, B: int):
     """Flat indices of the source slots that own a row (< B), and rows."""
     flat = src_row.reshape(-1).long()
+    tracing.count("host.syncs")
     keep = torch.nonzero(flat < B)[:, 0]
     return keep, flat[keep]
 
@@ -326,6 +336,7 @@ def evaldg_reach(D, src_rows, tgt_cols) -> bool:
     answer is read back once, at the end."""
     with FIXPOINT:
         x, _ = or_and_fixpoint(src_rows, D)
+    tracing.count("host.syncs")
     return bool((x & tgt_cols).any())
 
 
@@ -345,6 +356,7 @@ def evaldg_dist(W, src_rows, tgt_cols) -> int:
     d0.masked_fill_(src_rows, 0)
     with FIXPOINT:
         d, _ = min_plus_fixpoint(d0, W)
+    tracing.count("host.syncs")
     return int(torch.where(tgt_cols, d, INF).min())
 
 
@@ -405,12 +417,15 @@ def single_source_regular(esrc, edst, labels, gids, q_labels, q_trans,
     sl = s_slot.long()
     f[rows, sl, q_start] = (sl < n_max) & match[rows, sl, q_start]
     tf = q_trans.float()
+    tracing.count("host.syncs")
     if not bool(f.any()):
         return f
     with FIXPOINT:
         while True:
+            tracing.count("fixpoint.steps")
             new = f | (_gather_scatter_or(_advance(f, tf), esrc, edst)
                        & match)
+            tracing.count("host.syncs")
             if torch.equal(new, f):
                 return f
             f = new
@@ -432,12 +447,15 @@ def reverse_target_regular(esrc, edst, labels, gids, q_labels, q_trans,
     tl = t_slot.long()
     r[rows, tl, Q - 1] = (tl < n_max) & match[rows, tl, Q - 1]
     tf_t = q_trans.float().T.contiguous()
+    tracing.count("host.syncs")
     if not bool(r.any()):
         return r
     with FIXPOINT:
         while True:
+            tracing.count("fixpoint.steps")
             back = _gather_scatter_or(r & match, edst, esrc)   # [F, n+1, Q']
             new = r | _advance(back, tf_t)
+            tracing.count("host.syncs")
             if torch.equal(new, r):
                 return r
             r = new
@@ -484,14 +502,17 @@ def local_eval_regular(esrc, edst, src_local, src_row, tgt_local, labels,
     shape = (k, S * Q, E, Q)
     src = esrc.long()[:, None, :, None].expand(shape)
     dst = edst.long()[:, None, :, None].expand(shape)
+    tracing.count("host.syncs")
     if bool(frontier.any()):
         with FIXPOINT:
             while True:
+                tracing.count("fixpoint.steps")
                 msgs = torch.gather(_advance(frontier, tf), 2, src)
                 agg = torch.zeros(frontier.shape, dtype=torch.uint8,
                                   device=dev)
                 agg.scatter_reduce_(2, dst, msgs.view(torch.uint8), "amax")
                 new = frontier | (agg.view(torch.bool) & match[:, None])
+                tracing.count("host.syncs")
                 if torch.equal(new, frontier):
                     break
                 frontier = new
@@ -504,6 +525,7 @@ def local_eval_regular(esrc, edst, src_local, src_row, tgt_local, labels,
     q = torch.arange(Q, device=dev)
     rows = (src_row.long()[:, :, None] * Q + q).reshape(-1)
     owned = (src_row.long() < B)[:, :, None].expand(k, S, Q).reshape(-1)
+    tracing.count("host.syncs")
     keep = torch.nonzero(owned)[:, 0]
     return rows[keep], out[keep]
 
@@ -525,6 +547,7 @@ def regular_rvset(esrc, edst, src_local, src_row, tgt_local, labels, gids,
             esrc[one], edst[one], src_local[one], src_row[one],
             tgt_local[one], labels[one], gids[one], q_labels, q_trans,
             s_local[one], t_local[one], s_gid, t_gid, n_max=n_max, B=B)
+        tracing.count("host.syncs")
         keep = torch.nonzero(rows < side)[:, 0]
         D[rows[keep]] = block[keep, :side]
     return D

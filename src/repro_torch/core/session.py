@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from . import cache as _cache
 from . import distributed, engine, incremental
 from ..errors import DeltaApplyFailed, NoCudaDevice, Status, is_device_fault
@@ -272,23 +273,28 @@ class QuerySession:
             queries = [queries]
         queries = list(queries)
         fr = self.fr if version is None else version.fr
-        with self._lock:
-            plan = plan_queries(queries, self._resolve_automaton)
-            self.last_plan = plan
-            results: List[Optional[QueryResult]] = [None] * len(queries)
-            for group in plan.groups:
-                if self.cache_mode == "amortized":
-                    self._run_group_cached(fr, group, results)
-                else:
-                    self._run_group_uncached(fr, group, results)
-            # uncached execution never consults the cache: stamp None even
-            # if a cache happens to exist on the shared fragmentation
-            c = fr.rvset_cache
-            stamp = (None if c is None or self.cache_mode != "amortized"
-                     else c.version)
-        for r in results:
-            r.cache_version = stamp
-            r.status = Status.DONE
+        with tracing.span("session.run"):
+            with self._lock:
+                with tracing.span("session.plan"):
+                    plan = plan_queries(queries, self._resolve_automaton)
+                self.last_plan = plan
+                results: List[Optional[QueryResult]] = [None] * len(queries)
+                for group in plan.groups:
+                    with tracing.span("session.group", kind=group.kind,
+                                      n=group.n, size=group.padded_size):
+                        if self.cache_mode == "amortized":
+                            self._run_group_cached(fr, group, results)
+                        else:
+                            self._run_group_uncached(fr, group, results)
+                # uncached execution never consults the cache: stamp None
+                # even if a cache happens to exist on the shared
+                # fragmentation
+                c = fr.rvset_cache
+                stamp = (None if c is None or self.cache_mode != "amortized"
+                         else c.version)
+            for r in results:
+                r.cache_version = stamp
+                r.status = Status.DONE
         self.stats.queries += len(queries)
         self.stats.batches += 1
         return results  # type: ignore[return-value]
@@ -325,23 +331,28 @@ class QuerySession:
                           results) -> None:
         """One batched execution for the whole group (padded to the
         group's bucket size; pad answers are discarded)."""
-        stats = self._group_stats(fr, group)
         ans, degraded = self._execute_group(fr, group.kind, group.pairs(),
                                             group.automaton)
-        if group.kind == "reach":
-            for i, q, a, st in zip(group.indices, group.queries, ans, stats):
-                results[i] = self._reach_result(q, a, st)
-        elif group.kind == "dist":
-            # exact distances once; each query's bound applies at answer
-            # extraction (this is what lets bounded + exact queries fuse)
-            for i, q, di, st in zip(group.indices, group.queries, ans, stats):
-                results[i] = self._dist_result(q, int(di), st)
-        else:                                   # rpq
-            for i, q, a, st in zip(group.indices, group.queries, ans, stats):
-                results[i] = self._rpq_result(q, group.automaton, a, st)
-        if degraded:
-            for i in group.indices:
-                results[i].degraded = True
+        with tracing.span("session.answers"):
+            stats = self._group_stats(fr, group)
+            if group.kind == "reach":
+                for i, q, a, st in zip(group.indices, group.queries, ans,
+                                       stats):
+                    results[i] = self._reach_result(q, a, st)
+            elif group.kind == "dist":
+                # exact distances once; each query's bound applies at
+                # answer extraction (this is what lets bounded + exact
+                # queries fuse)
+                for i, q, di, st in zip(group.indices, group.queries, ans,
+                                        stats):
+                    results[i] = self._dist_result(q, int(di), st)
+            else:                                   # rpq
+                for i, q, a, st in zip(group.indices, group.queries, ans,
+                                       stats):
+                    results[i] = self._rpq_result(q, group.automaton, a, st)
+            if degraded:
+                for i in group.indices:
+                    results[i].degraded = True
         self.stats.executions += 1
 
     def _execute_group(self, fr: Fragmentation, kind: str, pairs, qa):
@@ -480,14 +491,14 @@ def _tgt_cols(fr: Fragmentation, t: int, device, states: int = 1,
     bt = int(fr.b_index[t])
     if bt >= 0:
         cols[bt * states + final] = True
-    return torch.tensor(cols, device=device)
+    return _cache._upload(cols, device)
 
 
 def _src_rows(fr: Fragmentation, device, states: int = 1,
               start: int = 0) -> torch.Tensor:
     rows = np.zeros(fr.B * states, dtype=bool)
     rows[fr.S_ROW * states + start] = True
-    return torch.tensor(rows, device=device)
+    return _cache._upload(rows, device)
 
 
 def _query_inputs(fr: Fragmentation, s: int, t: int, device):
@@ -507,18 +518,25 @@ def exec_reach(fr: Fragmentation, s: int, t: int,
     if s == t:
         return QueryResult(True, 0, QueryStats(0, 0, fr.B, 1))
     dev = _resolve_device(device)
-    arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
-    rows, block = engine.local_eval_reach(
-        arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
-        arrs["tgt_local"], s_local, t_local, n_max=fr.n_max, B=fr.B)
-    D = padded_zeros(fr.B, fr.B, dev)       # as evalDG's fixpoint reads
-    D[rows] = block
-    del block
-    ans = engine.evaldg_reach(D, _src_rows(fr, dev), _tgt_cols(fr, t, dev))
+    with tracing.span("oneshot.query", kind="reach"):
+        with tracing.span("oneshot.inputs"):
+            arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
+        with tracing.span("oneshot.local_eval"):
+            rows, block = engine.local_eval_reach(
+                arrs["esrc"], arrs["edst"], arrs["src_local"],
+                arrs["src_row"], arrs["tgt_local"], s_local, t_local,
+                n_max=fr.n_max, B=fr.B)
+        with tracing.span("oneshot.assemble"):
+            D = padded_zeros(fr.B, fr.B, dev)   # as evalDG's fixpoint reads
+            D[rows] = block
+            del block
+        with tracing.span("oneshot.evaldg"):
+            ans = engine.evaldg_reach(D, _src_rows(fr, dev),
+                                      _tgt_cols(fr, t, dev))
     stats = QueryStats(payload_bits=fr.traffic_bits("reach"),
                        collective_rounds=1, boundary=fr.B, states=1)
     return QueryResult(ans, None, stats,
-                       D.cpu().numpy() if return_matrix else None)
+                       _cache._to_host(D) if return_matrix else None)
 
 
 def exec_dist(fr: Fragmentation, s: int, t: int,
@@ -532,16 +550,23 @@ def exec_dist(fr: Fragmentation, s: int, t: int,
         return QueryResult(ok, 0, QueryStats(0, 0, fr.B, 1))
     cap = INF if bound is None else int(bound)
     dev = _resolve_device(device)
-    arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
-    rows, block = engine.local_eval_dist(
-        arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
-        arrs["tgt_local"], s_local, t_local, cap, n_max=fr.n_max, B=fr.B)
-    # padded storage (rows 16 bytes apart): evalDG's fixpoint reads W as
-    # it is, without a copy
-    W = padded_i32(fr.B, fr.B, dev).fill_(INF)
-    W[rows] = block
-    del block
-    d = engine.evaldg_dist(W, _src_rows(fr, dev), _tgt_cols(fr, t, dev))
+    with tracing.span("oneshot.query", kind="dist"):
+        with tracing.span("oneshot.inputs"):
+            arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
+        with tracing.span("oneshot.local_eval"):
+            rows, block = engine.local_eval_dist(
+                arrs["esrc"], arrs["edst"], arrs["src_local"],
+                arrs["src_row"], arrs["tgt_local"], s_local, t_local, cap,
+                n_max=fr.n_max, B=fr.B)
+        with tracing.span("oneshot.assemble"):
+            # padded storage (rows 16 bytes apart): evalDG's fixpoint
+            # reads W as it is, without a copy
+            W = padded_i32(fr.B, fr.B, dev).fill_(INF)
+            W[rows] = block
+            del block
+        with tracing.span("oneshot.evaldg"):
+            d = engine.evaldg_dist(W, _src_rows(fr, dev),
+                                   _tgt_cols(fr, t, dev))
     reachable = d < INF
     answer = reachable if bound is None else (reachable and d <= bound)
     stats = QueryStats(payload_bits=fr.traffic_bits("dist"),

@@ -54,10 +54,12 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from .. import tracing
 from ..core.automaton import QueryAutomaton
 from ..core.fragments import GraphDelta
 from ..core.plan import Dist, Query, Reach, Rpq
@@ -126,6 +128,9 @@ class _Future:
         return self.resolved_at - self.submitted_at
 
 
+_request_ids = itertools.count(1)
+
+
 class QueryFuture(_Future):
     """Awaitable handle for one submitted query.
 
@@ -134,7 +139,9 @@ class QueryFuture(_Future):
     for dist); ``value`` is the non-blocking raw view (None until
     resolved), ``status`` the live :class:`~repro_torch.errors.Status`.
     ``cache_version`` is the cache snapshot the answer was computed
-    against: the fencing witness.
+    against: the fencing witness.  ``id`` numbers the requests of the
+    process; the ``serve.queue_wait`` record of :mod:`repro_torch.tracing`
+    carries it.
     """
 
     def __init__(self, s: int, t: int, kind: str = "reach",
@@ -155,7 +162,10 @@ class QueryFuture(_Future):
         self.cache_version: Optional[int] = None
         self.attempts = 0                   # engine attempts it rode in
         self.degraded = False               # served by the cached fallback
+        self.id = next(_request_ids)
         self._enqueued_wall: Optional[float] = None   # batch_wait pacing
+        # enqueue to the start of its first batch, wall-clock seconds
+        self._queue_wait_s: Optional[float] = None
 
     def to_query(self) -> Query:
         if self.kind == "reach":
@@ -563,7 +573,8 @@ class AsyncQueryEngine:
             return head
         if head.depth() == 0:
             return None
-        return self._form_chunk(head)
+        with tracing.span("serve.form_chunk"):
+            return self._form_chunk(head)
 
     def _form_chunk(self, seg: _Segment) -> Optional[List[QueryFuture]]:
         """Expire dead requests, then pop a chunk from the preferred lane
@@ -660,7 +671,8 @@ class AsyncQueryEngine:
             for r in reqs:
                 r.attempts += 1
             try:
-                self._serve_batch(reqs)
+                with tracing.span("serve.batch"):
+                    self._serve_batch(reqs)
             except Exception as exc:           # noqa: BLE001 — retried
                 if is_device_fault(exc):
                     raise
@@ -668,8 +680,9 @@ class AsyncQueryEngine:
                 if getattr(exc, "permanent", False):
                     break                      # retrying cannot help
                 continue
-            for r in reqs:
-                self._resolve(r, Status.DONE)
+            with tracing.span("serve.resolve"):
+                for r in reqs:
+                    self._resolve(r, Status.DONE)
             return
         if len(reqs) == 1:
             r = reqs[0]
@@ -689,7 +702,17 @@ class AsyncQueryEngine:
         head snapshot for its whole run: a repair that publishes meanwhile
         never moves the ground under it, and the pinned version cannot be
         reclaimed until the batch releases it (re-pinning on each retry is
-        sound: head reads are monotonic)."""
+        sound: head reads are monotonic).  A request's queue wait ends as
+        its first batch starts."""
+        # repr: ignore[RPR003] wall-clock pairs _enqueued_wall
+        start = time.monotonic()
+        for r in reqs:
+            if r._queue_wait_s is None:
+                r._queue_wait_s = start - r._enqueued_wall
+                if tracing.ON:
+                    tracing.wait("serve.queue_wait",
+                                 int(r._enqueued_wall * 1e9),
+                                 int(start * 1e9), r.id)
         if self.store is not None:
             ver = self.store.acquire_head()
             try:
@@ -757,7 +780,9 @@ class AsyncQueryEngine:
                 self._in_flight.remove(fut)
             except ValueError:
                 pass                           # expired before dispatch
-        route = (f"{fut.kind}/{fut.lane}" if isinstance(fut, QueryFuture)
-                 else "update")
-        self.telemetry.record(route, fut.latency_s, status)
+        if isinstance(fut, QueryFuture):
+            route, waited = f"{fut.kind}/{fut.lane}", fut._queue_wait_s
+        else:
+            route, waited = "update", None
+        self.telemetry.record(route, fut.latency_s, status, waited)
         fut._event.set()

@@ -269,7 +269,9 @@ class QueryServer:
 
     def telemetry(self) -> dict:
         """Live serving dashboard: p50/p95/p99 latency per route
-        (kind/lane), queries/sec, batch occupancy, lane depths, status
+        (kind/lane), p50/p95 queue wait per query route (enqueue to the
+        start of its first batch), queries/sec, batch occupancy, lane
+        depths, status
         counts (:class:`~repro_torch.serve.telemetry.Telemetry`); in MVCC
         mode also an ``"mvcc"`` gauge block: live versions, pinned readers
         per version, repair-queue depth, versions committed, dropped and

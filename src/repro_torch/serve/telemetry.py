@@ -3,9 +3,11 @@
 The scheduler records one sample per resolved future and one per executed
 batch; :meth:`Telemetry.snapshot` folds them into the serving dashboard:
 p50/p95/p99 latency per route (``"<kind>/<lane>"`` for queries,
-``"update"`` for deltas), queries per second over the sliding window, mean
-batch occupancy (chunk size over the configured batch size: how full the
-fused buckets ship), and the lane depths the engine passes in.
+``"update"`` for deltas), each query route's p50/p95 queue wait (enqueue
+to the start of the request's first batch, from the engine's own stamps:
+no clock is read on submit), queries per second over the sliding window,
+mean batch occupancy (chunk size over the configured batch size: how full
+the fused buckets ship), and the lane depths the engine passes in.
 
 Everything is windowed (bounded deques), so a long-running server's
 telemetry stays O(window), and every recorder takes one short lock, so
@@ -43,6 +45,9 @@ class Telemetry:
         self._lock = threading.Lock()
         # route -> deque of latencies in seconds
         self._latency: Dict[str, deque] = {}
+        # route -> deque of queue waits in seconds (queries that reached
+        # a batch)
+        self._queue_wait: Dict[str, deque] = {}
         # resolve timestamps (wall clock) for the qps window
         self._events: deque = deque(maxlen=self.window)
         # (chunk_size, batch_size) per executed batch
@@ -54,18 +59,22 @@ class Telemetry:
     # -- recorders (called by the engine) ---------------------------------
 
     def record(self, route: str, latency_s: Optional[float],
-               status) -> None:
-        """One future reached a terminal status."""
+               status, queue_wait_s: Optional[float] = None) -> None:
+        """One future reached a terminal status; ``queue_wait_s``: how long
+        it queued before its first batch started (None: it reached
+        none)."""
         with self._lock:
             self.resolved += 1
             key = str(status)
             self.status_counts[key] = self.status_counts.get(key, 0) + 1
             self._events.append(self._clock())
-            if latency_s is not None:
-                lane = self._latency.get(route)
-                if lane is None:
-                    lane = self._latency[route] = deque(maxlen=self.window)
-                lane.append(float(latency_s))
+            for samples, v in ((self._latency, latency_s),
+                               (self._queue_wait, queue_wait_s)):
+                if v is not None:
+                    lane = samples.get(route)
+                    if lane is None:
+                        lane = samples[route] = deque(maxlen=self.window)
+                    lane.append(float(v))
 
     def record_batch(self, chunk_size: int, batch_size: int) -> None:
         """One fused chunk was executed."""
@@ -92,6 +101,12 @@ class Telemetry:
                     "p95_ms": percentile(ms, 0.95),
                     "p99_ms": percentile(ms, 0.99),
                 }
+                waits = [s * 1e3 for s in self._queue_wait.get(route, ())]
+                if waits:
+                    routes[route]["queue_wait_p50_ms"] = percentile(waits,
+                                                                    0.50)
+                    routes[route]["queue_wait_p95_ms"] = percentile(waits,
+                                                                    0.95)
             if len(self._events) >= 2:
                 span = self._events[-1] - self._events[0]
                 qps = (len(self._events) - 1) / span if span > 0 else 0.0
