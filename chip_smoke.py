@@ -58,8 +58,14 @@ non-zero and prints no result line):
              checked against the host BFS and 4 Rpq ``(0|1)* 2`` (D is a
              6.4 GB matrix) against a product-graph BFS, each evalDG one
              fixpoint launch with no per-step product and no copy of D or
-             W (``copies`` 0); one query of each kind split into local
-             stage and evalDG (its steps as the kernel counts them);
+             W (``copies`` 0), each Reach and Dist one launch of the
+             localEval kernel (``csrc/local_eval.cu``, which writes D or W
+             in place); one query of each kind split into local stage and
+             evalDG (its steps as the kernel counts them); both entries of
+             the localEval kernel held byte for byte, pads included,
+             against their plain version on one query's inputs (D, W
+             exact and capped at 6), one launch a call and no host sync,
+             and timed beside it and the bytes they must move;
              ``dis_reach_sharded`` and ``dis_rpq_sharded`` on the NCCL
              group, one collective of ``traffic_bits`` bits each, one
              fixpoint launch each, no copy; both products held against
@@ -486,9 +492,10 @@ def _top(ops, top: int = 6) -> str:
 def _counted():
     from repro_torch.kernels.bitpack_ops import ops as pops
     from repro_torch.kernels.bool_matmul import ops as bops
+    from repro_torch.kernels.local_eval import ops as lops
     from repro_torch.kernels.tropical_matmul import ops as tops
     return {"or_and_matmul": bops, "min_plus_matmul": tops,
-            "bitpack_matmul": pops}
+            "bitpack_matmul": pops, "local_eval": lops}
 
 
 def _reset_launches():
@@ -570,9 +577,15 @@ class _EvalDGCalls:
         return False
 
 
-def _assert_one_fixpoint_each(what: str, launches: dict, calls) -> None:
+def _assert_one_fixpoint_each(what: str, launches: dict, calls,
+                              local: int) -> None:
     """Each evalDG of a path was one fixpoint launch, with no per-step
-    product launched and no operand copied (either wrapper)."""
+    product launched and no operand copied (either wrapper), and the path
+    made ``local`` launches of the localEval kernel: one for each one-shot
+    Reach or Dist it evaluated."""
+    if launches["local_eval"] != local:
+        raise AssertionError(f"{what}: {launches['local_eval']} localEval "
+                             f"launches, expected {local}")
     got = (launches["or_and_fixpoint"], launches["min_plus_fixpoint"])
     if got != (calls.reach, calls.dist) or calls.reach + calls.dist == 0:
         raise AssertionError(f"{what}: {calls.reach} reach and {calls.dist} "
@@ -1562,11 +1575,12 @@ ONESHOT_REGEX = "(0|1)* 2"
 
 def _split_one_shot(fr, s, t, kind, qa=None):
     """One one-shot query taken apart as ``session.exec_*`` runs it, with
-    CUDA events around its stages: the local stage (localEval on every
-    fragment and the assembly of D, zero-padded as the paths make it) and
-    evalDG (one fixpoint launch, its steps as the kernel counted them),
-    which reads D as it is stored.  Returns the split, the answer, D and
-    the source rows."""
+    CUDA events around its stages: the local stage (the allocation of D or
+    W in padded storage and localEval's one launch, which writes every row
+    into it; for RPQ the product's row block and its assembly) and evalDG
+    (one fixpoint launch, its steps as the kernel counted them), which
+    reads D as it is stored.  Returns the split, the answer, D and the
+    source rows."""
     import torch
     from repro_torch.core import engine, session as S
     from repro_torch.kernels.bool_matmul import ops as bops
@@ -1580,17 +1594,12 @@ def _split_one_shot(fr, s, t, kind, qa=None):
                                  "tgt_local")]
     Q, start, final = 1, 0, 0
     if kind == "reach":
-        rows, block = engine.local_eval_reach(*a, s_local, t_local,
-                                              n_max=fr.n_max, B=fr.B)
-        D = bops.padded_zeros(fr.B, fr.B, dev)
-        D[rows] = block
-        del block
+        D = engine.local_eval_reach(*a, s_local, t_local, n_max=fr.n_max,
+                                    B=fr.B, out=bops.padded(fr.B, fr.B, dev))
     elif kind == "dist":
-        rows, block = engine.local_eval_dist(*a, s_local, t_local,
-                                             n_max=fr.n_max, B=fr.B)
-        D = tops.padded_i32(fr.B, fr.B, dev).fill_(engine.INF)
-        D[rows] = block
-        del block
+        D = engine.local_eval_dist(*a, s_local, t_local, n_max=fr.n_max,
+                                   B=fr.B,
+                                   out=tops.padded_i32(fr.B, fr.B, dev))
     else:
         Q, start, final = qa.n_states, qa.start, qa.final
         D = engine.regular_rvset(
@@ -1622,6 +1631,82 @@ def _split_one_shot(fr, s, t, kind, qa=None):
     split["steps"] = steps = int(kept["result"][1])
     split["ms_per_step"] = split["evaldg"] / max(steps, 1)
     return split, ans, D, src, tgt
+
+
+def _local_eval_timed(fr, s, t, reps=5) -> dict:
+    """Both entries of the localEval kernel at full size on one query's
+    inputs: D (reach), W exact and W capped at 6 (``bounded``), written by
+    ``local_eval_reach_into`` / ``local_eval_dist_into`` into storage whose
+    every byte was 0x5A, held byte for byte, pads included, against the
+    plain version (``engine._rows_*``, its row block written into a D of
+    zeros or a W of INF), with one launch a call and no host sync; then
+    timed (CUDA events, ``reps`` calls) beside the plain version (one call)
+    and beside the least time its bytes take: every row written once over
+    its pitch, the edges, sources and column map read once."""
+    import torch
+    from repro_torch.core import engine, session as S
+    from repro_torch.kernels.bool_matmul.ops import pitch
+    from repro_torch.kernels.local_eval import ops as lops
+    from repro_torch.kernels.tropical_matmul.ops import pitch_i32
+    dev = torch.device("cuda")
+    arrs, s_local, t_local = S._query_inputs(fr, s, t, dev)
+    args = [arrs[name] for name in ("esrc", "edst", "src_local", "src_row",
+                                    "tgt_local")] + [s_local, t_local]
+    B, n_max = fr.B, fr.n_max
+    F, E = args[0].shape
+    n_src = args[2].shape[1]
+    read = 4 * F * (2 * E + 2 * n_src + B + 2)
+    res = {}
+    for kind, cap in (("reach", None), ("dist", engine.INF), ("bounded", 6)):
+        dist = cap is not None
+        dtype, width = ((torch.int32, pitch_i32(B)) if dist
+                        else (torch.bool, pitch(B)))
+        esize = 4 if dist else 1
+        got = torch.full((B, width * esize), 0x5A, dtype=torch.uint8,
+                         device=dev)
+        m = got.view(dtype)[:, :B]
+        if dist:
+            into = lambda c=cap: lops.local_eval_dist_into(
+                m, *args, c, n_max=n_max)
+        else:
+            into = lambda: lops.local_eval_reach_into(m, *args, n_max=n_max)
+
+        def plain(c=cap):
+            want = torch.full((B, width), engine.INF if dist else 0,
+                              dtype=torch.int32 if dist else torch.uint8,
+                              device=dev)
+            if dist:
+                rows, block = engine._rows_dist(*args, c, n_max=n_max, B=B)
+            else:
+                rows, block = engine._rows_reach(*args, n_max=n_max, B=B)
+            want.view(dtype)[:, :B][rows] = block
+            return want.view(torch.uint8)
+
+        before = lops.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            into()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        plain_ms, want = cuda_timed(plain, 1, warmup=False)
+        _check_equal(f"local_eval {kind}", got, want)
+        del want
+        ms, _ = cuda_timed(into, reps, warmup=False)
+        if lops.launches - before != reps + 1:
+            raise AssertionError(f"local_eval {kind}: not one launch a call")
+        nbytes = B * width * esize + read
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        res[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bytes": nbytes, "share": bound_ms / ms}
+        print(f"time local_eval {kind}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes,"
+              f" {100 * bound_ms / ms:.1f} %); bit-equal, pads included")
+        del got, m
+    torch.cuda.empty_cache()
+    res["shape"] = (f"B {B} (pitch {pitch(B)} bytes / {pitch_i32(B)} int32), "
+                    f"F {F}, S {n_src}, E {E}, n_max {n_max}")
+    return res
 
 
 #: empty steps the grid-barrier probe times (beside a launch of none)
@@ -1849,7 +1934,8 @@ def phase_oneshot(out: dict, g, fr) -> None:
         results = sess.run(queries)
         run_ms = (time.perf_counter() - t0) * 1e3
     launches = _launches()
-    _assert_one_fixpoint_each("one-shot path", launches, calls)
+    _assert_one_fixpoint_each("one-shot path", launches, calls,
+                              local=calls.reach + calls.dist)
     if not (calls.reach and calls.dist):
         raise AssertionError(f"one-shot path: evalDGs {calls.reach} reach, "
                              f"{calls.dist} dist")
@@ -1873,7 +1959,8 @@ def phase_oneshot(out: dict, g, fr) -> None:
         rpq_results = sess.run(rpqs)
         rpq_ms = (time.perf_counter() - t0) * 1e3
     rpq_launches = _launches()
-    _assert_one_fixpoint_each("one-shot RPQ path", rpq_launches, calls)
+    _assert_one_fixpoint_each("one-shot RPQ path", rpq_launches, calls,
+                              local=0)
     for q, r in zip(rpqs, rpq_results):
         want = _rpq_oracle(g, q.s, q.t, qa)
         if r.answer != want:
@@ -1910,6 +1997,7 @@ def phase_oneshot(out: dict, g, fr) -> None:
         raise AssertionError("the split RPQ disagrees with the run")
     del Dq
     torch.cuda.empty_cache()
+    local = _local_eval_timed(fr, sd, td)
     for kind, sp in split.items():
         print(f"oneshot: {kind} query split (ms) "
               + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
@@ -1946,7 +2034,7 @@ def phase_oneshot(out: dict, g, fr) -> None:
     sharded["rpq_bits"] = Dd.payload_bits
     sharded["launches"] = _launches()
     _assert_one_fixpoint_each("dis_reach_sharded / dis_rpq_sharded",
-                              sharded["launches"], calls)
+                              sharded["launches"], calls, local=int(s != t))
     torch.cuda.empty_cache()
     print(f"oneshot: dis_reach_sharded {sharded['reach_ms']:.1f} ms and "
           f"dis_rpq_sharded {sharded['rpq_ms']:.1f} ms on the one-rank "
@@ -2007,6 +2095,20 @@ def phase_oneshot(out: dict, g, fr) -> None:
              "bound_by": fx["bound_by"], "library_ms": None,
              "shape": fx["shape"] + f", {fx['steps']} steps",
              "fixpoint": fx})
+    # the localEval kernel: one launch for each one-shot Reach and Dist
+    # (asserted on each path); it replaces no TPU kernel (the JAX package's
+    # localEval is jnp gather and scatter), and no one PyTorch call
+    # computes it, so no library time
+    out["kernels"].append(
+        {"name": "local_eval", "route": "cuda",
+         "source": "src/repro_torch/kernels/local_eval/csrc/local_eval.cu",
+         "replaces": None, "launches": launches["local_eval"],
+         "launches_path": "oneshot", "max_abs_err": 0.0,
+         "ms": local["dist"]["ms"], "plain_ms": local["dist"]["plain_ms"],
+         "bound_ms": local["dist"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shape": local["shape"] + ", W exact",
+         "by_kind": {k: v for k, v in local.items() if k != "shape"},
+         **out["build"]["local_eval"]})
     out["oneshot"] = {"run_ms": run_ms, "launches": launches,
                       "rpq_ms": rpq_ms, "rpq_launches": rpq_launches,
                       "split": split, "sharded": sharded, "shapes": shapes,
@@ -3023,7 +3125,9 @@ def phase_baselines(out: dict, g, fr) -> None:
                                    "site_visits": counts[1],
                                    "rounds": counts[2]})
     launches = _launches()
-    _assert_one_fixpoint_each("baselines", launches, calls)
+    # the one-shot disReach's evalDGs: disReach_n and _m run none
+    _assert_one_fixpoint_each("baselines", launches, calls,
+                              local=calls.reach)
     summary = {}
     for name, rs in rows.items():
         summary[name] = {
@@ -3058,7 +3162,7 @@ def phase_baselines(out: dict, g, fr) -> None:
     with _EvalDGCalls() as calls:
         o_ms, o_res = cuda_timed(lambda: dis_reach(cfr, 0, n - 1), 1,
                                  warmup=False)
-    _assert_one_fixpoint_each("chain disReach", _launches(), calls)
+    _assert_one_fixpoint_each("chain disReach", _launches(), calls, local=1)
     if not (m_res.answer and o_res.answer):
         raise AssertionError("the chain's end is not reached")
     if m_res.rounds <= k or o_res.stats.collective_rounds != 1:
@@ -3147,7 +3251,7 @@ def phase_mapreduce(out: dict, g, fr) -> None:
         run_ms = (time.perf_counter() - t0) * 1e3
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
-    _assert_one_fixpoint_each("mapreduce", launches, calls)
+    _assert_one_fixpoint_each("mapreduce", launches, calls, local=0)
     if peak > MR_PEAK_LIMIT:
         raise AssertionError(f"mr_drpq peaked at {peak / 1e9:.2f} GB")
     stacked = fr.k * side * side
@@ -3400,9 +3504,10 @@ VERIFY_REGEX = "0*"
 
 def phase_verify(out: dict, sess) -> None:
     """``verify_session`` on the sharded repair's NCCL session at full
-    size: the three fused batch programs, the one-shot disReach and the
-    cache update, each one collective of its wire model's bits, none in a
-    fixpoint, no graph-sized wire dimension (HLO001-HLO004)."""
+    size: the three fused batch programs, the one-shot disReach (one
+    localEval launch) and the cache update, each one collective of its
+    wire model's bits, none in a fixpoint, no graph-sized wire dimension
+    (HLO001-HLO004)."""
     import torch
     from repro_torch.analysis.wire_check import (KINDS, _wire_model,
                                                  verify_session)
@@ -3430,6 +3535,9 @@ def phase_verify(out: dict, sess) -> None:
         raise AssertionError(f"verify: {D.collectives} collectives of "
                              f"{D.payload_bits} bits, expected {want}")
     launches = _launches()
+    if launches["local_eval"] != 1:
+        raise AssertionError(f"verify: {launches['local_eval']} localEval "
+                             f"launches, expected 1 (the one-shot disReach)")
     print(f"verify: verify_session on the NCCL session (nb="
           f"{fr.n_boundary}, rpq {VERIFY_REGEX!r} with {qa.n_states} "
           f"states) in {ms:.1f} ms: no violation; {D.collectives} "
@@ -5341,6 +5449,14 @@ def _main(dry: list) -> int:
                 out["dynamic"]["launches_by_mode"].items()},
              **{f"sharded_repair_{mode}": n for mode, n in
                 out["sharded_repair"]["launches_by_mode"].items()}}
+    # the localEval kernel runs on the one-shot Reach and Dist paths alone
+    # (the verifier's one-shot disReach among them)
+    stray = {p: n["local_eval"] for p, n in paths.items()
+             if n["local_eval"] and p not in ("oneshot", "oneshot_sharded",
+                                              "baselines", "verify")}
+    if stray:
+        raise AssertionError(f"localEval launched off the one-shot paths: "
+                             f"{stray}")
     for k in kernels:
         name = k["name"]
         k["rpq_launches"] = out["rpq"]["launches"][name]

@@ -62,7 +62,7 @@ import torch.distributed as dist
 from . import cache as _cache
 from . import engine
 from ..kernels.bitpack_ops.ops import pack_payload, unpack_payload
-from ..kernels.bool_matmul.ops import padded_zeros
+from ..kernels.bool_matmul.ops import padded, padded_zeros
 from .automaton import QueryAutomaton
 from .bes import bool_closure_kmajor, tropical_closure
 from .engine import INF
@@ -528,12 +528,10 @@ def dis_reach_sharded(fr: Fragmentation, s: int, t: int, group=None,
         return True, None
     arrs, s_local, t_local, dev = _one_shot_inputs(fr, s, t, group,
                                                    placement, device)
-    rows, block = engine.local_eval_reach(
+    D = engine.local_eval_reach(
         arrs["esrc"], arrs["edst"], arrs["src_local"], arrs["src_row"],
-        arrs["tgt_local"], s_local, t_local, n_max=fr.n_max, B=fr.B)
-    D = padded_zeros(fr.B, fr.B, dev)
-    D[rows] = block
-    del block
+        arrs["tgt_local"], s_local, t_local, n_max=fr.n_max, B=fr.B,
+        out=padded(fr.B, fr.B, dev))
     D = _merge_boolean(D, group)
     from .session import _src_rows, _tgt_cols     # session imports us
     ans = engine.evaldg_reach(D, _src_rows(fr, dev), _tgt_cols(fr, t, dev))

@@ -12,7 +12,10 @@ query with that query's fragment gathered in), so one ``gather`` and one
 loop stops when a step changes nothing: one host sync per step, which is
 cheap because a fragment's diameter is small.  Each step counts in
 ``fixpoint.steps`` and each blocking read of the device in ``host.syncs``
-(:mod:`repro_torch.tracing`).
+(:mod:`repro_torch.tracing`).  The one-shot localEval given ``out=``, the
+dependency matrix itself, takes none of these steps on the card: one launch
+of :mod:`repro_torch.kernels.local_eval` runs every source's local BFS and
+writes its row in place.
 
 Conventions (set up by ``fragments.fragment_graph``):
   * local node slots 0..n_max-1 are real nodes + virtual stubs; slot n_max
@@ -31,6 +34,8 @@ import torch
 
 from .. import tracing
 from ..kernels.bool_matmul.ops import or_and_fixpoint, padded_zeros
+from ..kernels.local_eval import (check_args, local_eval_dist_into,
+                                  local_eval_reach_into)
 from ..kernels.tropical_matmul.ops import min_plus_fixpoint
 
 INF = 1 << 29          # with int32 tensors; INF + INF still fits in int32
@@ -253,7 +258,9 @@ def single_source_dist(esrc, edst, src, *, n_max: int):
 # one fragment (an in-node by its owner, the s row by s's fragment), so a
 # caller assembles the matrix by writing each block into one buffer that
 # holds the semiring zero elsewhere (``D[rows] = block``): the elementwise
-# OR / min of the per-fragment matrices, without stacking them.
+# OR / min of the per-fragment matrices, without stacking them.  Given that
+# buffer as ``out=``, local_eval_reach / local_eval_dist write the rows into
+# it themselves, on the card without the block.
 
 def _target_cols(tgt_local, t_local, n_max: int, B: int):
     """[F, B] local slot read for each dependency-matrix column: the stub
@@ -274,13 +281,73 @@ def _owned_rows(src_row, B: int):
 
 
 def local_eval_reach(esrc, edst, src_local, src_row, tgt_local, s_local,
-                     t_local, *, n_max: int, B: int):
+                     t_local, *, n_max: int, B: int, out=None):
     """localEval (paper Fig. 3) on F fragments: rvset rows of the
     dependency matrix.  ``rows`` [r] and ``block`` [r, B] bool with
     ``block[i, col(w)] = 1`` iff source ``rows[i]`` (an owned in-node, or s
     at row B-2) reaches virtual node w (or t, column B-1) inside its
     fragment.  Fragment arguments carry a leading [F] axis; s_local and
-    t_local are [F] (``n_max`` where absent)."""
+    t_local are [F] (``n_max`` where absent).
+
+    With ``out``, the bool [B, B] dependency matrix in padded storage, the
+    rows are written into it instead and ``out`` is returned: the matrix
+    ``D[rows] = block`` builds in a zero D, its pad bytes zero too.  On the
+    card that is one launch of
+    :func:`~repro_torch.kernels.local_eval.local_eval_reach_into`, which
+    runs each source's local BFS and writes its row in place; on the CPU
+    the row block written in."""
+    if out is None:
+        return _rows_reach(esrc, edst, src_local, src_row, tgt_local,
+                           s_local, t_local, n_max=n_max, B=B)
+    if not out.is_cuda:
+        args = (esrc, edst, src_local, src_row, tgt_local, s_local, t_local)
+        check_args(False, out, *args)
+        return _write_rows(out, False, *_rows_reach(*args, n_max=n_max, B=B))
+    with FIXPOINT:
+        return local_eval_reach_into(out, esrc, edst, src_local, src_row,
+                                     tgt_local, s_local, t_local,
+                                     n_max=n_max)
+
+
+def local_eval_dist(esrc, edst, src_local, src_row, tgt_local, s_local,
+                    t_local, cap: int = INF, *, n_max: int, B: int,
+                    out=None):
+    """localEval_d (paper Sec. 4) on F fragments: the tropical rows
+    ``(rows [r], block [r, B] int32)``, block entries the local hop
+    distance from source to virtual node (INF where absent).  Distances
+    above ``cap`` (the query bound) are snapped to INF during the
+    propagation, as the paper keeps only dist < l.
+
+    With ``out``, the int32 [B, B] matrix in padded storage, the rows are
+    written into it and ``out`` is returned: the matrix ``W.fill_(INF);
+    W[rows] = block`` builds, its pads INF too; on the card one launch of
+    :func:`~repro_torch.kernels.local_eval.local_eval_dist_into`."""
+    if out is None:
+        return _rows_dist(esrc, edst, src_local, src_row, tgt_local,
+                          s_local, t_local, cap, n_max=n_max, B=B)
+    if not out.is_cuda:
+        args = (esrc, edst, src_local, src_row, tgt_local, s_local, t_local)
+        check_args(True, out, *args)
+        return _write_rows(out, INF, *_rows_dist(*args, cap, n_max=n_max,
+                                                 B=B))
+    with FIXPOINT:
+        return local_eval_dist_into(out, esrc, edst, src_local, src_row,
+                                    tgt_local, s_local, t_local, cap,
+                                    n_max=n_max)
+
+
+def _write_rows(out, zero, rows, block):
+    """The CPU's ``out=``, on arguments the caller checked as the kernel's
+    are: every row of ``out``, pads included, set to the semiring
+    ``zero``, then the row block written in."""
+    out.as_strided((out.shape[0], out.stride(0)), out.stride()).fill_(zero)
+    out[rows] = block
+    return out
+
+
+def _rows_reach(esrc, edst, src_local, src_row, tgt_local, s_local, t_local,
+                *, n_max: int, B: int):
+    """:func:`local_eval_reach`'s ``(rows, block)``: the plain version."""
     src_local, src_row = _with_query_source(src_local, src_row, s_local,
                                             n_max, B)
     F, S = src_local.shape
@@ -296,13 +363,9 @@ def local_eval_reach(esrc, edst, src_local, src_row, tgt_local, s_local,
     return rows, out.reshape(F * S, B)[keep]
 
 
-def local_eval_dist(esrc, edst, src_local, src_row, tgt_local, s_local,
-                    t_local, cap: int = INF, *, n_max: int, B: int):
-    """localEval_d (paper Sec. 4) on F fragments: the tropical rows
-    ``(rows [r], block [r, B] int32)``, block entries the local hop
-    distance from source to virtual node (INF where absent).  Distances
-    above ``cap`` (the query bound) are snapped to INF during the
-    propagation, as the paper keeps only dist < l."""
+def _rows_dist(esrc, edst, src_local, src_row, tgt_local, s_local, t_local,
+               cap: int = INF, *, n_max: int, B: int):
+    """:func:`local_eval_dist`'s ``(rows, block)``: the plain version."""
     src_local, src_row = _with_query_source(src_local, src_row, s_local,
                                             n_max, B)
     F, S = src_local.shape

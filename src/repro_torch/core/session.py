@@ -44,7 +44,7 @@ from .. import tracing
 from . import cache as _cache
 from . import distributed, engine, incremental
 from ..errors import DeltaApplyFailed, NoCudaDevice, Status, is_device_fault
-from ..kernels.bool_matmul.ops import padded_zeros
+from ..kernels.bool_matmul.ops import padded
 from ..kernels.tropical_matmul.ops import padded_i32
 from .automaton import QueryAutomaton, build_query_automaton
 from .engine import INF, QueryStats
@@ -512,24 +512,25 @@ def _query_inputs(fr: Fragmentation, s: int, t: int, device):
 
 def exec_reach(fr: Fragmentation, s: int, t: int,
                return_matrix: bool = False, device=None) -> QueryResult:
-    """disReach (paper Fig. 3): localEval on every fragment, one assembly
-    of the dependency matrix D [B, B] (each fragment's row block written
-    into one buffer), then evalDG through the or-and kernel."""
+    """disReach (paper Fig. 3): localEval on every fragment, writing each
+    owned row of the dependency matrix D [B, B] into one buffer (on the
+    card one launch of the local-evaluation kernel), then evalDG through
+    the or-and kernel."""
     if s == t:
         return QueryResult(True, 0, QueryStats(0, 0, fr.B, 1))
     dev = _resolve_device(device)
     with tracing.span("oneshot.query", kind="reach"):
         with tracing.span("oneshot.inputs"):
             arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
+        with tracing.span("oneshot.assemble"):
+            # rows 16 bytes apart, as evalDG's fixpoint reads them; the
+            # local stage writes every byte, the pads zero
+            D = padded(fr.B, fr.B, dev)
         with tracing.span("oneshot.local_eval"):
-            rows, block = engine.local_eval_reach(
+            engine.local_eval_reach(
                 arrs["esrc"], arrs["edst"], arrs["src_local"],
                 arrs["src_row"], arrs["tgt_local"], s_local, t_local,
-                n_max=fr.n_max, B=fr.B)
-        with tracing.span("oneshot.assemble"):
-            D = padded_zeros(fr.B, fr.B, dev)   # as evalDG's fixpoint reads
-            D[rows] = block
-            del block
+                n_max=fr.n_max, B=fr.B, out=D)
         with tracing.span("oneshot.evaldg"):
             ans = engine.evaldg_reach(D, _src_rows(fr, dev),
                                       _tgt_cols(fr, t, dev))
@@ -553,17 +554,16 @@ def exec_dist(fr: Fragmentation, s: int, t: int,
     with tracing.span("oneshot.query", kind="dist"):
         with tracing.span("oneshot.inputs"):
             arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
-        with tracing.span("oneshot.local_eval"):
-            rows, block = engine.local_eval_dist(
-                arrs["esrc"], arrs["edst"], arrs["src_local"],
-                arrs["src_row"], arrs["tgt_local"], s_local, t_local, cap,
-                n_max=fr.n_max, B=fr.B)
         with tracing.span("oneshot.assemble"):
             # padded storage (rows 16 bytes apart): evalDG's fixpoint
-            # reads W as it is, without a copy
-            W = padded_i32(fr.B, fr.B, dev).fill_(INF)
-            W[rows] = block
-            del block
+            # reads W as it is, without a copy; the local stage writes
+            # every row, pads included
+            W = padded_i32(fr.B, fr.B, dev)
+        with tracing.span("oneshot.local_eval"):
+            engine.local_eval_dist(
+                arrs["esrc"], arrs["edst"], arrs["src_local"],
+                arrs["src_row"], arrs["tgt_local"], s_local, t_local, cap,
+                n_max=fr.n_max, B=fr.B, out=W)
         with tracing.span("oneshot.evaldg"):
             d = engine.evaldg_dist(W, _src_rows(fr, dev),
                                    _tgt_cols(fr, t, dev))

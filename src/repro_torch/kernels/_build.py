@@ -33,6 +33,7 @@ SOURCES = {
     "or_and_skinny": "bool_matmul/csrc/or_and_skinny.cu",
     "min_plus_matmul": "tropical_matmul/csrc/min_plus_matmul.cu",
     "bitpack_matmul": "bitpack_ops/csrc/bitpack_matmul.cu",
+    "local_eval": "local_eval/csrc/local_eval.cu",
     # throughput probe behind the min-plus bound (chip_smoke.py); no query
     # path calls it
     "dpx_rate": "tropical_matmul/csrc/dpx_rate.cu",

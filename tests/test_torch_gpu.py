@@ -16,8 +16,9 @@ import torch
 import repro_torch
 from repro_torch import Dist, GraphDelta, Reach, Rpq
 from repro_torch.core import engine, incremental
-from repro_torch.core.fragments import fragment_graph
+from repro_torch.core.fragments import fragment_graph, query_slots
 from repro_torch.graph import erdos_renyi, random_partition
+from repro_torch.graph.graph import Graph
 from repro_torch.kernels.bitpack_ops import ops as pops
 from repro_torch.kernels.bitpack_ops import (bitpack_matmul,
                                              bitpack_matmul_ref, pack_cols,
@@ -32,6 +33,7 @@ from repro_torch.kernels.bool_matmul import (is_kmajor, or_and_fixpoint,
                                              or_and_matmul_nt,
                                              or_and_matmul_ref, padded_zeros,
                                              pitch, rows_aligned)
+from repro_torch.kernels.local_eval import ops as leops
 from repro_torch.kernels.tropical_matmul import ops as tops
 from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint,
                                                  min_plus_fixpoint_ref,
@@ -671,6 +673,217 @@ def test_uncached_session_on_card_matches_cpu(cuda):
     assert fr.rvset_cache is None
     assert [(r.answer, r.distance, r.stats) for r in got] == \
         [(r.answer, r.distance, r.stats) for r in want]
+
+
+# ---------------------------------------------------------------------------
+# the one-shot localEval kernel (kernels/local_eval): each owned row's local
+# BFS on chip, written into padded D or W
+# ---------------------------------------------------------------------------
+
+LE_PAD = 0x5A       # every byte's value before a call
+
+
+def _le_args(fr, s, t, frags, device):
+    """``engine.local_eval_*``'s arguments for fragments ``frags``."""
+    qs = query_slots(fr, s, t)
+    names = ("esrc", "edst", "src_local", "src_row", "tgt_local")
+    return ([torch.tensor(fr.arrays[n][frags], device=device) for n in names]
+            + [torch.tensor(qs[n][frags], device=device)
+               for n in ("s_local", "t_local")])
+
+
+def _le_storage(B, cap, device):
+    """LE_PAD-filled padded storage and its [B, B] view: bool D for
+    ``cap`` None, int32 W otherwise, with the paths' row pitches."""
+    if cap is None:
+        buf = torch.full((B, pitch(B)), LE_PAD, dtype=torch.uint8,
+                         device=device)
+        return buf, buf.view(torch.bool)[:, :B]
+    buf = torch.full((B, 4 * pitch_i32(B)), LE_PAD, dtype=torch.uint8,
+                     device=device)
+    return buf, buf.view(torch.int32)[:, :B]
+
+
+def _le_call(fr, args, cap, out):
+    if cap is None:
+        return engine.local_eval_reach(*args, n_max=fr.n_max, B=fr.B, out=out)
+    return engine.local_eval_dist(*args, cap, n_max=fr.n_max, B=fr.B,
+                                  out=out)
+
+
+def _le_kernel(fr, args, cap, cuda):
+    """One call on the card, with the recorder off: exactly one launch, and
+    no host sync (PyTorch raises on one in sync-debug mode "error")."""
+    buf, view = _le_storage(fr.B, cap, cuda)
+    before = leops.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert _le_call(fr, args, cap, view) is view
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert leops.launches == before + 1
+    return buf
+
+
+def _le_plain(fr, args, cap):
+    """The plain version on the arguments' device: the engine's row block
+    written into storage holding the semiring zero, pads included, as the
+    CPU path writes it."""
+    buf, view = _le_storage(fr.B, cap, args[0].device)
+    if cap is None:
+        rows, block = engine.local_eval_reach(*args, n_max=fr.n_max, B=fr.B)
+        buf.fill_(0)
+    else:
+        rows, block = engine.local_eval_dist(*args, cap, n_max=fr.n_max,
+                                             B=fr.B)
+        buf.view(torch.int32).fill_(INF)
+    view[rows] = block
+    return buf
+
+
+def _le_check(fr, pairs, frags, caps, cuda, on_cpu=True):
+    """The kernel's storage, pads included, equal byte for byte to the
+    plain version's: on the CPU, or (``on_cpu`` False, for shapes whose
+    plain fixpoint takes minutes there) the same plain code on the card."""
+    for s, t in pairs:
+        card = _le_args(fr, s, t, frags, cuda)
+        host = _le_args(fr, s, t, frags, "cpu") if on_cpu else card
+        for cap in caps:
+            got = _le_kernel(fr, card, cap, cuda)
+            want = _le_plain(fr, host, cap)
+            assert torch.equal(got.to(want.device), want), (s, t, cap)
+            del got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["all", "one"])
+def test_local_eval_kernel_at_the_cells_size(cuda, which):
+    """The one-shot cell's graph (n = 32768, m = 4n, 8 labels, k = 16):
+    reach, exact dist and dist capped at 6, bit-equal to the plain version
+    (all 16 fragments: its code on the card; one fragment: on the CPU)."""
+    g = erdos_renyi(32768, 131072, n_labels=8, seed=0)
+    fr = fragment_graph(g, random_partition(g, 16, seed=0), 16)
+    rng = np.random.default_rng(7)
+    pairs = [tuple(int(x) for x in p) for p in rng.integers(0, g.n, (2, 2))]
+    if which == "all":
+        _le_check(fr, pairs, list(range(16)), [None, INF, 6], cuda,
+                  on_cpu=False)
+    else:
+        _le_check(fr, pairs[:1], [int(fr.part[pairs[0][0]])],
+                  [None, INF, 6], cuda)
+
+
+def _le_chain_graph():
+    """A 1024-node chain 0 -> ... -> 1023 in fragment 0, each node i also
+    pointing at node 1024 + i in fragment 1, which points back at i: every
+    chain node is a source, and node 0 reaches every slot of fragment 0
+    (the chain and its 1024 stubs) at distances up to 1024."""
+    n = 1024
+    i = np.arange(n)
+    src = np.concatenate([i[:-1], i, n + i])
+    dst = np.concatenate([i[1:], n + i, i])
+    g = Graph(2 * n, src, dst, np.zeros(2 * n, dtype=np.int32))
+    return fragment_graph(g, (np.arange(2 * n) >= n).astype(np.int64), 2)
+
+
+@pytest.mark.gpu
+def test_local_eval_kernel_on_a_chain(cuda):
+    """Distances past 255 and one source reaching every slot: 1024 levels
+    in one batch; bit-equal to the CPU, exact and capped at 300."""
+    fr = _le_chain_graph()
+    assert fr.s_max - 1 >= 1024
+    _le_check(fr, [(0, 1023), (5, 2047)], [0, 1], [None, INF, 300], cuda)
+    buf = _le_kernel(fr, _le_args(fr, 0, 1023, [0, 1], cuda), INF, cuda)
+    W = buf.view(torch.int32)[:, :fr.B].cpu()
+    assert int(W[fr.B - 2, fr.B - 1]) == 1023        # s = 0 to t = 1023
+    assert int(W[fr.B - 2].masked_fill(W[fr.B - 2] == INF, -1).max()) == 1024
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["card", "edges_l2", "all_l2"])
+def test_local_eval_kernel_past_shared_memory(cuda, plan, monkeypatch):
+    """A dense fragment pair whose edges (8 bytes each) exceed a block's
+    shared memory is read through L2; forced plans put the edges, or the
+    edges and the BFS state, in device memory on any fragment."""
+    g = erdos_renyi(3000, 80000, n_labels=2, seed=4)
+    fr = fragment_graph(g, random_partition(g, 2, seed=4), 2)
+    assert 8 * fr.e_max > 232448
+    if plan != "card":
+        state = plan == "edges_l2"
+        monkeypatch.setattr(leops, "_plan", lambda n_max, E, limit: leops.Plan(
+            state, False, 12 * (n_max + 1) if state else 0))
+    leops._card_plan.cache_clear()
+    try:
+        _le_check(fr, [(7, 2999)], [0, 1], [None, INF, 2], cuda)
+    finally:
+        leops._card_plan.cache_clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [63, 64, 65, 200])
+def test_local_eval_kernel_around_the_hit_list(cuda, h):
+    """A source that reaches h stubs, so that its row takes h patched
+    columns; ten launches each, since a race between the warps that stream
+    the rows and the threads that patch them would show in some only."""
+    n = 2 * h + 2
+    g = Graph(n, np.zeros(h, dtype=np.int64), np.arange(h + 2, 2 * h + 2),
+              np.zeros(n, dtype=np.int32))
+    fr = fragment_graph(g, (np.arange(n) > h).astype(np.int64), 2)
+    assert fr.B == h + 2
+    for _ in range(10):
+        _le_check(fr, [(0, 1)], [0, 1], [None, INF, 1], cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frags", [[3], [0, 2, 5, 7]], ids=["F1", "F4"])
+def test_local_eval_kernel_on_a_ranks_fragments(cuda, frags):
+    """F = 1 and F = 4 of 8 fragments, as a sharded rank holds them: the
+    other fragments' rows hold the semiring zero; s and t absent from some
+    or all of the fragments."""
+    g = erdos_renyi(4000, 16000, n_labels=3, seed=9)
+    fr = fragment_graph(g, random_partition(g, 8, seed=9), 8,
+                        reserve_boundary=5)
+    rng = np.random.default_rng(9)
+    pairs = [tuple(int(x) for x in p) for p in rng.integers(0, g.n, (3, 2))]
+    _le_check(fr, pairs, frags, [None, INF, 0, 3], cuda)
+
+
+@pytest.mark.gpu
+def test_traced_one_shot_query_on_card(cuda):
+    """A traced one-shot query on the card: one localEval launch, at most
+    two host syncs (the deepest level read back, evalDG's answer), and the
+    same ``fixpoint.steps`` as the CPU's host loop."""
+    from repro_torch import tracing
+    g = erdos_renyi(600, 2400, n_labels=3, seed=8)
+    fr = fragment_graph(g, random_partition(g, 4, seed=8), 4)
+    queries = [Reach(3, 500), Dist(3, 500), Dist(7, 9, bound=2)]
+
+    def traced(device):
+        tracing.enable()
+        try:
+            out = repro_torch.connect(fr, cache="none",
+                                      device=device).run(queries)
+        finally:
+            tracing.disable()
+        spans = [r for r in tracing.drain() if r.kind == "span"]
+        return out, *([r for r in spans if r.name == name]
+                      for name in ("oneshot.query", "oneshot.local_eval"))
+    want, _, on_cpu = traced("cpu")
+    before = leops.launches
+    got, queried, on_card = traced(None)
+    assert leops.launches == before + len(queries)
+    assert [(r.answer, r.distance) for r in got] == \
+        [(r.answer, r.distance) for r in want]
+    assert len(queried) == len(on_card) == len(queries)
+    for query in queried:
+        assert query.counts["oneshot.local_launches"] == 1
+        assert query.counts["host.syncs"] <= 2
+    for card, host in zip(on_card, on_cpu):
+        assert card.counts["host.syncs"] == 1
+        assert card.counts["fixpoint.steps"] == \
+            host.counts["fixpoint.steps"] > 0
 
 
 @pytest.mark.gpu
