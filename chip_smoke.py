@@ -2444,7 +2444,8 @@ def phase_dynamic(out: dict, g):
             raise AssertionError(f"{name} not launched by every mode")
 
     # one delta made to fail inside the repair, after the frontiers and
-    # the Boolean closure were rebound: everything rolls back
+    # the distance closure were rebound (the repair updates it before the
+    # Boolean closure): everything rolls back
     queries, before = check("before the failed delta")
     versions = (fr.arrays_version, sess.cache_version)
     held = _cache_state(fr.rvset_cache)
@@ -2454,10 +2455,10 @@ def phase_dynamic(out: dict, g):
                                for _ in range(32)])
 
     def broken(*args):
-        raise RuntimeError("injected failure in the tropical rank update")
+        raise RuntimeError("injected failure in the Boolean rank update")
 
-    orig = incremental._rank_update_tropical
-    incremental._rank_update_tropical = broken
+    orig = incremental._rank_update_bool
+    incremental._rank_update_bool = broken
     t0 = time.perf_counter()
     try:
         sess.apply(delta)
@@ -2465,7 +2466,7 @@ def phase_dynamic(out: dict, g):
     except DeltaApplyFailed:
         pass
     finally:
-        incremental._rank_update_tropical = orig
+        incremental._rank_update_bool = orig
     rollback_ms = (time.perf_counter() - t0) * 1e3
     if (fr.arrays_version, sess.cache_version) != versions:
         raise AssertionError("the failed delta moved a version")

@@ -12,6 +12,7 @@ from typing import Tuple
 
 import torch
 
+from .. import tracing
 from ..kernels.bool_matmul.ops import kmajor_copy, or_and_matmul_nt
 from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 from .engine import FIXPOINT
@@ -19,6 +20,12 @@ from .engine import FIXPOINT
 
 def _ceil_log2(b: int) -> int:
     return max(1, math.ceil(math.log2(max(b, 2))))
+
+
+def _count_squaring() -> None:
+    """One squaring and the blocking comparison after it."""
+    tracing.count("closure.squarings")
+    tracing.count("host.syncs")
 
 
 def bool_closure(D: torch.Tensor) -> torch.Tensor:
@@ -37,7 +44,9 @@ def bool_closure_kmajor(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     fixpoint comes after ceil(log2 diam) rounds (worst case diam == B).
     A holds I, so A@A holds A and equals the reference's A | A@A.  Each
     squaring takes (A, A^T) and writes (A@A, (A@A)^T) in one launch, so
-    only the first A is transposed.
+    only the first A is transposed.  Each squaring is counted in the
+    tracing counter ``closure.squarings``, and its ``torch.equal`` in
+    ``host.syncs``.
     """
     B = D.shape[-1]
     A = kmajor_copy(D)
@@ -48,6 +57,7 @@ def bool_closure_kmajor(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     with FIXPOINT:
         for _ in range(_ceil_log2(B)):
             A2, A2t = or_and_matmul_nt(A, At, with_transpose=True)
+            _count_squaring()
             if torch.equal(A2, A):
                 break
             A, At = A2, A2t
@@ -62,7 +72,7 @@ def tropical_closure(W: torch.Tensor) -> torch.Tensor:
     so it equals the reference's min(W, W (min,+) W).  Entries of W lie
     in [0, INF], the product's precondition.  W is copied once into padded
     storage (rows 16 bytes apart), as are the products, so no squaring
-    copies an operand."""
+    copies an operand.  Counted as :func:`bool_closure_kmajor` is."""
     B = W.shape[-1]
     W = padded_i32(B, B, W.device).copy_(W)
     W.diagonal().fill_(0)
@@ -71,6 +81,7 @@ def tropical_closure(W: torch.Tensor) -> torch.Tensor:
     with FIXPOINT:
         for _ in range(_ceil_log2(B)):
             W2 = min_plus_matmul(W, W)
+            _count_squaring()
             if torch.equal(W2, W):
                 break
             W = W2

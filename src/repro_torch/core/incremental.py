@@ -46,11 +46,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels.bool_matmul.ops import (kmajor_copy, or_and_floor_pair,
                                        or_and_matmul_nt, padded)
 from ..kernels.tropical_matmul.ops import min_plus_matmul, padded_i32
 from . import bes, engine
-from .cache import _gather_boundary_matrix, _upload, prepare_rvset_cache
+from .cache import (_gather_boundary_matrix, _to_host, _upload,
+                    prepare_rvset_cache)
 from .engine import INF
 from .fragments import Fragmentation, GraphDelta
 
@@ -152,17 +154,23 @@ def apply_delta(fr: Fragmentation, delta: GraphDelta,
             return rebuild_cache(fr, cache.version, report, with_dist,
                                  cache.device, reason="repair debt")
         _recompute(cache, report.dirty, warm=False)
-        cache.refresh_device_arrays(touched_arrays(report))
+        _refresh(cache, report)
         return UpdateStats(mode="recompute", **base)
     if dirty_frac > RECOMPUTE_DIRTY_FRAC:
         # insert-only but wide: the changed rows are most of the matrix,
         # so a warm-started recompute beats the rank update
         _recompute(cache, report.dirty, warm=True)
-        cache.refresh_device_arrays(touched_arrays(report))
+        _refresh(cache, report)
         return UpdateStats(mode="recompute", **base)
     changed = _repair_insert(cache, report.dirty)
-    cache.refresh_device_arrays(touched_arrays(report))
+    _refresh(cache, report)
     return UpdateStats(mode="repair", changed_rows=changed, **base)
+
+
+def _refresh(cache, report) -> None:
+    """Upload the arrays the delta touched (:func:`touched_arrays`)."""
+    with tracing.span("repair.refresh"):
+        cache.refresh_device_arrays(touched_arrays(report))
 
 
 # ---------------------------------------------------------------------------
@@ -180,10 +188,9 @@ def _frontier_init(fr: Fragmentation, frags: np.ndarray, warm_rows,
     src_local = fr.arrays["src_local"][frags]             # [F, S]
     src_row = fr.arrays["src_row"][frags]
     fi, si = np.nonzero(src_row < fr.B - 2)
-    bpos = torch.tensor(src_row[fi, si], dtype=torch.long, device=device)
-    fi_t, si_t = (torch.tensor(x, dtype=torch.long, device=device)
-                  for x in (fi, si))
-    slot = torch.tensor(src_local[fi, si], dtype=torch.long, device=device)
+    bpos = _upload(src_row[fi, si], device, torch.long)
+    fi_t, si_t = (_upload(x, device, torch.long) for x in (fi, si))
+    slot = _upload(src_local[fi, si], device, torch.long)
     shape = (len(frags), fr.s_max, fr.n_max + 1)
     if dist:
         init = torch.full(shape, INF, dtype=torch.int32, device=device)
@@ -253,10 +260,9 @@ def gather_rows(fr: Fragmentation, bl, row_ids: np.ndarray):
     out = torch.empty((len(row_ids), nb), dtype=bl.dtype, device=dev)
     for f in np.unique(owner):
         sel = np.nonzero(owner == f)[0]
-        cols = torch.tensor(fr.arrays["tgt_local"][f, :nb], dtype=torch.long,
-                            device=dev)
-        rows = bl[torch.tensor(row_ids[sel], dtype=torch.long, device=dev)]
-        out[torch.tensor(sel, dtype=torch.long, device=dev)] = rows[:, cols]
+        cols = _upload(fr.arrays["tgt_local"][f, :nb], dev, torch.long)
+        rows = bl[_upload(row_ids[sel], dev, torch.long)]
+        out[_upload(sel, dev, torch.long)] = rows[:, cols]
     return out
 
 
@@ -273,10 +279,11 @@ def _rank_update_bool(C, Ct, rows_new, idx):
     pair (C, Ct), which writes C | P and Ct | P^T with no OR pass after it.
     A K-major ``rows_new`` (padded, as the repair gathers it) is read as
     it is."""
-    idx_t = torch.as_tensor(idx, dtype=torch.long, device=C.device)
+    idx_t = _upload(idx, C.device, torch.long)
     T, Tt = or_and_matmul_nt(rows_new, Ct, with_transpose=True)  # [r, nb]
     Mc, Mct = bes.bool_closure_kmajor(T[:, idx_t])         # [r, r]
     left = or_and_matmul_nt(kmajor_copy(Ct[idx_t].T), Mct)  # [nb, r]
+    tracing.count("repair.launches", 3)     # T and T^T, left, floor pair
     return or_and_floor_pair(left, Tt, C, Ct)
 
 
@@ -287,13 +294,15 @@ def _rank_update_tropical(Cd, rows_new, idx):
     and returns C' in fresh padded storage; Cd is left as it was.
     ``C[:, R]`` is gathered into padded storage, so with a padded
     ``rows_new`` no product copies an operand."""
-    idx_t = torch.as_tensor(idx, dtype=torch.long, device=Cd.device)
+    idx_t = _upload(idx, Cd.device, torch.long)
     T = min_plus_matmul(rows_new, Cd)                      # [r, nb]
     Mc = bes.tropical_closure(T[:, idx_t])
     cols = torch.index_select(Cd, 1, idx_t,
                               out=padded_i32(Cd.shape[0], len(idx_t),
                                              Cd.device))
     left = min_plus_matmul(cols, Mc)                       # [nb, r]
+    del cols
+    tracing.count("repair.launches", 3)     # T, left, the floored product
     return min_plus_matmul(left, T, init=Cd)
 
 
@@ -307,37 +316,50 @@ def _repair_insert(cache, dirty: np.ndarray) -> int:
     changed D0 rows pushed through the closure."""
     fr = cache.fr
     bl_old, bl_d_old = cache.bl_frontier, cache.bl_dist
-    _update_frontiers(cache, dirty, warm=True)
+    with tracing.span("repair.frontiers"):
+        _update_frontiers(cache, dirty, warm=True)
     candidates = changed_row_ids(fr, dirty)
     if fr.n_boundary == 0 or candidates.size == 0:
         return 0
-    # diff candidate D0 rows old vs new (new stub columns read all-false /
-    # INF out of the old frontiers, so freshly activated rows always diff)
-    rows_new = gather_rows(fr, cache.bl_frontier, candidates)
-    changed = (rows_new != gather_rows(fr, bl_old, candidates)).any(1)
-    rows_d_new = None
-    if cache.bl_dist is not None:
-        rows_d_new = gather_rows(fr, cache.bl_dist, candidates)
-        changed |= (rows_d_new != gather_rows(fr, bl_d_old,
-                                              candidates)).any(1)
-    changed = changed.cpu().numpy()
+    with tracing.span("repair.diff"):
+        # diff candidate D0 rows old vs new (new stub columns read
+        # all-false / INF out of the old frontiers, so freshly activated
+        # rows always diff)
+        rows_new = gather_rows(fr, cache.bl_frontier, candidates)
+        changed = (rows_new != gather_rows(fr, bl_old, candidates)).any(1)
+        rows_d_new = None
+        if cache.bl_dist is not None:
+            rows_d_new = gather_rows(fr, cache.bl_dist, candidates)
+            changed |= (rows_d_new != gather_rows(fr, bl_d_old,
+                                                  candidates)).any(1)
+        changed = _to_host(changed)
     if not changed.any():
         return 0
     sel = np.nonzero(changed)[0]
     padded_sel = pad_row_ids(sel, cap=fr.n_boundary)
     idx = candidates[padded_sel]
-    pick = torch.tensor(padded_sel, dtype=torch.long, device=cache.device)
+    pick = _upload(padded_sel, cache.device, torch.long)
+    # only the changed rows go on: the candidates' rows are let go before
+    # the updates allocate the new closures, and the distance closure is
+    # updated first, so that the repair's peak holds the Boolean update's
+    # [r, nb] bytes beside the new version and not the min-plus update's
+    # four-times-wider ones (:mod:`repro_torch.core.versions`)
     rows = torch.index_select(rows_new, 0, pick,
                               out=padded(len(pick), fr.n_boundary,
                                          cache.device))
-    cache.closure, cache.closure_t = _rank_update_bool(
-        cache.closure, cache.closure_t, rows, idx)
+    del rows_new
     if rows_d_new is not None:
-        rows_d = torch.index_select(
-            rows_d_new, 0, pick,
-            out=padded_i32(len(pick), fr.n_boundary, cache.device))
-        cache.dist_closure = _rank_update_tropical(
-            cache.dist_closure, rows_d, idx)
+        with tracing.span("repair.rank_update", kind="tropical"):
+            rows_d = torch.index_select(
+                rows_d_new, 0, pick,
+                out=padded_i32(len(pick), fr.n_boundary, cache.device))
+            del rows_d_new
+            cache.dist_closure = _rank_update_tropical(
+                cache.dist_closure, rows_d, idx)
+            del rows_d
+    with tracing.span("repair.rank_update", kind="bool"):
+        cache.closure, cache.closure_t = _rank_update_bool(
+            cache.closure, cache.closure_t, rows, idx)
     return int(sel.size)
 
 
@@ -347,10 +369,12 @@ def _recompute(cache, dirty: np.ndarray, warm: bool) -> None:
     D0 anew and close it.  The clean fragments' frontier rows, the
     expensive part, are reused as they are."""
     fr = cache.fr
-    _update_frontiers(cache, dirty, warm=warm)
-    owner = fr.boundary_owner()
-    D0 = _gather_boundary_matrix(fr, cache.bl_frontier, owner)
-    cache.closure, cache.closure_t = bes.bool_closure_kmajor(D0)
-    if cache.bl_dist is not None:
-        W0 = _gather_boundary_matrix(fr, cache.bl_dist, owner)
-        cache.dist_closure = bes.tropical_closure(W0)
+    with tracing.span("repair.frontiers"):
+        _update_frontiers(cache, dirty, warm=warm)
+    with tracing.span("repair.recompute"):
+        owner = fr.boundary_owner()
+        D0 = _gather_boundary_matrix(fr, cache.bl_frontier, owner)
+        cache.closure, cache.closure_t = bes.bool_closure_kmajor(D0)
+        if cache.bl_dist is not None:
+            W0 = _gather_boundary_matrix(fr, cache.bl_dist, owner)
+            cache.dist_closure = bes.tropical_closure(W0)

@@ -240,11 +240,16 @@ class QuerySession:
 
     def _apply_delta(self, fr: Fragmentation,
                      delta: GraphDelta) -> incremental.UpdateStats:
-        if self.backend == "shard_map" and fr.rvset_cache is not None:
-            return distributed.apply_delta_sharded(
-                fr, delta, group=self.group, placement=self.placement,
-                chaos=self.chaos)
-        return incremental.apply_delta(fr, delta, chaos=self.chaos)
+        with tracing.span("repair.apply") as sp:
+            if self.backend == "shard_map" and fr.rvset_cache is not None:
+                stats = distributed.apply_delta_sharded(
+                    fr, delta, group=self.group, placement=self.placement,
+                    chaos=self.chaos)
+            else:
+                stats = incremental.apply_delta(fr, delta, chaos=self.chaos)
+            sp.set(kind=stats.mode)
+            tracing.count("repair.rows", stats.changed_rows)
+        return stats
 
     # -- query execution ---------------------------------------------------
 

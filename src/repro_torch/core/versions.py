@@ -27,9 +27,16 @@ Consistency: readers always pin the head, the latest fully repaired
 version (monotonic reads); a delta becomes visible exactly when its
 repair publishes.  ``UpdateFuture.result()`` is the commit point.
 
-On the card, a version costs what its repair binds anew: at ``nb`` ~ 16k,
-a repair rebinds the Boolean closure and its K-major copy (2 nb^2 bytes)
-and the distance closure (4 nb^2 bytes), and shares the rest.
+On the card, a version costs what its repair binds anew: the Boolean
+closure and its K-major copy (2 nb^2 bytes), the distance closure (4 nb^2
+bytes) and the two frontier matrices ([nb, n_max+1], 1 and 4 bytes an
+entry); it shares the rest.  Resident at once are the store's
+``capacity`` versions, the clone being repaired, and the session's own
+version once the store has let it go (the session holds it): at most
+``capacity + 2`` of them, whatever the readers pin, unless every version
+the store holds but the head is pinned.  The repair's own scratch at
+that moment is the Boolean update's ``[r, nb]`` operands
+(:func:`incremental._repair_insert`), r the changed rows.
 """
 from __future__ import annotations
 
@@ -39,7 +46,9 @@ from collections import OrderedDict
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
+from .. import tracing
 from ..errors import DeltaApplyFailed
 from . import incremental
 from .cache import RvsetCache
@@ -97,6 +106,11 @@ def cow_clone(fr: Fragmentation, delta: GraphDelta) -> Fragmentation:
     touched = touched_array_names(fr, delta)
     arrays = {k: (v.copy() if k in touched else v)
               for k, v in fr.arrays.items()}
+    if tracing.ON:
+        tracing.count("mvcc.clone_bytes", sum(
+            x.nbytes for x in (*(arrays[k] for k in touched if k in arrays),
+                               fr.b_index, fr.frag_sizes, fr._slot_of,
+                               fr.n_edges, fr.src_fill) if x is not None))
     clone = dataclasses.replace(
         fr, arrays=arrays,
         b_index=fr.b_index.copy(),
@@ -108,6 +122,33 @@ def cow_clone(fr: Fragmentation, delta: GraphDelta) -> Fragmentation:
         stubs=None if fr.stubs is None else [dict(s) for s in fr.stubs])
     clone.rvset_cache = _clone_cache(clone, fr.rvset_cache)
     return clone
+
+
+def _new_device_bytes(fr: Fragmentation, base: Fragmentation) -> int:
+    """Device bytes that ``fr``'s cache holds and ``base``'s does not: what
+    one version costs beyond the version it was cloned from (a repair
+    binds new closures, frontiers and arrays, and shares the rest)."""
+    seen = {t.untyped_storage().data_ptr()
+            for t in _cache_tensors(base.rvset_cache)}
+    total = 0
+    for t in _cache_tensors(fr.rvset_cache):
+        storage = t.untyped_storage()
+        if storage.data_ptr() not in seen:
+            seen.add(storage.data_ptr())
+            total += storage.nbytes()
+    return total
+
+
+def _cache_tensors(cache: Optional[RvsetCache]):
+    """Every tensor a cache holds (none without a cache)."""
+    if cache is None:
+        return
+    for v in (cache.closure, cache.closure_t, cache.bl_frontier,
+              cache.bl_dist, cache.dist_closure,
+              *cache.arrays.values(), *cache.rpq_closures.values(),
+              *cache.rpq_closures_t.values()):
+        if isinstance(v, torch.Tensor):
+            yield v
 
 
 @dataclasses.dataclass
@@ -212,8 +253,11 @@ class VersionedCacheStore:
             try:
                 if delta.is_empty():
                     return base, incremental.UpdateStats(mode="noop")
-                with self.session._lock:
-                    work_fr = cow_clone(base.fr, delta)
+                with tracing.span("mvcc.clone") as sp:
+                    with self.session._lock:
+                        work_fr = cow_clone(base.fr, delta)
+                    if tracing.ON:
+                        sp.set(**self._sizes(clone=1))
                 try:
                     stats = self.session.repair_on(work_fr, delta)
                 except Exception as exc:
@@ -221,13 +265,18 @@ class VersionedCacheStore:
                         self.dropped += 1
                     self.session.stats.rollbacks += 1
                     raise DeltaApplyFailed(exc) from exc
-                with self._lock:
-                    ver = Version(self._next_vid, work_fr)
-                    self._next_vid += 1
-                    self._versions[ver.vid] = ver
-                    self._head_vid = ver.vid
-                    self.committed += 1
-                    self._reclaim()
+                with tracing.span("mvcc.publish") as sp:
+                    with self._lock:
+                        ver = Version(self._next_vid, work_fr)
+                        self._next_vid += 1
+                        self._versions[ver.vid] = ver
+                        self._head_vid = ver.vid
+                        self.committed += 1
+                        self._reclaim()
+                    if tracing.ON:
+                        sp.set(**self._sizes())
+                        tracing.count("mvcc.version_bytes",
+                                      _new_device_bytes(work_fr, base.fr))
                 return ver, stats
             finally:
                 self.release(base)
@@ -268,6 +317,17 @@ class VersionedCacheStore:
                 break       # everything pinned: over capacity until drained
             self._forget(victim.vid)
             self.evicted += 1
+
+    def _sizes(self, clone: int = 0) -> dict:
+        """The tracing attributes of a clone or a publish: ``n``, the
+        versions the store holds (with ``clone``, the one being repaired,
+        counted in), and ``size``, the versions whose caches are resident
+        (``n``, and the session's own version once the store let it go)."""
+        with self._lock:
+            n = len(self._versions) + clone
+            held = any(v.fr is self.session.fr
+                       for v in self._versions.values())
+        return {"n": n, "size": n + (not held)}
 
     def _forget(self, vid: int) -> None:
         """(lock held) Drop version ``vid`` and break its fr <-> cache

@@ -189,12 +189,16 @@ class UpdateFuture(_Future):
     ``result()`` blocks for the :class:`~repro_torch.core.incremental
     .UpdateStats` (or raises :class:`~repro_torch.errors.DeltaApplyFailed`
     if the delta rolled back); the terminal ``status`` is ``APPLIED`` or
-    ``FAILED``.
+    ``FAILED``.  ``id`` numbers it among the process's requests; the
+    ``serve.delta_wait`` record of :mod:`repro_torch.tracing` carries it.
     """
 
     def __init__(self, delta: GraphDelta):
         super().__init__()
         self.delta = delta
+        self.id = next(_request_ids)
+        # submit, time.monotonic_ns(), taken only while the recorder is on
+        self._enqueued_ns: Optional[int] = None
 
     def __repr__(self) -> str:
         return f"UpdateFuture(status={self.status})"
@@ -310,6 +314,8 @@ class AsyncQueryEngine:
             self._check_open()
             fut.submitted_at = self._clock()
             if self.store is not None:
+                if tracing.ON:
+                    fut._enqueued_ns = time.monotonic_ns()
                 self._repairs.append(fut)
                 self._repair_cond.notify_all()
             else:
@@ -750,18 +756,23 @@ class AsyncQueryEngine:
         """Commit one delta as a new MVCC version.  On failure the clone is
         dropped and the head keeps serving: no rollback, no pause; the
         failure resolves the future ``FAILED`` as on the barrier path.  A
-        device fault is re-raised."""
-        try:
-            _ver, fut.value = self.store.commit_delta(fut.delta)
-        except DeltaApplyFailed as exc:
-            if is_device_fault(exc.cause):
-                raise
-            fut.error = exc
-            self.updates_failed += 1
-            self._resolve(fut, Status.FAILED)
-            return
-        self.updates_applied += 1
-        self._resolve(fut, Status.APPLIED)
+        device fault is re-raised.  The delta's wait, from its submit to
+        here, is recorded as ``serve.delta_wait`` (recorder on)."""
+        with tracing.span("serve.commit"):
+            if tracing.ON and fut._enqueued_ns is not None:
+                tracing.wait("serve.delta_wait", fut._enqueued_ns,
+                             time.monotonic_ns(), fut.id)
+            try:
+                _ver, fut.value = self.store.commit_delta(fut.delta)
+            except DeltaApplyFailed as exc:
+                if is_device_fault(exc.cause):
+                    raise
+                fut.error = exc
+                self.updates_failed += 1
+                self._resolve(fut, Status.FAILED)
+                return
+            self.updates_applied += 1
+            self._resolve(fut, Status.APPLIED)
 
     def _resolve(self, fut: _Future, status: Status) -> None:
         """Move a future to its terminal status: exactly once, ever."""

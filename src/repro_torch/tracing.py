@@ -27,16 +27,29 @@ Records go into per-thread lists with no lock: :func:`drain` takes what
 each list holds and leaves what is appended meanwhile.  :func:`enable`
 starts afresh, dropping what was not drained.
 
+A span's attributes may also be given once its work is done, from the
+object the ``with`` statement binds (a no-op while off)::
+
+    with tracing.span("repair.apply") as sp:
+        stats = ...
+        sp.set(kind=stats.mode)
+
 Counter names: ``host.syncs`` (a blocking read of the device: a
 ``torch.equal``, ``bool(t.any())``, ``torch.nonzero``, ``.cpu()``, a
 Python number of a tensor), ``fixpoint.steps`` (an iteration of a host
 fixpoint loop of :mod:`repro_torch.core.engine`), ``h2d.pageable_bytes``
 (bytes copied onto the device from host arrays by ``torch.tensor``, a
-copy from pageable memory on the card).
+copy from pageable memory on the card), ``closure.squarings`` (a
+squaring of a Boolean or min-plus closure, one launch on the card); in
+the repair lane ``repair.rows`` (the changed boundary rows a repair
+pushes through the closures), ``repair.launches`` (the rank updates'
+or-and and min-plus products other than their closures' squarings, one
+launch each on the card), ``mvcc.clone_bytes`` (host bytes a
+copy-on-write clone copies) and ``mvcc.version_bytes`` (device bytes a
+published version holds that the version it was cloned from does not).
 """
 from __future__ import annotations
 
-import contextlib
 import itertools
 import threading
 import time
@@ -46,7 +59,24 @@ from typing import Dict, List, Mapping, NamedTuple, Optional
 #: whether sites record; flipped by :func:`enable` and :func:`disable`
 ON = False
 
-_OFF = contextlib.nullcontext()
+
+class _Off:
+    """What a span site gives while the recorder is off: enters, sets and
+    exits doing nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_OFF = _Off()
 # shared by every record without attributes or counts: a record makes as
 # few objects as it can for the collector to scan
 _EMPTY: Mapping = types.MappingProxyType({})
@@ -118,6 +148,11 @@ class _Span:
         self.c0 = time.thread_time_ns()
         self.t0 = time.monotonic_ns()
         return self
+
+    def set(self, **attrs) -> None:
+        """Add or replace attributes, kept in the record when the span
+        closes."""
+        self.attrs = dict(self.attrs, **attrs)
 
     def __exit__(self, *exc) -> bool:
         t1 = time.monotonic_ns()

@@ -888,10 +888,11 @@ def test_traced_one_shot_query_on_card(cuda):
 
 @pytest.mark.gpu
 def test_failed_delta_rolls_back_on_card(cuda, monkeypatch):
-    """A delta that fails inside the tropical rank update, after the
-    frontiers and the Boolean closure were rebound on the card, rolls
-    back: versions, answers and every cache tensor (the same objects,
-    their contents held against clones) are as before."""
+    """A delta that fails inside the Boolean rank update, after the
+    frontiers and the distance closure were rebound on the card (the
+    repair updates the distance closure first), rolls back: versions,
+    answers and every cache tensor (the same objects, their contents held
+    against clones) are as before."""
     from repro_torch import DeltaApplyFailed
     g = erdos_renyi(400, 1400, n_labels=3, seed=11)
     fr = fragment_graph(g, random_partition(g, 4, seed=11), 4,
@@ -909,7 +910,7 @@ def test_failed_delta_rolls_back_on_card(cuda, monkeypatch):
     def broken(*args):
         raise RuntimeError("injected")
 
-    monkeypatch.setattr(incremental, "_rank_update_tropical", broken)
+    monkeypatch.setattr(incremental, "_rank_update_bool", broken)
     monkeypatch.setattr(incremental, "changed_row_ids",
                         lambda fr, dirty: np.arange(fr.nb_active))
     mine = np.nonzero(fr.part == 0)[0]

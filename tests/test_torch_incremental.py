@@ -324,8 +324,9 @@ def _check_held(cache, held):
 @pytest.mark.parametrize("fail", ["chaos", "rank_update", "bad_delete"])
 def test_failed_delta_rolls_back(fail, monkeypatch):
     """A delta that fails after the host arrays mutated (an injected fault
-    at delta.repair, or a failure inside the rank update after the
-    frontiers were rebound), or before (a missing edge), is rolled back:
+    at delta.repair, or a failure inside the Boolean rank update after the
+    frontiers and the distance closure were rebound), or before (a missing
+    edge), is rolled back:
     arrays, bookkeeping, versions, the sharded upload memo and every cache
     tensor are as they were, and later answers are the pre-delta ones."""
     _, fr = _dynamic_case(24, 60, 4, seed=2)
@@ -349,7 +350,7 @@ def test_failed_delta_rolls_back(fail, monkeypatch):
     if fail == "rank_update":
         def broken(*args):
             raise RuntimeError("rank update failed")
-        monkeypatch.setattr(tinc, "_rank_update_tropical", broken)
+        monkeypatch.setattr(tinc, "_rank_update_bool", broken)
         monkeypatch.setattr(tinc, "changed_row_ids",
                             lambda fr, dirty: np.arange(fr.nb_active))
     if fail == "bad_delete":

@@ -14,7 +14,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from repro_torch import Dist, QueryServer, Reach, Status, connect, tracing
+from repro_torch import (Dist, GraphDelta, QueryServer, Reach, Status,
+                         connect, tracing)
 from repro_torch.core.fragments import fragment_graph, query_slots
 from repro_torch.graph import Graph, block_partition, erdos_renyi
 from repro_torch.graph import random_partition
@@ -40,6 +41,23 @@ def _recorder_off():
 def _er(n=48, m=160, k=3, seed=2):
     g = erdos_renyi(n, m, n_labels=3, seed=seed)
     return fragment_graph(g, random_partition(g, k, 1), k)
+
+
+def _reserved(n=64, m=200, k=3, seed=4):
+    """A fragmentation with headroom, so that inserted edges repair."""
+    g = erdos_renyi(n, m, n_labels=3, seed=seed)
+    return fragment_graph(g, random_partition(g, k, 1), k,
+                          reserve_boundary=16, reserve_edges=32,
+                          reserve_stubs=16)
+
+
+def _intra_deltas(fr, count, seed=3):
+    """``count`` deltas of two new edges inside fragment 0 each."""
+    rng = np.random.default_rng(seed)
+    nodes = np.nonzero(fr.part == 0)[0]
+    return [GraphDelta.insert([tuple(int(x) for x in rng.choice(nodes, 2,
+                                                                replace=False))
+                               for _ in range(2)]) for _ in range(count)]
 
 
 def _chain():
@@ -79,10 +97,11 @@ def _spans(records, name):
 MIXED = [(0, 5, "reach"), (1, 7, "dist"), (2, 9, "reach"), (3, 4, "dist")]
 
 
-@pytest.mark.parametrize("path", ["served", "oneshot"])
+@pytest.mark.parametrize("path", ["served", "oneshot", "mvcc"])
 def test_off_records_nothing_and_reads_no_clock(path, monkeypatch):
-    fr = _er()
-    server = QueryServer(fr, device="cpu", start=False, with_dist=True)
+    fr = _er() if path != "mvcc" else _reserved()
+    server = QueryServer(fr, device="cpu", start=False, with_dist=True,
+                         mvcc=path == "mvcc")
 
     def forbidden():
         raise AssertionError("a clock was read with the recorder off")
@@ -92,6 +111,11 @@ def test_off_records_nothing_and_reads_no_clock(path, monkeypatch):
         futs = [server.submit(s, t, kind=k) for s, t, k in MIXED]
         server.flush()
         assert all(f.status is Status.DONE for f in futs)
+    elif path == "mvcc":
+        futs = [server.submit_delta(d) for d in _intra_deltas(fr, 2)]
+        futs += [server.submit(s, t, kind=k) for s, t, k in MIXED]
+        server.flush()
+        assert all(f.status in (Status.APPLIED, Status.DONE) for f in futs)
     else:
         results = _oneshot(fr, [Reach(0, 5), Dist(1, 7)])
         assert all(r.status is Status.DONE for r in results)
@@ -236,6 +260,82 @@ def test_threaded_server_loses_no_record():
         [r for r in recs if r.kind == "span"])
 
 
+VERSIONS = 2
+
+
+def _committed(fr, deltas):
+    """The deltas committed through an MVCC server on the CPU, reads
+    between them; returns the delta futures and the server's store."""
+    srv = QueryServer(fr, device="cpu", start=False, with_dist=True,
+                      mvcc=True, versions=VERSIONS, batch_size=8)
+    futs = []
+    for d in deltas:
+        futs.append(srv.submit_delta(d))
+        for s, t, k in MIXED:
+            srv.submit(s, t, kind=k)
+    srv.flush()
+    srv.close()
+    return futs, srv.engine.store
+
+
+def test_repair_lane_spans_nest_under_each_commit():
+    """Each delta: one ``serve.commit`` that holds its wait, its clone,
+    its repair and its publish; the repair holds the frontiers, the row
+    diff, the two rank updates and the refresh; ``repair.rows`` is the
+    repair's changed rows, and no publish finds the store above its
+    capacity."""
+    (futs, store), recs = _traced(_committed, _reserved(),
+                                  _intra_deltas(_reserved(), 3))
+    stats = [f.result(timeout=TIMEOUT_S) for f in futs]
+    assert [s.mode for s in stats] == ["repair"] * 3
+    commits = _spans(recs, "serve.commit")
+    assert len(commits) == 3
+    ids = [c.id for c in commits]
+    by_parent = {}
+    for r in recs:
+        if r.kind == "span":
+            by_parent.setdefault(r.parent, []).append(r)
+    for commit, st in zip(commits, stats):
+        kids = sorted(r.name for r in by_parent[commit.id])
+        assert kids == ["mvcc.clone", "mvcc.publish", "repair.apply"]
+        (apply_,) = [r for r in by_parent[commit.id]
+                     if r.name == "repair.apply"]
+        assert apply_.attrs == {"kind": "repair"}
+        assert apply_.counts["repair.rows"] == st.changed_rows
+        assert apply_.counts.get("repair.launches", 0) == (
+            6 if st.changed_rows else 0)
+        assert apply_.counts.get("closure.squarings", 0) >= (
+            2 if st.changed_rows else 0)
+        inner = sorted((r.name, r.attrs.get("kind"))
+                       for r in by_parent[apply_.id])
+        want = [("repair.diff", None), ("repair.frontiers", None),
+                ("repair.refresh", None)]
+        if st.changed_rows:
+            want += [("repair.rank_update", "bool"),
+                     ("repair.rank_update", "tropical")]
+        assert inner == sorted(want)
+        for r in [apply_] + by_parent[apply_.id]:
+            assert r.serves == commit.id
+            assert commit.start_ns <= r.start_ns <= r.end_ns <= commit.end_ns
+    waits = [r for r in recs if r.kind == "wait"
+             and r.name == "serve.delta_wait"]
+    assert sorted(w.id for w in waits) == sorted(f.id for f in futs)
+    assert sorted(w.parent for w in waits) == sorted(ids)
+    assert sum(st.changed_rows for st in stats) > 0
+    clones, publishes = (_spans(recs, "mvcc.clone"),
+                         _spans(recs, "mvcc.publish"))
+    assert [p.attrs["n"] for p in publishes] == [2, 2, 2]
+    assert all(p.attrs["n"] <= VERSIONS for p in publishes)
+    assert [c.attrs["n"] for c in clones] == [2, 3, 3]
+    # beside the store's versions at most the session's own first one
+    # stays resident (an open memory cost, not a guarantee)
+    assert all(p.attrs["n"] <= p.attrs["size"] <= p.attrs["n"] + 1
+               for p in publishes)
+    assert all(c.counts["mvcc.clone_bytes"] > 0 for c in clones)
+    assert all(p.counts["mvcc.version_bytes"] > 0 for p in publishes)
+    assert store.committed == 3
+
+
 def test_enable_starts_afresh_and_drain_takes_everything():
     tracing.enable()
     with tracing.span("a"):
@@ -313,6 +413,31 @@ def _trace_cell():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def test_trace_cell_reads_the_repair_lane():
+    """The delta cell's window, cut to the CPU: its commits give the
+    repair lane's readings; the other cells' readings have none."""
+    tool = _trace_cell()
+    from bench import spec
+    from bench.tests import tiny
+    cell = tiny.shrink(spec.load_cell(ROOT, "cached.reads_deltas"))
+    run, result, recs = tool.traced_run(cell, 2 ** 31 + 13, 1.0, "cpu")
+    assert result["correct"], result["checks"]
+    assert run.deltas
+    got = tool.readings(recs, run.trace)
+    for name in ("serve.delta_wait_ms_p50", "repair.commit_ms_p50",
+                 "repair.apply_ms_p50", "repair.frontiers_ms_p50",
+                 "repair.rank_bool_ms_p50", "repair.rank_tropical_ms_p50",
+                 "repair.rows_p50", "repair.launches_p50",
+                 "repair.host_syncs_p50", "mvcc.clone_kib_p50",
+                 "mvcc.version_gib_p50"):
+        assert got[name] is not None and got[name] >= 0, name
+    versions = cell.config["server"]["versions"]
+    assert got["mvcc.live_versions_max"] == versions + 1
+    assert versions + 1 <= got["mvcc.resident_versions_max"] <= versions + 2
+    idle = tool.repair_readings([])
+    assert set(idle) < set(got) and all(v is None for v in idle.values())
 
 
 @pytest.mark.parametrize("cell,expect", [

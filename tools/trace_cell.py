@@ -38,13 +38,97 @@ def _median(xs):
     return statistics.median(xs) if xs else None
 
 
-def _per_batch(spans, batches, name):
-    """Wall ms of the ``name`` spans under each batch, summed a batch."""
+def _per_batch(spans, batches, name, kind=None):
+    """Wall ms of the ``name`` spans (of attribute ``kind``, where given)
+    under each batch or commit, summed a batch."""
     ms = {b.id: 0.0 for b in batches}
     for s in spans:
-        if s.name == name and s.serves in ms:
+        if (s.name == name and s.serves in ms
+                and (kind is None or s.attrs.get("kind") == kind)):
             ms[s.serves] += s.wall_ns / 1e6
     return list(ms.values()) if batches else []
+
+
+#: a commit's phases, in order: reading name, span name, kind
+REPAIR_PHASES = (
+    ("repair.clone_ms_p50", "mvcc.clone", None),
+    ("repair.apply_ms_p50", "repair.apply", None),
+    ("repair.frontiers_ms_p50", "repair.frontiers", None),
+    ("repair.diff_ms_p50", "repair.diff", None),
+    ("repair.rank_bool_ms_p50", "repair.rank_update", "bool"),
+    ("repair.rank_tropical_ms_p50", "repair.rank_update", "tropical"),
+    ("repair.recompute_ms_p50", "repair.recompute", None),
+    ("repair.refresh_ms_p50", "repair.refresh", None),
+    ("repair.publish_ms_p50", "mvcc.publish", None),
+)
+
+
+def repair_readings(records) -> dict:
+    """The repair lane's numbers, None where the window committed no
+    delta:
+
+    * ``serve.delta_wait_ms_p50``: median ``serve.delta_wait`` (a delta's
+      submit to the repair worker's pickup), ms;
+    * ``repair.commit_ms_p50``: median ``serve.commit`` (the whole commit:
+      clone, repair, publish, the future resolved), ms, and
+      ``repair.commit_cpu_share``, its median thread CPU over wall, %;
+    * each phase of :data:`REPAIR_PHASES`: median, a commit, of its spans
+      summed, ms (``repair.apply`` holds the frontiers, the diff, the rank
+      updates or the recompute, and the refresh);
+    * ``repair.rows_p50``: median ``repair.rows`` of each
+      ``repair.apply``; ``repair.launches_p50``: median of its
+      ``repair.launches`` and ``closure.squarings`` summed (the products
+      of a repair, on the card one launch each);
+    * ``repair.host_syncs_p50``, ``repair.upload_kib_p50``: median
+      ``host.syncs`` and ``h2d.pageable_bytes`` (KiB) of each commit;
+    * ``mvcc.live_versions_max``: the most versions the store held, the
+      clone being repaired counted in (the ``n`` of ``mvcc.clone`` and
+      ``mvcc.publish``); ``mvcc.resident_versions_max``: the most whose
+      caches were resident (their ``size``: with the session's own
+      version once the store let it go);
+    * ``mvcc.clone_kib_p50``: median ``mvcc.clone_bytes`` of a clone, KiB;
+      ``mvcc.version_gib_p50``: median ``mvcc.version_bytes`` of a
+      publish, GiB (what a version holds that its base does not).
+    """
+    spans = [r for r in records if r.kind == "span"]
+    commits = [s for s in spans if s.name == "serve.commit"
+               and s.wall_ns > 0]
+    applies = [s for s in spans if s.name == "repair.apply"]
+    sized = [s for s in spans if s.name in ("mvcc.clone", "mvcc.publish")
+             and "n" in s.attrs]
+    out = {
+        "serve.delta_wait_ms_p50": _median(
+            [r.wall_ns / 1e6 for r in records
+             if r.kind == "wait" and r.name == "serve.delta_wait"]),
+        "repair.commit_ms_p50": _median([s.wall_ns / 1e6 for s in commits]),
+        "repair.commit_cpu_share": _median(
+            [100.0 * s.cpu_ns / s.wall_ns for s in commits]),
+    }
+    for name, span, kind in REPAIR_PHASES:
+        out[name] = _median(_per_batch(spans, commits, span, kind))
+    out.update({
+        "repair.rows_p50": _median(
+            [s.counts.get("repair.rows", 0) for s in applies]),
+        "repair.launches_p50": _median(
+            [s.counts.get("repair.launches", 0)
+             + s.counts.get("closure.squarings", 0) for s in applies]),
+        "repair.host_syncs_p50": _median(
+            [s.counts.get("host.syncs", 0) for s in commits]),
+        "repair.upload_kib_p50": _median(
+            [s.counts.get("h2d.pageable_bytes", 0) / 2 ** 10
+             for s in commits]),
+        "mvcc.live_versions_max": max(
+            (s.attrs["n"] for s in sized), default=None),
+        "mvcc.resident_versions_max": max(
+            (s.attrs["size"] for s in sized), default=None),
+        "mvcc.clone_kib_p50": _median(
+            [s.counts.get("mvcc.clone_bytes", 0) / 2 ** 10 for s in spans
+             if s.name == "mvcc.clone"]),
+        "mvcc.version_gib_p50": _median(
+            [s.counts.get("mvcc.version_bytes", 0) / 2 ** 30 for s in spans
+             if s.name == "mvcc.publish"]),
+    })
+    return out
 
 
 def idle_gaps(records, trace, harness_spans=()):
@@ -70,7 +154,8 @@ def readings(records, trace=None) -> dict:
     * ``device.idle_unlabelled_share.reads``: % of the idle-gap time that
       no program span covers (needs the device trace);
     * ``oneshot.local_steps_p50``: median ``fixpoint.steps`` of each
-      ``oneshot.local_eval``.
+      ``oneshot.local_eval``;
+    * the repair lane's, where deltas committed (:func:`repair_readings`).
     """
     spans = [r for r in records if r.kind == "span"]
     batches = [s for s in spans if s.name == "serve.batch"]
@@ -95,6 +180,7 @@ def readings(records, trace=None) -> dict:
             [s.counts.get("fixpoint.steps", 0) for s in spans
              if s.name == "oneshot.local_eval"]),
     }
+    out.update(repair_readings(records))
     if trace is not None:
         gaps = idle_gaps(records, trace)
         idle = sum(sec for _, _, sec in gaps)
