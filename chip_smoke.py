@@ -57,10 +57,12 @@ non-zero and prints no result line):
              ``connect(fr, cache="none")``: 16 Reach and 16 Dist (8 bounded)
              checked against the host BFS and 4 Rpq ``(0|1)* 2`` (D is a
              6.4 GB matrix) against a product-graph BFS, each evalDG one
-             fixpoint launch with no per-step product and no copy of D or
-             W (``copies`` 0), each Reach and Dist one launch of the
-             localEval kernel (``csrc/local_eval.cu``, which writes D or W
-             in place); one query of each kind split into local stage and
+             launch (``or_and_fixpoint`` for reach, ``min_plus_settle``
+             for dist, none of ``min_plus_fixpoint``) with no per-step
+             product and no copy of D or W (``copies`` 0), each Reach and
+             Dist one launch of the localEval kernel
+             (``csrc/local_eval.cu``, which writes D or W in place); one
+             query of each kind split into local stage and
              evalDG (its steps as the kernel counts them); both entries of
              the localEval kernel held byte for byte, pads included,
              against their plain version on one query's inputs (D, W
@@ -71,10 +73,14 @@ non-zero and prints no result line):
              fixpoint launch each, no copy; both products held against
              their plain versions at evalDG's vector-matrix shape, M = 1
              (the or-and step on D as stored with every row of x set,
-             beside the tile route through D^T); and both fixpoint kernels
+             beside the tile route through D^T); both fixpoint kernels
              on the split queries, against their plain versions and timed
              beside the bytes they read (each step's new rows), the empty
-             step of the grid-barrier probe and the engine's evalDG.
+             step of the grid-barrier probe and, for reach, the engine's
+             evalDG; and the settle kernel on the split dist query,
+             unbounded and with bound 6, its state [answer, levels, rows]
+             equal to its plain version's, timed with the engine's evalDG
+             beside the bytes of the rows it read.
 6. dynamic — graph deltas at full size through ``session.apply`` on a warm
              amortized session (reserves 64 boundary slots, 256 edges and
              64 stubs): a stream that reaches repair, repair with new
@@ -250,9 +256,9 @@ The min-plus wrapper's operand copies are asserted 0 on the main,
 one-shot, dynamic and serve paths as well; the or-and wrapper's copies
 (``or_and_copies``) on the one-shot, baselines and MapReduce paths and the
 sharded one-shot functions, and its skinny launches (``or_and_skinny``) 0
-on those and on the main and dynamic paths: since the fixpoint kernels
-(``or_and_fixpoint``, ``min_plus_fixpoint``) run evalDG, no query path
-launches that route.  When the source of an earlier
+on those and on the main and dynamic paths: since ``or_and_fixpoint`` and
+``min_plus_settle`` run evalDG, no query path launches that route (nor
+``min_plus_fixpoint``, asserted 0 with them).  When the source of an earlier
 min-plus kernel is put at ``build/former/min_plus_matmul.cu``, it is
 built in the build phase and timed beside the current kernel at every
 min-plus shape (``former_ms``).
@@ -499,13 +505,13 @@ def _counted():
 
 
 def _reset_launches():
-    """Set every kernel's launch count (the or-and skinny route's and both
-    fixpoint kernels' too), and both wrappers' operand copy counts, to
-    0."""
+    """Set every kernel's launch count (the or-and skinny route's, both
+    fixpoint kernels' and the settle kernel's too), and both wrappers'
+    operand copy counts, to 0."""
     for ops in _counted().values():
         ops.launches = 0
     tops = _counted()["min_plus_matmul"]
-    tops.copies = tops.fixpoint_launches = 0
+    tops.copies = tops.fixpoint_launches = tops.settle_launches = 0
     bops = _counted()["or_and_matmul"]
     bops.skinny_launches = bops.copies = bops.fixpoint_launches = 0
     bops.floor_launches = 0
@@ -536,16 +542,20 @@ def _launches():
     """Launches by kernel since the last reset: ``or_and_skinny`` and
     ``or_and_floor`` count the or-and kernel's skinny route and its
     floor-pair kernel apart (those launches are in ``or_and_matmul`` too),
-    ``or_and_fixpoint`` and ``min_plus_fixpoint`` the two evalDG fixpoint
-    kernels (in neither product's count), and ``or_and_copies`` the or-and
-    wrapper's K-major and row copies."""
+    ``or_and_fixpoint`` and ``min_plus_settle`` evalDG's kernels for reach
+    and dist, ``min_plus_fixpoint`` the whole min-plus fixpoint (the three
+    in neither product's count; the min-plus wrapper counts its two
+    cooperative kernels together, and the settle kernel apart too), and
+    ``or_and_copies`` the or-and wrapper's K-major and row copies."""
     counts = {name: ops.launches for name, ops in _counted().items()}
     bops = _counted()["or_and_matmul"]
+    tops = _counted()["min_plus_matmul"]
     counts["or_and_skinny"] = bops.skinny_launches
     counts["or_and_floor"] = bops.floor_launches
     counts["or_and_fixpoint"] = bops.fixpoint_launches
-    counts["min_plus_fixpoint"] = \
-        _counted()["min_plus_matmul"].fixpoint_launches
+    counts["min_plus_settle"] = tops.settle_launches
+    counts["min_plus_fixpoint"] = (tops.fixpoint_launches
+                                   - tops.settle_launches)
     counts["or_and_copies"] = bops.copies
     return counts
 
@@ -564,9 +574,9 @@ class _EvalDGCalls:
             self.reach += 1
             return self._orig[0](*args)
 
-        def dist_(*args):
+        def dist_(*args, **kw):
             self.dist += 1
-            return self._orig[1](*args)
+            return self._orig[1](*args, **kw)
 
         engine.evaldg_reach, engine.evaldg_dist = reach, dist_
         return self
@@ -579,17 +589,21 @@ class _EvalDGCalls:
 
 def _assert_one_fixpoint_each(what: str, launches: dict, calls,
                               local: int) -> None:
-    """Each evalDG of a path was one fixpoint launch, with no per-step
-    product launched and no operand copied (either wrapper), and the path
-    made ``local`` launches of the localEval kernel: one for each one-shot
-    Reach or Dist it evaluated."""
+    """Each evalDG of a path was one launch, ``or_and_fixpoint`` for reach
+    and ``min_plus_settle`` for dist, with no ``min_plus_fixpoint`` and no
+    per-step product launched and no operand copied (either wrapper), and
+    the path made ``local`` launches of the localEval kernel: one for each
+    one-shot Reach or Dist it evaluated."""
     if launches["local_eval"] != local:
         raise AssertionError(f"{what}: {launches['local_eval']} localEval "
                              f"launches, expected {local}")
-    got = (launches["or_and_fixpoint"], launches["min_plus_fixpoint"])
-    if got != (calls.reach, calls.dist) or calls.reach + calls.dist == 0:
+    got = (launches["or_and_fixpoint"], launches["min_plus_settle"],
+           launches["min_plus_fixpoint"])
+    if (got != (calls.reach, calls.dist, 0)
+            or calls.reach + calls.dist == 0):
         raise AssertionError(f"{what}: {calls.reach} reach and {calls.dist} "
-                             f"dist evalDGs made fixpoint launches {got}")
+                             f"dist evalDGs made (or-and fixpoint, settle, "
+                             f"min-plus fixpoint) launches {got}")
     if any(launches[k] for k in ("or_and_matmul", "or_and_skinny",
                                  "min_plus_matmul", "bitpack_matmul")):
         raise AssertionError(f"{what}: evalDG launched per-step products: "
@@ -1578,8 +1592,9 @@ def _split_one_shot(fr, s, t, kind, qa=None):
     CUDA events around its stages: the local stage (the allocation of D or
     W in padded storage and localEval's one launch, which writes every row
     into it; for RPQ the product's row block and its assembly) and evalDG
-    (one fixpoint launch, its steps as the kernel counted them), which
-    reads D as it is stored.  Returns the split, the answer, D and the
+    (one fixpoint launch, its steps as the kernel counted them; for dist
+    the settle kernel's levels and rows read), which reads D as it is
+    stored.  Returns the split, the answer, D and the
     source rows."""
     import torch
     from repro_torch.core import engine, session as S
@@ -1609,8 +1624,9 @@ def _split_one_shot(fr, s, t, kind, qa=None):
             n_max=fr.n_max, B=fr.B, side=fr.B * Q)
     src = S._src_rows(fr, dev, Q, start)
     tgt = S._tgt_cols(fr, t, dev, Q, final)
-    # the fixpoint's (x or d, steps), kept as the engine gets them
-    name = "min_plus_fixpoint" if kind == "dist" else "or_and_fixpoint"
+    # the fixpoint's (x, steps), or the settle kernel's [answer, levels,
+    # rows], kept as the engine gets them
+    name = "min_plus_settle" if kind == "dist" else "or_and_fixpoint"
     orig, kept = getattr(engine, name), {}
 
     def keep(*args):
@@ -1630,6 +1646,8 @@ def _split_one_shot(fr, s, t, kind, qa=None):
     split = clock.ms()
     split["steps"] = steps = int(kept["result"][1])
     split["ms_per_step"] = split["evaldg"] / max(steps, 1)
+    if kind == "dist":
+        split["rows"] = int(kept["result"][2])
     return split, ans, D, src, tgt
 
 
@@ -1737,11 +1755,13 @@ def _barrier_ms_per_step(blocks: int) -> float:
 
 def _evaldg_timed(name, kind, D, src, tgt, want, reps=3) -> dict:
     """The whole evalDG fixpoint of a checked query (its answer ``want``)
-    on the card: the fixpoint kernel alone (its wrapper) and the engine's
-    ``evaldg_reach`` / ``evaldg_dist`` around it (the answer read back),
-    CUDA events around ``reps`` runs each, and the plain version (a host
-    loop of one product and one sync a step) once; x or d and the steps
-    held equal to the plain version's.  A host loop of the per-step product
+    on the card: the fixpoint kernel alone (its wrapper) and, for reach,
+    the engine's ``evaldg_reach`` around it (the answer read back), CUDA
+    events around ``reps`` runs each, and the plain version (a host loop of
+    one product and one sync a step) once; x or d and the steps held equal
+    to the plain version's.  For dist the engine runs the settle kernel
+    instead (:func:`_settle_timed`), so the answer is the least d over the
+    targets.  A host loop of the per-step product
     counts each step's new rows |Delta_t|, the rows that ever enter Delta
     and each step's frontier.  The bound is the bytes the fixpoint must
     read: each row that ever enters Delta once (for dist, each row whose
@@ -1771,7 +1791,7 @@ def _evaldg_timed(name, kind, D, src, tgt, want, reps=3) -> dict:
         a0 = torch.full((K,), engine.INF, dtype=torch.int32, device=D.device)
         a0.masked_fill_(src, 0)
         fix, ref = tops.min_plus_fixpoint, tops.min_plus_fixpoint_ref
-        evaldg, step = engine.evaldg_dist, min_plus_matmul
+        evaldg, step = None, min_plus_matmul
         grew = lambda nxt, cur: nxt < cur
         held = lambda cur: cur < engine.INF
     delta, frontier = [], []
@@ -1788,9 +1808,16 @@ def _evaldg_timed(name, kind, D, src, tgt, want, reps=3) -> dict:
         prev, cur = cur, nxt
     before = ops.fixpoint_launches
     ms, (got, steps) = cuda_timed(lambda: fix(a0, D), reps)
-    evaldg_ms, ans = cuda_timed(lambda: evaldg(D, src, tgt), reps)
-    if ops.fixpoint_launches - before != 2 * (reps + 1):
+    if ops.fixpoint_launches - before != reps + 1:
         raise AssertionError(f"{name}: not one fixpoint launch a call")
+    if evaldg is None:
+        evaldg_ms, ans = None, int(torch.where(tgt, got, engine.INF).min())
+    else:
+        before = ops.fixpoint_launches
+        evaldg_ms, ans = cuda_timed(lambda: evaldg(D, src, tgt), reps)
+        if ops.fixpoint_launches - before != reps + 1:
+            raise AssertionError(f"{name}: not one fixpoint launch an "
+                                 "evalDG")
     plain_ms, (want_x, want_steps) = cuda_timed(lambda: ref(a0, D), 1,
                                                 warmup=False)
     _check_equal(f"{name} fixpoint", got, want_x)
@@ -1810,8 +1837,9 @@ def _evaldg_timed(name, kind, D, src, tgt, want, reps=3) -> dict:
     old_bytes = sum(r * N + 2 * N for r in frontier) * elem
     old_bound_ms = old_bytes / HBM_BYTES_PER_S * 1e3
     floor_ms = barrier * len(delta)
-    print(f"time {name} fixpoint: kernel {ms:.4f} ms, evaldg {evaldg_ms:.4f}"
-          f" ms, plain {plain_ms:.3f} ms, in {len(delta)} steps (new rows "
+    around = "" if evaldg_ms is None else f", evaldg {evaldg_ms:.4f} ms"
+    print(f"time {name} fixpoint: kernel {ms:.4f} ms{around}, plain "
+          f"{plain_ms:.3f} ms, in {len(delta)} steps (new rows "
           f"{delta}); bound {bound_ms:.4f} ms ({distinct} rows read once, "
           f"bytes {nbytes}, {100 * bound_ms / ms:.2f} %); a row each time "
           f"it enters Delta ({sum(delta)} rows) {entry_bound_ms:.4f} ms "
@@ -1826,6 +1854,64 @@ def _evaldg_timed(name, kind, D, src, tgt, want, reps=3) -> dict:
             "frontier_bound_ms": old_bound_ms, "blocks": blocks,
             "barrier_ms_per_step": barrier, "barrier_floor_ms": floor_ms,
             "max_abs_err": 0.0, "shape": f"[{K}], [{K},{N}]"}
+
+
+def _settle_timed(W, src, tgt, want, reps=3) -> dict:
+    """evalDG's dist kernel, ``min_plus_settle``, on a checked dist query's
+    W, sources and targets (its answer ``want``) on the card, unbounded
+    (``dist``) and with bound 6 (``bounded``): the kernel alone (its
+    wrapper) and the engine's ``evaldg_dist`` around it (the state read
+    back), CUDA events around ``reps`` runs each, each call one launch
+    counted as the settle kernel's and none as the min-plus fixpoint's; and
+    the plain version ``min_plus_settle_ref`` (the same schedule in
+    PyTorch, a host sync a level) once, whose whole state [answer, levels,
+    rows] the kernel's must equal.  The bound is the bytes of the rows it
+    read: rows x W's row pitch in bytes."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    B = W.shape[0]
+    d0 = torch.full((B,), engine.INF, dtype=torch.int32, device=W.device)
+    d0.masked_fill_(src, 0)
+    pitch_bytes = W.stride(0) * W.element_size()
+    res = {}
+    for kind, bound in (("dist", None), ("bounded", 6)):
+        expect = want if bound is None or want <= bound else engine.INF
+        before = (tops.fixpoint_launches, tops.settle_launches)
+        ms, got = cuda_timed(
+            lambda b=bound: tops.min_plus_settle(d0, W, tgt, b), reps)
+        evaldg_ms, ans = cuda_timed(
+            lambda b=bound: engine.evaldg_dist(W, src, tgt, bound=b), reps)
+        n = 2 * (reps + 1)
+        if (tops.fixpoint_launches - before[0],
+                tops.settle_launches - before[1]) != (n, n):
+            raise AssertionError(f"min_plus_settle {kind}: not one settle "
+                                 "launch a call")
+        plain_ms, want_state = cuda_timed(
+            lambda b=bound: tops.min_plus_settle_ref(d0, W, tgt, b), 1,
+            warmup=False)
+        _check_equal(f"min_plus_settle {kind} state", got, want_state)
+        answer, levels, rows = got.tolist()
+        if answer != expect or ans != expect:
+            raise AssertionError(f"min_plus_settle {kind}: kernel {answer}, "
+                                 f"evaldg {ans}, expected {expect}")
+        nbytes = rows * pitch_bytes
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        res[kind] = {"ms": ms, "evaldg_ms": evaldg_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bytes": nbytes,
+                     "share": bound_ms / ms, "answer": answer,
+                     "levels": levels, "rows": rows}
+        print(f"time min_plus_settle {kind}: kernel {ms:.4f} ms, evaldg "
+              f"{evaldg_ms:.4f} ms, plain {plain_ms:.3f} ms; answer {answer}"
+              f" in {levels} levels, {rows} of {B} rows read; bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes, {100 * bound_ms / ms:.1f}"
+              f" %); state equal to the plain version's")
+    blocks = tops._card_settle_route(W.device.index or 0, B).blocks
+    res.update({"ms": res["dist"]["ms"], "plain_ms": res["dist"]["plain_ms"],
+                "bound_ms": res["dist"]["bound_ms"], "bound_by": "bytes",
+                "blocks": blocks, "max_abs_err": 0.0,
+                "shape": f"[{B}], [{B},{B}] (pitch {pitch_bytes} bytes)"})
+    return res
 
 
 def _dense_step(name, D, reps=20) -> dict:
@@ -1906,11 +1992,11 @@ def _rpq_pairs(g, qa, rng, count: int) -> np.ndarray:
 def phase_oneshot(out: dict, g, fr) -> None:
     """``connect(fr, cache="none")`` at full size: 16 Reach and 16 Dist (8
     bounded) and 4 Rpq, each a one-shot evaluation, checked against the
-    host BFS, each evalDG one fixpoint launch; the per-query split; the
-    two single-query sharded functions on the one-rank NCCL group; both
+    host BFS, each evalDG one launch; the per-query split; the two
+    single-query sharded functions on the one-rank NCCL group; both
     kernels at evalDG's vector-matrix shape, M = 1, held against their
-    plain versions; and both fixpoint kernels on the split queries, timed
-    against the bytes they read."""
+    plain versions; and both fixpoint kernels and the settle kernel on the
+    split queries, timed against the bytes they read."""
     import torch
     import repro_torch
     from repro_torch import Rpq
@@ -2059,7 +2145,8 @@ def phase_oneshot(out: dict, g, fr) -> None:
     fixpoints = {"or_and_fixpoint": _evaldg_timed(
                      "evaldg_reach", "reach", D, src, tgt, ans),
                  "min_plus_fixpoint": _evaldg_timed(
-                     "evaldg_dist", "dist", W, srcd, tgtd, ans_d)}
+                     "min_plus", "dist", W, srcd, tgtd, ans_d),
+                 "min_plus_settle": _settle_timed(W, srcd, tgtd, ans_d)}
     del D, W
     torch.cuda.empty_cache()
     # the or-and kernel's second route has a source of its own; since the
@@ -2077,8 +2164,9 @@ def phase_oneshot(out: dict, g, fr) -> None:
          "tile_route_ms": step["tile_ms"],
          **out["build"]["or_and_skinny"]})
     # the two fixpoint kernels: their launches are the one-shot run's (one
-    # for each Reach, one for each Dist); no one PyTorch call computes a
-    # fixpoint, so no library time
+    # for each Reach; none of min_plus_fixpoint, which no path runs since
+    # the settle kernel took evalDG's dist over); no one PyTorch call
+    # computes a fixpoint, so no library time
     for name, source, replaces in (
             ("or_and_fixpoint", "bool_matmul/csrc/or_and_skinny.cu",
              "bool_matmul/bool_matmul.py:42"),
@@ -2095,6 +2183,22 @@ def phase_oneshot(out: dict, g, fr) -> None:
              "bound_by": fx["bound_by"], "library_ms": None,
              "shape": fx["shape"] + f", {fx['steps']} steps",
              "fixpoint": fx})
+    # the settle kernel: one launch for each one-shot Dist; ms, plain and
+    # bound of the unbounded split query (the bounded one under by_kind)
+    st = fixpoints["min_plus_settle"]
+    out["kernels"].append(
+        {"name": "min_plus_settle", "route": "cuda",
+         "source": "src/repro_torch/kernels/tropical_matmul/csrc/"
+                   "min_plus_matmul.cu",
+         "replaces": "src/repro/kernels/tropical_matmul/"
+                     "tropical_matmul.py:51",
+         "launches": launches["min_plus_settle"], "launches_path": "oneshot",
+         "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+         "bound_by": st["bound_by"], "library_ms": None,
+         "shape": st["shape"] + f", {st['dist']['rows']} rows read",
+         "by_kind": {k: st[k] for k in ("dist", "bounded")},
+         "blocks": st["blocks"]})
     # the localEval kernel: one launch for each one-shot Reach and Dist
     # (asserted on each path); it replaces no TPU kernel (the JAX package's
     # localEval is jnp gather and scatter), and no one PyTorch call
@@ -5504,6 +5608,8 @@ def _main(dry: list) -> int:
         if name == "min_plus_matmul":
             k["fixpoint_launches"] = {p: n["min_plus_fixpoint"]
                                       for p, n in paths.items()}
+            k["settle_launches"] = {p: n["min_plus_settle"]
+                                    for p, n in paths.items()}
             shapes = {s["path"]: s for s in k["new_shapes"]}
             k["skinny_ms"] = shapes["evaldg_dist step"]["ms"]
             k["p_ms"] = shapes["rank update P"]["ms"]

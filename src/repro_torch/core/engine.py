@@ -1,10 +1,11 @@
 """Partial-evaluation engine: localEval and evalDG in PyTorch.
 
 The paper's localEval (Sections 3-5) as batched frontier propagation over
-each fragment's padded edge list, and its evalDG as a single-source
-fixpoint on the assembled dependency matrix, on the card one launch of a
-hand-written kernel (or-and or min-plus) that runs every step on the
-device and reads nothing back, as the reference's ``while_loop`` does.
+each fragment's padded edge list, and its evalDG as a single-source search
+on the assembled dependency matrix, on the card one launch of a
+hand-written kernel (the or-and fixpoint; for distances the min-plus search
+by levels, which stops at the answer) that runs every step on the device
+and reads nothing back, as the reference's ``while_loop`` does.
 Every localEval function takes the fragment axis
 written out as the leading dimension (one row per fragment, or one row per
 query with that query's fragment gathered in), so one ``gather`` and one
@@ -36,7 +37,7 @@ from .. import tracing
 from ..kernels.bool_matmul.ops import or_and_fixpoint, padded_zeros
 from ..kernels.local_eval import (check_args, local_eval_dist_into,
                                   local_eval_reach_into)
-from ..kernels.tropical_matmul.ops import min_plus_fixpoint
+from ..kernels.tropical_matmul.ops import min_plus_settle
 
 INF = 1 << 29          # with int32 tensors; INF + INF still fits in int32
 
@@ -403,24 +404,29 @@ def evaldg_reach(D, src_rows, tgt_cols) -> bool:
     return bool((x & tgt_cols).any())
 
 
-def evaldg_dist(W, src_rows, tgt_cols) -> int:
-    """Single-source tropical fixpoint on W [B, B] int32 (Bellman-Ford on
-    the dependency graph: the paper uses Dijkstra, Bellman-Ford is its
-    matrix form): d := min(d, d (min-plus) W) until nothing changes.
-    Returns the least distance onto ``tgt_cols`` (INF if none is reached).
+def evaldg_dist(W, src_rows, tgt_cols, bound=None) -> int:
+    """Single-source distances on W [B, B] int32 from ``src_rows``, as the
+    paper's Dijkstra on the dependency graph: returns the least distance
+    onto ``tgt_cols`` (bool masks [B]), INF if none is reached or it is
+    above ``bound`` (None: no bound).  The answer is that of the tropical
+    fixpoint d := min(d, d (min-plus) W), Dijkstra's matrix form.
 
-    The fixpoint is :func:`~repro_torch.kernels.tropical_matmul.ops.
-    min_plus_fixpoint`: on the card one launch whose steps each read only
-    the rows of W whose distance fell in the step before, on W as it is
-    stored (the paths make it in padded storage,
-    :func:`~repro_torch.kernels.tropical_matmul.ops.padded_i32`).  The
-    answer is read back once, at the end."""
+    The search is :func:`~repro_torch.kernels.tropical_matmul.ops.
+    min_plus_settle`: on the card one launch that settles the rows of W in
+    order of distance, each read once, and stops once the answer is fixed
+    or the bound is passed, on W as it is stored (the paths make it in
+    padded storage, :func:`~repro_torch.kernels.tropical_matmul.ops.
+    padded_i32`).  The answer, the levels settled (``evaldg.levels``) and
+    the rows of W read (``evaldg.rows``) are read back once, at the end."""
     d0 = torch.full((W.shape[0],), INF, dtype=torch.int32, device=W.device)
     d0.masked_fill_(src_rows, 0)
     with FIXPOINT:
-        d, _ = min_plus_fixpoint(d0, W)
+        state = min_plus_settle(d0, W, tgt_cols, bound)
     tracing.count("host.syncs")
-    return int(torch.where(tgt_cols, d, INF).min())
+    answer, levels, rows = state.tolist()
+    tracing.count("evaldg.levels", levels)
+    tracing.count("evaldg.rows", rows)
+    return answer
 
 
 # ---------------------------------------------------------------------------

@@ -550,7 +550,7 @@ def exec_dist(fr: Fragmentation, s: int, t: int,
     """disDist (paper Sec. 4): bounded reachability q_br(s, t, l), with the
     local propagations capped at the bound; with ``bound=None`` the exact
     dist(s, t) (unreachable: distance None).  evalDG runs through the
-    min-plus kernel."""
+    min-plus settle kernel, which stops at t or past the bound."""
     if s == t:
         ok = bound is None or 0 <= bound
         return QueryResult(ok, 0, QueryStats(0, 0, fr.B, 1))
@@ -560,9 +560,9 @@ def exec_dist(fr: Fragmentation, s: int, t: int,
         with tracing.span("oneshot.inputs"):
             arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
         with tracing.span("oneshot.assemble"):
-            # padded storage (rows 16 bytes apart): evalDG's fixpoint
-            # reads W as it is, without a copy; the local stage writes
-            # every row, pads included
+            # padded storage (rows 16 bytes apart): evalDG's settle
+            # kernel reads W as it is, without a copy; the local stage
+            # writes every row, pads included
             W = padded_i32(fr.B, fr.B, dev)
         with tracing.span("oneshot.local_eval"):
             engine.local_eval_dist(
@@ -571,7 +571,7 @@ def exec_dist(fr: Fragmentation, s: int, t: int,
                 n_max=fr.n_max, B=fr.B, out=W)
         with tracing.span("oneshot.evaldg"):
             d = engine.evaldg_dist(W, _src_rows(fr, dev),
-                                   _tgt_cols(fr, t, dev))
+                                   _tgt_cols(fr, t, dev), bound=bound)
     reachable = d < INF
     answer = reachable if bound is None else (reachable and d <= bound)
     stats = QueryStats(payload_bits=fr.traffic_bits("dist"),

@@ -5,6 +5,8 @@
 a wrapper in ``ops.py`` that picks one by the device of its operands and
 counts the kernel's launches.  Each also runs evalDG's whole fixpoint over
 its semiring in one cooperative launch (``or_and_fixpoint``,
-``min_plus_fixpoint``), on device code shared through ``fixpoint.cuh``.
+``min_plus_fixpoint``), on device code shared through ``fixpoint.cuh``;
+``tropical_matmul`` also finds evalDG's dist answer by distance levels in
+one (``min_plus_settle``), the launch the engine runs.
 ``_build`` compiles and loads the kernels.
 """

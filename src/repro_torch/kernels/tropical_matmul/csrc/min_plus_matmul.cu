@@ -53,7 +53,9 @@
 // result is deterministic, and a product is still one launch.
 //
 // Fixpoint (min_plus_fixpoint), evalDG's whole Bellman-Ford loop in one
-// cooperative launch; its own comment is at the kernel below.
+// cooperative launch, and settle (min_plus_settle), evalDG's answer by
+// levels in one cooperative launch; their own comments are at the kernels
+// below.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -416,6 +418,95 @@ __device__ __forceinline__ void append_lanes(uint32_t fell, long long g,
     rows[pos++] = static_cast<int>(g * FX_CW + __ffs(m) - 1);
 }
 
+// Step 1 of both kernels: mins the listed rows rows[0, n) of W, each plus
+// its d[k], into acc where they undercut d, over (row range x strip)
+// items.  A chunk of a range's rows and their d[k] are staged in ks and kd
+// (FX_THREADS each).  With kAtLevel, only the listed rows whose d[k] is
+// `level` are staged, packed by a ballot a warp (warp totals in wsum), so
+// that a stale entry of a list costs its d but not its row.  Returns the
+// rows this block read in the items of strip 0, so that a grid's sum
+// counts each row once.
+template <bool kAtLevel>
+__device__ __forceinline__ int relax_rows(const int* __restrict__ w, int ldw,
+                                          const int* d, int* acc,
+                                          const int* rows, int n, int N,
+                                          int strips, int level, int* ks,
+                                          int* kd, int* wsum) {
+  const int t = threadIdx.x;
+  const int4 inf4 = make_int4(INF, INF, INF, INF);
+  const fixpoint::Split sp = fixpoint::split_rows(n, strips);
+  const int items = sp.groups * strips;
+  int read = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int col = (item % strips) * FX_STRIP + t * FX_CW;
+    const int r0 = (item / strips) * sp.per;
+    const int r1 = min(n, r0 + sp.per);
+    const bool live = col < N;
+    const int4* wcol = reinterpret_cast<const int4*>(w + (live ? col : 0));
+    int c[FX_CW] = {INF, INF, INF, INF};
+    for (int c0 = r0; c0 < r1; c0 += FX_THREADS) {
+      int m = min(FX_THREADS, r1 - c0);
+      __syncthreads();                    // the last chunk is read
+      if constexpr (kAtLevel) {
+        int k = 0, dk = INF;
+        if (t < m) {
+          k = __ldcg(rows + c0 + t);
+          dk = __ldcg(d + k);
+        }
+        const bool keep = dk == level;
+        const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
+        const int warp = t >> 5;
+        if ((t & 31) == 0) wsum[warp] = __popc(ballot);
+        __syncthreads();
+        int pos = __popc(ballot & ((1u << (t & 31)) - 1u));
+        m = 0;
+#pragma unroll
+        for (int q = 0; q < FX_THREADS / 32; ++q) {
+          const int got = wsum[q];
+          if (q < warp) pos += got;
+          m += got;
+        }
+        if (keep) {
+          ks[pos] = k;
+          kd[pos] = dk;
+        }
+      } else if (t < m) {
+        const int k = __ldcg(rows + c0 + t);
+        ks[t] = k;
+        kd[t] = __ldcg(d + k);
+      }
+      __syncthreads();
+      if (item % strips == 0) read += m;
+      if (!live) continue;
+      for (int j = 0; j < m; j += FX_U) {
+        int4 v[FX_U];
+#pragma unroll
+        for (int u = 0; u < FX_U; ++u)
+          v[u] = j + u < m
+                     ? __ldg(wcol + static_cast<size_t>(ks[j + u]) * ldw /
+                                        FX_CW)
+                     : inf4;
+#pragma unroll
+        for (int u = 0; u < FX_U; ++u) {
+          const int dk = j + u < m ? kd[j + u] : INF;
+          c[0] = dpx(dk, v[u].x, c[0]);
+          c[1] = dpx(dk, v[u].y, c[1]);
+          c[2] = dpx(dk, v[u].z, c[2]);
+          c[3] = dpx(dk, v[u].w, c[3]);
+        }
+      }
+    }
+    if (live) {
+      const int4 dv = __ldcg(reinterpret_cast<const int4*>(d + col));
+#pragma unroll
+      for (int i = 0; i < FX_CW; ++i)
+        // lanes past N may have summed pad entries of W: never merged
+        if (col + i < N && c[i] < lane(dv, i)) atomicMin(acc + col + i, c[i]);
+    }
+  }
+  return read;
+}
+
 __global__ void __launch_bounds__(FX_THREADS)
 min_plus_fixpoint_kernel(const int* __restrict__ d0, int ldd0,
                          const int* __restrict__ w, int ldw, int* d,
@@ -461,52 +552,8 @@ min_plus_fixpoint_kernel(const int* __restrict__ d0, int ldd0,
 
     // 1. min the listed rows, each plus its d_t[k], into acc where they
     // undercut d_t
-    const fixpoint::Split sp = fixpoint::split_rows(n, strips);
-    const int items = sp.groups * strips;
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const int col = (item % strips) * FX_STRIP + t * FX_CW;
-      const int r0 = (item / strips) * sp.per;
-      const int r1 = min(n, r0 + sp.per);
-      const bool live = col < N;
-      const int4* wcol = reinterpret_cast<const int4*>(w + (live ? col : 0));
-      int c[FX_CW] = {INF, INF, INF, INF};
-      for (int c0 = r0; c0 < r1; c0 += FX_THREADS) {
-        const int m = min(FX_THREADS, r1 - c0);
-        __syncthreads();                  // the last chunk is read
-        if (t < m) {
-          const int k = __ldcg(rows + c0 + t);
-          ks[t] = k;
-          kd[t] = __ldcg(d + k);
-        }
-        __syncthreads();
-        if (!live) continue;
-        for (int j = 0; j < m; j += FX_U) {
-          int4 v[FX_U];
-#pragma unroll
-          for (int u = 0; u < FX_U; ++u)
-            v[u] = j + u < m
-                       ? __ldg(wcol + static_cast<size_t>(ks[j + u]) * ldw /
-                                          FX_CW)
-                       : inf4;
-#pragma unroll
-          for (int u = 0; u < FX_U; ++u) {
-            const int dk = j + u < m ? kd[j + u] : INF;
-            c[0] = dpx(dk, v[u].x, c[0]);
-            c[1] = dpx(dk, v[u].y, c[1]);
-            c[2] = dpx(dk, v[u].z, c[2]);
-            c[3] = dpx(dk, v[u].w, c[3]);
-          }
-        }
-      }
-      if (live) {
-        const int4 dv = __ldcg(reinterpret_cast<const int4*>(d + col));
-#pragma unroll
-        for (int i = 0; i < FX_CW; ++i)
-          // lanes past N may have summed pad entries of W: never merged
-          if (col + i < N && c[i] < lane(dv, i))
-            atomicMin(acc + col + i, c[i]);
-      }
-    }
+    relax_rows<false>(w, ldw, d, acc, rows, n, N, strips, 0, ks, kd,
+                      nullptr);
     fixpoint::grid_barrier();
 
     // 3. fold acc into d and list the columns that fell
@@ -534,6 +581,203 @@ min_plus_fixpoint_kernel(const int* __restrict__ d0, int ldd0,
     fixpoint::grid_barrier();
   }
   if (blockIdx.x == 0 && t == 0) state[0] = step;
+}
+
+// ---------------------------------------------------------------------------
+// evalDG's answer by levels (min_plus_settle)
+// ---------------------------------------------------------------------------
+//
+// A dist or bounded query wants one number of the fixpoint: the least d over
+// the target columns, and a bounded one only whether it is at most the bound.
+// min_plus_settle finds it as Dijkstra's algorithm does with integer buckets
+// (Dial's): it settles d level by level, L the least finite d, then the next
+// least, and so on, reads each row of W once, at the level of its final
+// distance, and stops as soon as the answer is fixed.
+//
+// Why it is exact.  Entries of W lie in [0, INF], so a row expanded at level
+// L lowers d only to L or more.  Once every row whose d is below L has been
+// expanded, and the rows that fall to L (zero entries of W) have been
+// expanded in turn until none falls, no expansion can lower a d below the
+// least d left above L: that least value is final, and it is the next
+// level.  tmin, the least d over the targets, only falls; once it is at most
+// the next level it is final, and once the next level passes the bound no
+// target can end at or below the bound unless tmin already is.  The answer is
+// tmin where it is at most the bound, else INF: the plain fixpoint's least
+// target distance, INF above the bound.  Min is order-free, and the lists
+// below are sets, so the answer, the levels and the rows read are the same in
+// every run.
+//
+// What bounds it: bytes, 4 B per entry of each row of W whose final distance
+// lies below the level at which it stops, each read once; plus, a round, a
+// pass over d and acc and two grid barriers.
+//
+// Schedule.  Rounds of an expand, a grid barrier, a fold and a grid barrier,
+// over three lists whose roles rotate: E, the rows the round expands; Z, the
+// columns that fell to L in the round, which the next round expands at the
+// same level; X, the columns whose d is T = L + 1, gathered over a level's
+// rounds for the next level.  The expand is min_plus_fixpoint's step 1
+// (relax_rows), reading only the listed rows whose d is L, so that a stale
+// entry costs no row.  The fold folds acc into d over the whole vector and
+// lists into Z the columns that fell to L, into X those whose d is T (every
+// one in a level's first round, those that fell to T after), and keeps the
+// least d at or above T (the next level) and tmin.  After the round, Z not
+// empty: another round at L.  Else, where the next level is T, the round
+// after expands X; where it lies beyond, a round with nothing to expand (a
+// scan) lists the columns whose d is the next level.  The pass that copies
+// d0 into d is the first scan, for level 0.  Every block takes the decision
+// after a barrier, from values no block writes before the next one, so all
+// take it alike, and a level is counted only where some row's d is it.
+
+// state: [0] the answer, [1] the levels expanded, [2] the rows of W read;
+// [3, 6) the three lists' lengths; [6, 8) the next level, by the parity of
+// the round that wrote it, and [8] tmin, both kept as INF - value,
+// so that the zeroed state starts them at INF and atomicMax takes the least
+constexpr int ST_ANSWER = 0, ST_LEVELS = 1, ST_ROWS = 2, ST_COUNT = 3,
+              ST_NEXT = 6, ST_TMIN = 8;
+
+// Lowers the least value kept at *slot (as INF - value) to the least v of
+// the warp.  Every lane of the warp calls it.
+__device__ __forceinline__ void warp_min_into(int* slot, int v) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0 && v < INF) atomicMax(slot, INF - v);
+}
+
+// One pass over the vector, 4 columns a thread.  kInit: d = d0 with INF pads
+// and acc = INF, every column taken as fallen.  Else: d = min(d, acc) and
+// acc = INF where acc is below d.  Then the columns that fell to L go to Z,
+// those whose d is T (fallen, or any where `all`) to X, the least d at or
+// above T to *next and the least fallen target d to *tmin.
+template <bool kInit>
+__device__ __forceinline__ void settle_pass(
+    const int* __restrict__ d0, int ldd0, const unsigned char* __restrict__ tgt,
+    int* d, int* acc, int N, int L, int T, bool all, int* zc, int* zl, int* xc,
+    int* xl, int* next, int* tmin) {
+  const int wl = threadIdx.x & 31;
+  const long long groups = (N + FX_CW - 1) / FX_CW;
+  const long long stride = static_cast<long long>(gridDim.x) * FX_THREADS;
+  const long long start =
+      static_cast<long long>(blockIdx.x) * FX_THREADS + (threadIdx.x - wl);
+  int4* d4 = reinterpret_cast<int4*>(d);
+  int4* acc4 = reinterpret_cast<int4*>(acc);
+  const int4 inf4 = make_int4(INF, INF, INF, INF);
+  int pmin = INF, tm = INF;
+  for (long long base = start; base < groups; base += stride) {
+    const long long g = base + wl;      // warp-uniform loop
+    uint32_t zb = 0u, xb = 0u;
+    if (g < groups) {
+      int nd[FX_CW];
+      uint32_t fell = 0u;
+      if (kInit) {
+#pragma unroll
+        for (int i = 0; i < FX_CW; ++i) {
+          const long long col = g * FX_CW + i;
+          nd[i] = col < N ? min(d0[col * ldd0], INF) : INF;
+        }
+        fell = (1u << FX_CW) - 1u;
+        d4[g] = make_int4(nd[0], nd[1], nd[2], nd[3]);
+        acc4[g] = inf4;
+      } else {
+        const int4 av = __ldcg(acc4 + g);
+        const int4 dv = __ldcg(d4 + g);
+#pragma unroll
+        for (int i = 0; i < FX_CW; ++i) {
+          const int a = lane(av, i), o = lane(dv, i);
+          nd[i] = min(a, o);
+          if (a < o) fell |= 1u << i;
+        }
+        if (fell) {
+          acc4[g] = inf4;
+          d4[g] = make_int4(nd[0], nd[1], nd[2], nd[3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < FX_CW; ++i) {
+        const long long col = g * FX_CW + i;
+        const bool fl = (fell >> i) & 1u;
+        if (col >= N) continue;
+        if (!kInit && fl && nd[i] == L) zb |= 1u << i;
+        if (nd[i] == T && (all || fl)) xb |= 1u << i;
+        if (nd[i] >= T && nd[i] < pmin) pmin = nd[i];
+        if (fl && nd[i] < tm && __ldg(tgt + col)) tm = nd[i];
+      }
+    }
+    if (!kInit) append_lanes(zb, g, zc, zl);
+    append_lanes(xb, g, xc, xl);
+  }
+  warp_min_into(next, pmin);
+  warp_min_into(tmin, tm);
+}
+
+__global__ void __launch_bounds__(FX_THREADS)
+min_plus_settle_kernel(const int* __restrict__ d0, int ldd0,
+                       const int* __restrict__ w, int ldw,
+                       const unsigned char* __restrict__ tgt, int bound,
+                       int* d, int* acc, int* lists, int* state, int N,
+                       int strips) {
+  __shared__ int ks[FX_THREADS];          // a chunk of a range's rows
+  __shared__ int kd[FX_THREADS];          // and their d[k]
+  __shared__ int wsum[FX_THREADS / 32];   // rows at the level, a warp
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  int* count = state + ST_COUNT;
+  int e = 2, z = 1, x = 0;                // the lists' roles
+  int L = -1, T = 0, levels = 0, read = 0, answer = INF;
+  bool all = true;
+
+  settle_pass<true>(d0, ldd0, tgt, d, acc, N, L, T, true, count + z,
+                    lists + static_cast<size_t>(z) * N, count + x,
+                    lists + static_cast<size_t>(x) * N, state + ST_NEXT,
+                    state + ST_TMIN);
+  fixpoint::grid_barrier();
+
+  for (int round = 0;; ++round) {
+    const int nz = __ldcg(count + z);
+    const int old = e;
+    if (nz > 0) {                         // zero entries: level L again
+      e = z;
+      z = old;
+      all = false;
+    } else {
+      const int tmin = INF - __ldcg(state + ST_TMIN);
+      const int next = INF - __ldcg(state + ST_NEXT + (round & 1));
+      if (tmin <= next || next > bound) {
+        answer = tmin <= bound ? tmin : INF;
+        break;
+      }
+      if (next == T) {                    // level T: expand X
+        e = x;
+        x = old;
+        L = T;
+        T = L + 1;
+        ++levels;
+      } else {                            // a scan lists level `next`
+        e = z;
+        z = old;
+        T = next;
+      }
+      all = true;
+    }
+    const int n = __ldcg(count + e);
+    int* next_at = state + ST_NEXT + ((round + 1) & 1);
+    if (lead) {                           // no block reads either now
+      count[old] = 0;
+      *next_at = 0;
+    }
+    if (n > 0)
+      read += relax_rows<true>(w, ldw, d, acc,
+                               lists + static_cast<size_t>(e) * N, n, N,
+                               strips, L, ks, kd, wsum);
+    fixpoint::grid_barrier();
+    settle_pass<false>(nullptr, 0, tgt, d, acc, N, L, T, all, count + z,
+                       lists + static_cast<size_t>(z) * N, count + x,
+                       lists + static_cast<size_t>(x) * N, next_at,
+                       state + ST_TMIN);
+    fixpoint::grid_barrier();
+  }
+  if (threadIdx.x == 0 && read > 0) atomicAdd(state + ST_ROWS, read);
+  if (lead) {
+    state[ST_ANSWER] = answer;
+    state[ST_LEVELS] = levels;
+  }
 }
 
 }  // namespace
@@ -629,6 +873,44 @@ extern "C" int min_plus_fixpoint_blocks_per_sm() {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &n, min_plus_fixpoint_kernel, FX_THREADS, 0);
+  return e == cudaSuccess ? n : -1;
+}
+
+// evalDG's answer from d0 on W [N, N] (16-byte rows) for the targets tgt (N
+// bytes, nonzero where a column is a target) up to `bound`, by levels, in one
+// cooperative launch of `blocks` blocks: state[0] gets the least target
+// distance (INF if it is none or above the bound), state[1] the levels
+// expanded and state[2] the rows of W read.  d and acc (pitch_i32(N) ints
+// each, 16-byte aligned) and lists (3 N ints) are scratch; state (9 ints)
+// must be zero before the launch.  Returns the launch's CUDA error code.
+extern "C" int min_plus_settle(const void* d0, int ldd0, const void* w,
+                               int ldw, const void* tgt, int bound, void* d,
+                               void* acc, void* lists, void* state, int N,
+                               int blocks, void* stream) {
+  if (N <= 0 || ldw < N || blocks < 1) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(d) |
+       reinterpret_cast<uintptr_t>(acc)) & 15u || ldw % 4 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const auto* D0 = static_cast<const int*>(d0);
+  const auto* Wp = static_cast<const int*>(w);
+  const auto* Tg = static_cast<const unsigned char*>(tgt);
+  auto* Dp = static_cast<int*>(d);
+  auto* A = static_cast<int*>(acc);
+  auto* Ls = static_cast<int*>(lists);
+  auto* S = static_cast<int*>(state);
+  int strips = (N + FX_STRIP - 1) / FX_STRIP;
+  void* args[] = {&D0, &ldd0, &Wp, &ldw, &Tg, &bound, &Dp,
+                  &A,  &Ls,   &S,  &N,   &strips};
+  return fixpoint::cooperative_launch(
+      reinterpret_cast<const void*>(min_plus_settle_kernel), blocks,
+      FX_THREADS, args, static_cast<cudaStream_t>(stream));
+}
+
+// Settle blocks resident on one SM of the current device, -1 on error.
+extern "C" int min_plus_settle_blocks_per_sm() {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, min_plus_settle_kernel, FX_THREADS, 0);
   return e == cudaSuccess ? n : -1;
 }
 

@@ -7,10 +7,12 @@ tropical_matmul_pallas``.  It squares the distance closure
 (``core.bes.tropical_closure``), composes every batched distance answer
 (``core.cache.combine_dist``) and runs the rank update of a repair
 (``core.incremental._rank_update_tropical``).  Operands must lie in
-[0, INF].  evalDG's whole fixpoint (``core.engine.evaldg_dist``) is one
-launch of a second kernel in the same source, :func:`min_plus_fixpoint`,
-whose steps read only the rows of W whose distance fell in the step
-before.
+[0, INF].  Two more kernels in the same source are each one cooperative
+launch: :func:`min_plus_fixpoint`, a whole single-source fixpoint whose
+steps read only the rows of W whose distance fell in the step before, and
+:func:`min_plus_settle`, evalDG's answer for a dist or bounded query
+(``core.engine.evaldg_dist``), which settles the rows of W in order of
+distance and stops once the answer is fixed.
 
 Two routes, chosen in Python by :func:`_route` so that the CPU tests reach
 the choice: a skinny path for at most :data:`SKINNY_MAX_M` rows, which
@@ -37,14 +39,19 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _fixpoint
-from .ref import INF, min_plus_fixpoint_ref, min_plus_matmul_ref
+from .ref import (INF, min_plus_fixpoint_ref, min_plus_matmul_ref,
+                  min_plus_settle_ref)
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
 
-#: launches of the fixpoint kernel (:func:`min_plus_fixpoint`), which are
-#: not in :data:`launches`
+#: launches of the fixpoint and settle kernels (:func:`min_plus_fixpoint`,
+#: :func:`min_plus_settle`), which are not in :data:`launches`
 fixpoint_launches = 0
+
+#: launches of the settle kernel alone, which are in
+#: :data:`fixpoint_launches` too
+settle_launches = 0
 
 #: operand copies made by :func:`aligned` since the count was last set to 0
 copies = 0
@@ -61,11 +68,13 @@ def _count_launch() -> None:
         launches += 1
 
 
-def _count_fixpoint() -> None:
-    """Add one to :data:`fixpoint_launches`, atomically."""
-    global fixpoint_launches
+def _count_fixpoint(settle: bool = False) -> None:
+    """Add one to :data:`fixpoint_launches`, and to
+    :data:`settle_launches` for a launch of the settle kernel, atomically."""
+    global fixpoint_launches, settle_launches
     with _count_lock:
         fixpoint_launches += 1
+        settle_launches += settle
 
 
 def _count_copy() -> None:
@@ -356,3 +365,82 @@ def min_plus_fixpoint(d0: torch.Tensor, W: torch.Tensor
                      d0, W, d, work, work[width:], state)
     _count_fixpoint()
     return d, state[0]
+
+
+# ---------------------------------------------------------------------------
+# evalDG's answer by levels in one launch
+# ---------------------------------------------------------------------------
+
+#: int32 words of the settle kernel's state: the answer, the levels, the
+#: rows read, the three lists' lengths, the next level by parity, tmin
+SETTLE_STATE = 9
+
+
+#: the settle kernel's C arguments before (B, blocks, stream): d0 and its
+#: pitch, W and its pitch, tgt, the bound, d, acc, the lists, the state
+SETTLE_ARGS = ((ctypes.c_void_p, ctypes.c_int) * 3 + (ctypes.c_void_p,) * 4)
+
+
+def _card_settle_route(index: int, B: int) -> _fixpoint.FixRoute:
+    """The settle kernel's grid: :func:`.._fixpoint.card_route`, with the
+    settle kernel's occupancy."""
+    return _fixpoint.card_route("min_plus_matmul", "min_plus_settle",
+                                FIXPOINT_STRIP, index, B)
+
+
+def min_plus_settle(d0: torch.Tensor, W: torch.Tensor, tgt: torch.Tensor,
+                    bound: Optional[int] = None) -> torch.Tensor:
+    """evalDG's answer on int32 W [B, B] from int32 d0 [B], every entry of
+    both in [0, INF], for the bool target mask ``tgt`` [B]: the least
+    distance onto a target of the fixpoint that :func:`min_plus_fixpoint`
+    computes, INF if there is none or it is above ``bound`` (None: no
+    bound).  Returns an int32 tensor [answer, levels, rows] on d0's
+    device: ``levels`` the distance levels settled, ``rows`` the rows of W
+    read.
+
+    The rows are settled in order of distance (Dijkstra's algorithm with
+    integer levels): each row of W whose distance is final is read once,
+    and the search stops once the targets' least distance is at most the
+    next level, or that level is above the bound.  On the card it is one
+    launch (``csrc/min_plus_matmul.cu``, counted in
+    :data:`fixpoint_launches`) that reads nothing back, on W as it is
+    stored when :func:`is_aligned` (copied once otherwise, counted).  On
+    the CPU it is the plain version, :func:`.ref.min_plus_settle_ref`,
+    whose levels and rows are the kernel's."""
+    if d0.dtype != torch.int32 or W.dtype != torch.int32:
+        raise TypeError(f"min_plus_settle takes int32 tensors, got "
+                        f"{d0.dtype} and {W.dtype}")
+    B = d0.shape[0] if d0.dim() == 1 else -1
+    if (W.dim() != 2 or tuple(W.shape) != (B, B)
+            or tuple(tgt.shape) != (B,)):
+        raise ValueError(f"min_plus_settle takes d0 [B], W [B, B] and tgt "
+                         f"[B], got {tuple(d0.shape)}, {tuple(W.shape)} and "
+                         f"{tuple(tgt.shape)}")
+    if tgt.dtype != torch.bool:
+        raise TypeError(f"min_plus_settle takes a bool tgt, got {tgt.dtype}")
+    dev = d0.device
+    if W.device != dev or tgt.device != dev:
+        raise ValueError(f"operands on {dev}, {W.device} and {tgt.device}")
+    if dev.type == "cpu":
+        return min_plus_settle_ref(d0, W, tgt, bound)
+    if dev.type != "cuda":
+        raise ValueError(f"min_plus_settle runs on cpu or cuda, not {dev}")
+    if B == 0:
+        return torch.tensor([INF, 0, 0], dtype=torch.int32, device=dev)
+    W = aligned(W)
+    if max(B, W.stride(0), d0.stride(0)) >= 2 ** 31:
+        raise ValueError("sizes and row pitches must fit in int32")
+    top = INF if bound is None else max(-1, min(int(bound), INF))
+    tgt = tgt.contiguous()
+    # d and acc (16-byte aligned, pitch_i32(B) each), then the three lists
+    width = pitch_i32(B)
+    work = torch.empty(2 * width + 3 * B, dtype=torch.int32, device=dev)
+    state = torch.zeros(SETTLE_STATE, dtype=torch.int32, device=dev)
+    _fixpoint.call("min_plus_matmul", "min_plus_settle", FIXPOINT_STRIP,
+                   dev.index, B, SETTLE_ARGS,
+                   (d0.data_ptr(), d0.stride(0), W.data_ptr(), W.stride(0),
+                    tgt.data_ptr(), top, work.data_ptr(),
+                    work[width:].data_ptr(), work[2 * width:].data_ptr(),
+                    state.data_ptr()))
+    _count_fixpoint(settle=True)
+    return state[:3]

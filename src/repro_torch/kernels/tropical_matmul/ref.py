@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the (min, +) semiring product and of evalDG's
-fixpoint over it."""
+"""Plain PyTorch versions of the (min, +) semiring product, of evalDG's
+fixpoint over it, and of evalDG's answer by levels."""
 from typing import Optional, Tuple
 
 import torch
@@ -52,3 +52,45 @@ def min_plus_fixpoint_ref(d0: torch.Tensor, W: torch.Tensor
                 break
             d = nxt
     return d, torch.tensor(steps, dtype=torch.int32, device=d0.device)
+
+
+def min_plus_settle_ref(d0: torch.Tensor, W: torch.Tensor, tgt: torch.Tensor,
+                        bound: Optional[int] = None) -> torch.Tensor:
+    """d0 [B], W [B, B] int32 in [0, INF], tgt [B] bool -> int32 [answer,
+    levels, rows] on d0's device: the least d over ``tgt`` of the fixpoint
+    that :func:`min_plus_fixpoint_ref` computes, INF if it is none or above
+    ``bound`` (None: no bound), found in Dijkstra's order with integer
+    levels (Dial's), as the kernel finds it.
+
+    Level by level, from the least finite d: the rows whose d is the level
+    are settled, each read once and relaxed into d, and the rows that fall
+    to the level (zero entries of W) after them, until none falls.  It stops
+    before a level once the targets' least d is at most that level, or the
+    level is above the bound, or no finite d is left; ``levels`` counts the
+    levels settled and ``rows`` the rows of W read."""
+    top = INF if bound is None else min(int(bound), INF)
+    d = d0.clamp_max(INF)
+    tgt = tgt.bool()
+    settled = torch.zeros_like(tgt)
+
+    def least(mask):
+        return int(torch.where(mask, d, INF).min()) if d.numel() else INF
+
+    tmin = least(tgt)
+    levels = rows = 0
+    while True:
+        level = least(~settled)
+        if tmin <= level or level > top:
+            break
+        levels += 1
+        new = (d == level) & ~settled
+        while bool(new.any()):
+            settled |= new
+            rows += int(new.sum())
+            reach = torch.amin(level + W[new], dim=0).clamp_max(INF)
+            d = torch.minimum(d, reach)
+            new = (d == level) & ~settled
+        tmin = least(tgt)
+    answer = tmin if tmin <= top else INF
+    return torch.tensor([answer, levels, rows], dtype=torch.int32,
+                        device=d0.device)

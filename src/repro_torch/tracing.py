@@ -40,7 +40,9 @@ Python number of a tensor), ``fixpoint.steps`` (an iteration of a host
 fixpoint loop of :mod:`repro_torch.core.engine`), ``h2d.pageable_bytes``
 (bytes copied onto the device from host arrays by ``torch.tensor``, a
 copy from pageable memory on the card), ``closure.squarings`` (a
-squaring of a Boolean or min-plus closure, one launch on the card); in
+squaring of a Boolean or min-plus closure, one launch on the card),
+``evaldg.rows`` and ``evaldg.levels`` (the rows of W a dist or bounded
+evalDG read and the distance levels it settled before it stopped); in
 the repair lane ``repair.rows`` (the changed boundary rows a repair
 pushes through the closures), ``repair.launches`` (the rank updates'
 or-and and min-plus products other than their closures' squarings, one

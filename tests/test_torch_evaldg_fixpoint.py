@@ -1,14 +1,17 @@
-"""evalDG's two fixpoints, ``or_and_fixpoint`` and ``min_plus_fixpoint``, on
-the CPU: their plain versions against the JAX package's ``evaldg_reach`` /
-``evaldg_dist`` (the answer exact, the steps equal to a count of the
-reference's ``while_loop`` steps), a numpy model of the kernels' schedule
-(each step reads only the rows the step before added) against the naive
-iterate, the launch plan ``_fixpoint_route`` as a pure function, and the
-one-shot queries through both packages.
+"""evalDG's two fixpoints, ``or_and_fixpoint`` and ``min_plus_fixpoint``,
+and the dist answer by levels, ``min_plus_settle``, on the CPU: their plain
+versions against the JAX package's ``evaldg_reach`` / ``evaldg_dist`` (the
+answer exact, the steps equal to a count of the reference's ``while_loop``
+steps, the bound applied), numpy models of the kernels' schedules (each
+fixpoint step reads only the rows the step before added; the settle
+kernel's three lists read each row once, in order of distance) against
+the naive iterate and the plain version, the launch plan
+``_fixpoint_route`` as a pure function, and the one-shot queries through
+both packages.
 
-On the card each fixpoint is one cooperative launch whose steps never
-return to the host; the kernels are held against the same plain versions
-by tests/test_torch_gpu.py and chip_smoke.py.
+On the card each is one cooperative launch whose steps never return to
+the host; the kernels are held against the same plain versions by
+tests/test_torch_gpu.py and chip_smoke.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +35,11 @@ from repro_torch.kernels.bool_matmul import (or_and_fixpoint,
                                              padded_zeros)
 from repro_torch.kernels.tropical_matmul import ops as tops
 from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint,
-                                                 min_plus_fixpoint_ref)
+                                                 min_plus_fixpoint_ref,
+                                                 min_plus_settle,
+                                                 min_plus_settle_ref)
+from repro_torch import tracing
+from repro_torch.graph import erdos_renyi
 
 
 # ---------------------------------------------------------------------------
@@ -141,8 +148,67 @@ def _delta_dist(W, d0):
     return its
 
 
+def _settle_lists(W, d0, tgt, bound):
+    """The settle kernel's schedule, list for list: lists E, Z and X whose
+    roles rotate; a round expands the listed rows of E whose d is the level
+    L, then a fold over every column lists into Z the columns that fell to
+    L, into X those whose d is T (every one in a level's first round, those
+    that fell to T after) and keeps the least d at or above T and tmin.
+    Returns (answer, levels, reads a row)."""
+    B = len(d0)
+    top = INF if bound is None else min(bound, INF)
+    W64 = W.astype(np.int64)
+    d = np.minimum(d0.astype(np.int64), INF)
+    reads = np.zeros(B, dtype=np.int64)
+    lists = [list(np.nonzero(d == 0)[0]), [], []]
+    e, z, x = 2, 1, 0
+    L, T, levels, every = -1, 0, 0, True
+    nxt = int(d.min()) if B else INF
+    tmin = int(d[tgt].min()) if tgt.any() else INF
+    while True:
+        old = e
+        if lists[z]:
+            e, z, every = z, old, False
+        else:
+            if tmin <= nxt or nxt > top:
+                break
+            if nxt == T:
+                e, x, L, T = x, old, T, T + 1
+                levels += 1
+            else:
+                e, z, T = z, old, nxt
+            every = True
+        rows, lists[old] = lists[e], []
+        acc = np.full(B, INF, dtype=np.int64)
+        for k in rows:
+            if d[k] == L:
+                reads[k] += 1
+                acc = np.minimum(acc, L + W64[k])
+        fell = acc < d
+        d = np.minimum(d, acc)
+        lists[z] += list(np.nonzero(fell & (d == L))[0])
+        lists[x] += list(np.nonzero((d == T) & (every | fell))[0])
+        nxt = int(d[d >= T].min()) if (d >= T).any() else INF
+        if (fell & tgt).any():
+            tmin = min(tmin, int(d[fell & tgt].min()))
+    return (tmin if tmin <= top else INF), levels, reads
+
+
+def _settled_rows(d, levels):
+    """Rows whose final distance is one of the ``levels`` least distinct
+    finite values of d: the rows a search in order of distance that settled
+    that many levels has read, each once."""
+    finite = np.unique(d[d < INF])
+    stop = finite[levels] if levels < len(finite) else INF
+    return int((d < stop).sum())
+
+
 KINDS = [("random", 9), ("random", 70), ("mostly_inf", 40), ("capped", 33),
          ("chain", 0), ("random", 2)]
+
+#: the bounds the settle tests apply: none, 0, 1, the cell's 6, and one past
+#: INF
+BOUNDS = [None, 0, 1, 6, 1 << 40]
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +264,142 @@ def test_engine_evaldg_matches_reference(kind, B):
                    tops.padded_i32(B, B, "cpu").copy_(torch.tensor(W))):
             assert tengine.evaldg_dist(Wm, torch.tensor(src),
                                        torch.tensor(tgt)) == want, name
+
+
+# ---------------------------------------------------------------------------
+# the dist answer by levels, with a bound
+# ---------------------------------------------------------------------------
+
+def _settle_cases(kind, B, seed):
+    """(name, W, d0, tgt): the kind's W (zero entries among its weights) and
+    the same W with every weight tripled, so that levels go empty; from one
+    source, none, one that covers a target, and several finite starts; with
+    the targets drawn, unreachable, or the source's own row."""
+    _, W = _inputs(kind, B, seed)
+    B = W.shape[0]
+    rng = np.random.default_rng(seed + 11)
+    gaps = np.where(W < INF, 3 * W, INF).astype(np.int32)
+    out = []
+    for wname, Wm in (("w", W), ("gaps", gaps)):
+        for name, src, tgt in _sources(rng, B):
+            d0 = np.where(src, 0, INF).astype(np.int32)
+            out.append((f"{wname} {name}", Wm, d0, tgt))
+        src = np.zeros(B, dtype=bool)
+        src[0] = True
+        out.append((f"{wname} own row", Wm, np.where(src, 0, INF).astype(
+            np.int32), src.copy()))
+        reach = _naive_dist(Wm, np.where(src, 0, INF).astype(np.int32))[-1]
+        out.append((f"{wname} unreachable", Wm,
+                    np.where(src, 0, INF).astype(np.int32), reach >= INF))
+        starts = np.full(B, INF, dtype=np.int32)
+        starts[rng.random(B) < 0.2] = rng.integers(0, 9)
+        out.append((f"{wname} starts", Wm, starts, rng.random(B) < 0.1))
+    return out
+
+
+@pytest.mark.parametrize("kind,B", KINDS, ids=lambda v: str(v))
+def test_evaldg_dist_bounded_matches_reference(kind, B):
+    """engine.evaldg_dist(..., bound=b) on the CPU, on W as it is and in
+    padded storage, for b in None, 0, 1, 6 and past INF: JAX's evaldg_dist
+    answer, INF where it is above the bound; zero entries of W, the
+    source's own row as a target, unreachable targets and an all-INF d0
+    among the cases."""
+    for name, W, d0, tgt in _settle_cases(kind, B, seed=B + 4):
+        src = d0 == 0
+        if not src.any() or ((d0 > 0) & (d0 < INF)).any():
+            continue        # evalDG starts at 0 on its sources, INF elsewhere
+        want = int(jengine.evaldg_dist(jnp.asarray(W), jnp.asarray(src),
+                                       jnp.asarray(tgt)))
+        n = W.shape[0]
+        for bound in BOUNDS:
+            cut = want if bound is None or want <= bound else INF
+            for Wm in (torch.tensor(W),
+                       tops.padded_i32(n, n, "cpu").copy_(torch.tensor(W))):
+                got = tengine.evaldg_dist(Wm, torch.tensor(src),
+                                          torch.tensor(tgt), bound=bound)
+                assert got == cut, (name, bound)
+    src = np.zeros(W.shape[0], dtype=bool)
+    want = int(jengine.evaldg_dist(jnp.asarray(W), jnp.asarray(src),
+                                   jnp.asarray(~src)))
+    for bound in BOUNDS:
+        assert tengine.evaldg_dist(torch.tensor(W), torch.tensor(src),
+                                   torch.tensor(~src), bound=bound) == \
+            want == INF
+
+
+@pytest.mark.parametrize("kind,B", KINDS, ids=lambda v: str(v))
+def test_settle_plain_matches_fixpoint_and_reads_each_row_once(kind, B):
+    """min_plus_settle_ref: its answer the plain fixpoint's least target
+    distance with the bound applied; its rows those whose final distance
+    lies below the level it stopped at, each read once; and its answer,
+    levels and rows equal to the kernel's schedule, list for list, which
+    reads no row twice."""
+    for name, W, d0, tgt in _settle_cases(kind, B, seed=B + 5):
+        d, _ = min_plus_fixpoint_ref(torch.tensor(d0), torch.tensor(W))
+        d = d.numpy()
+        least = int(d[tgt].min()) if tgt.any() else INF
+        for bound in BOUNDS:
+            state = min_plus_settle_ref(torch.tensor(d0), torch.tensor(W),
+                                        torch.tensor(tgt), bound)
+            assert state.dtype == torch.int32 and state.shape == (3,)
+            answer, levels, rows = state.tolist()
+            cut = least if bound is None or least <= bound else INF
+            assert answer == cut, (name, bound)
+            assert rows == _settled_rows(d, levels), (name, bound)
+            got, got_levels, reads = _settle_lists(W, d0, tgt, bound)
+            assert (got, got_levels, int(reads.sum())) == \
+                (answer, levels, rows), (name, bound)
+            assert reads.max(initial=0) <= 1, (name, bound)
+
+
+def test_settle_stops_at_the_target_and_the_bound():
+    """A chain of 1024 nodes: the search settles one node a level, up to
+    the target or past the bound, and no further; with no target it reads
+    every reachable row once."""
+    B = 1024
+    W = np.full((B, B), INF, dtype=np.int32)
+    W[np.arange(B - 1), np.arange(1, B)] = 1
+    d0 = torch.full((B,), INF, dtype=torch.int32)
+    d0[0] = 0
+    tgt = torch.zeros(B, dtype=torch.bool)
+    tgt[40] = True
+    cases = [(None, [40, 40, 40]), (6, [INF, 7, 7]), (40, [40, 40, 40]),
+             (39, [INF, 40, 40])]
+    for bound, want in cases:
+        assert min_plus_settle(d0, torch.tensor(W), tgt,
+                               bound).tolist() == want, bound
+    assert min_plus_settle(d0, torch.tensor(W), torch.zeros_like(tgt)
+                           ).tolist() == [INF, B, B]
+
+
+@pytest.mark.parametrize("bound", [None, 0, 1, 6])
+def test_one_shot_dist_on_a_fragmented_graph(bound):
+    """exec_dist on an erdos_renyi graph in 6 fragments: answers and
+    distances equal to the JAX package's, and the traced evalDG counts the
+    rows it read, at most B, and the levels it settled, at most the bound
+    plus one."""
+    from repro.graph import erdos_renyi as j_erdos_renyi
+    jg = j_erdos_renyi(300, 900, n_labels=3, seed=12)
+    tg = erdos_renyi(300, 900, n_labels=3, seed=12)
+    jfr = j_fragment(jg, j_random_partition(jg, 6, 12), 6)
+    tfr = fragment_graph(tg, random_partition(tg, 6, 12), 6)
+    rng = np.random.default_rng(13)
+    pairs = [tuple(int(v) for v in p) for p in rng.integers(0, 300, (6, 2))
+             if p[0] != p[1]]
+    for s, t in pairs:
+        want = jsession.exec_dist(jfr, s, t, bound=bound)
+        tracing.enable()
+        try:
+            got = tsession.exec_dist(tfr, s, t, bound=bound, device="cpu")
+        finally:
+            tracing.disable()
+        assert (got.answer, got.distance) == (bool(want.answer),
+                                              want.distance), (s, t)
+        counts, = [r.counts for r in tracing.drain()
+                   if r.kind == "span" and r.name == "oneshot.evaldg"]
+        assert 0 < counts["evaldg.rows"] <= tfr.B, (s, t)
+        assert 0 < counts["evaldg.levels"] <= (
+            tfr.B if bound is None else bound + 1), (s, t)
 
 
 # ---------------------------------------------------------------------------
@@ -294,8 +496,8 @@ def test_fixpoint_route_small_and_full():
 
 def test_wrappers_on_cpu_are_the_plain_versions():
     """On CPU tensors the wrappers return the plain versions' results
-    (x / d and a 0-d int32 steps tensor), launch nothing and copy nothing,
-    whatever D's and W's layout."""
+    (x / d and a 0-d int32 steps tensor; the settle state), launch nothing
+    and copy nothing, whatever D's and W's layout."""
     D, W = _inputs("random", 37, seed=11)
     src = np.zeros(37, dtype=bool)
     src[4] = True
@@ -312,6 +514,11 @@ def test_wrappers_on_cpu_are_the_plain_versions():
         got, want = min_plus_fixpoint(d0, Wm), \
             min_plus_fixpoint_ref(d0, torch.tensor(W))
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        tgt = torch.arange(37) % 5 == 2
+        for bound in (None, 2):
+            assert torch.equal(min_plus_settle(d0, Wm, tgt, bound),
+                               min_plus_settle_ref(d0, torch.tensor(W), tgt,
+                                                   bound))
     assert counts == (bops.fixpoint_launches, bops.launches, bops.copies,
                       tops.fixpoint_launches, tops.launches, tops.copies)
 
@@ -329,6 +536,16 @@ def test_wrappers_reject_bad_operands():
         min_plus_fixpoint(torch.zeros(4, dtype=torch.int64), W)
     with pytest.raises(ValueError, match=r"d0 \[B\] and W \[B, B\]"):
         min_plus_fixpoint(torch.zeros((1, 4), dtype=torch.int32), W)
+    d0 = torch.zeros(4, dtype=torch.int32)
+    tgt = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(TypeError, match="int32"):
+        min_plus_settle(d0.long(), W, tgt)
+    with pytest.raises(TypeError, match="bool tgt"):
+        min_plus_settle(d0, W, tgt.int())
+    with pytest.raises(ValueError, match=r"tgt \[B\]"):
+        min_plus_settle(d0, W, tgt[:3])
+    with pytest.raises(ValueError, match=r"tgt \[B\]"):
+        min_plus_settle(d0, W[:, :3], tgt)
 
 
 def test_rows_copy_is_padded_and_counted():

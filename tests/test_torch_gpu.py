@@ -38,7 +38,9 @@ from repro_torch.kernels.tropical_matmul import ops as tops
 from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint,
                                                  min_plus_fixpoint_ref,
                                                  min_plus_matmul,
-                                                 min_plus_matmul_ref)
+                                                 min_plus_matmul_ref,
+                                                 min_plus_settle,
+                                                 min_plus_settle_ref)
 from repro_torch.kernels.tropical_matmul.ops import (is_aligned, padded_i32,
                                                      pitch_i32)
 
@@ -487,6 +489,76 @@ def test_fixpoints_on_mr_shaped_inputs(cuda):
     assert torch.equal(d.cpu(), want_d) and int(steps) == int(want_steps)
 
 
+def _settled_rows(d, levels):
+    """Rows whose final distance d is one of the ``levels`` least distinct
+    finite values: those a search in order of distance that settled that
+    many levels reads, each once."""
+    finite = np.unique(d[d < INF])
+    stop = finite[levels] if levels < len(finite) else INF
+    return int((d < stop).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2, 300, 1037, 5185])
+def test_settle_on_card_matches_plain(cuda, B):
+    """min_plus_settle on the card, on random W with zero entries and on
+    the same W with every weight tripled (empty levels): answer, levels
+    and rows read equal to the plain version's for bounds None, 0, 1, 6
+    and past INF; the rows exactly those whose final distance lies below
+    the level it stopped at, so no row is read twice; one launch counted a
+    call (in both counts), no product, and no copy of padded W;
+    engine.evaldg_dist on the card gives the same answer."""
+    rng = np.random.default_rng(B + 40)
+    W = _dist_matrix(rng, B, B, 3.0 / B)
+    for Wn in (W, np.where(W < INF, 3 * W, INF).astype(np.int32)):
+        Wt = torch.tensor(Wn)
+        Wc = padded_i32(B, B, cuda).copy_(Wt.to(cuda))
+        for trial in range(3):
+            src = np.zeros(B, dtype=bool)
+            src[rng.integers(B)] = True
+            tgt = src.copy() if trial == 2 else rng.random(B) < 0.05
+            d0 = torch.tensor(np.where(src, 0, INF).astype(np.int32))
+            args = [torch.tensor(src).to(cuda), torch.tensor(tgt).to(cuda)]
+            d = min_plus_fixpoint(d0.to(cuda), Wc)[0].cpu().numpy()
+            for bound in (None, 0, 1, 6, 1 << 40):
+                want = min_plus_settle_ref(d0, Wt, torch.tensor(tgt), bound)
+                before = (tops.launches, tops.fixpoint_launches,
+                          tops.settle_launches, tops.copies)
+                got = min_plus_settle(d0.to(cuda), Wc, args[1], bound)
+                assert (tops.launches, tops.fixpoint_launches,
+                        tops.settle_launches, tops.copies) == \
+                    (before[0], before[1] + 1, before[2] + 1, before[3])
+                assert torch.equal(got.cpu(), want), (trial, bound)
+                _, levels, rows = got.tolist()
+                assert rows == _settled_rows(d, levels), (trial, bound)
+                assert engine.evaldg_dist(Wc, *args, bound=bound) == \
+                    int(want[0])
+    Wu = torch.tensor(W, device=cuda)
+    before = tops.copies
+    src = torch.zeros(B, dtype=torch.int32, device=cuda)
+    min_plus_settle(src, Wu, torch.ones(B, dtype=torch.bool, device=cuda))
+    assert tops.copies == before + (0 if is_aligned(Wu) else 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1024, 1037])
+def test_settle_on_a_chain(cuda, B):
+    """A chain walked one level a hop: the search reads the rows up to the
+    target and no further, stops past the bound, and with no target reads
+    every row once, B levels in one launch."""
+    W = np.full((B, B), INF, dtype=np.int32)
+    W[np.arange(B - 1), np.arange(1, B)] = 1
+    Wc = padded_i32(B, B, cuda).copy_(torch.tensor(W, device=cuda))
+    d0 = torch.full((B,), INF, dtype=torch.int32, device=cuda)
+    d0[0] = 0
+    end = torch.zeros(B, dtype=torch.bool, device=cuda)
+    end[B - 1] = True
+    assert min_plus_settle(d0, Wc, end).tolist() == [B - 1, B - 1, B - 1]
+    assert min_plus_settle(d0, Wc, end, 6).tolist() == [INF, 7, 7]
+    assert min_plus_settle(d0, Wc, torch.zeros_like(end)).tolist() == \
+        [INF, B, B]
+
+
 def _closure_pair(rng, nb, cuda):
     from repro_torch.core import bes
     D = rng.random((nb, nb)) < 1.5 / nb
@@ -853,8 +925,9 @@ def test_local_eval_kernel_on_a_ranks_fragments(cuda, frags):
 @pytest.mark.gpu
 def test_traced_one_shot_query_on_card(cuda):
     """A traced one-shot query on the card: one localEval launch, at most
-    two host syncs (the deepest level read back, evalDG's answer), and the
-    same ``fixpoint.steps`` as the CPU's host loop."""
+    two host syncs (the deepest level read back, evalDG's answer), the
+    same ``fixpoint.steps`` as the CPU's host loop, and the same
+    ``evaldg.rows`` and ``evaldg.levels`` as the CPU's plain search."""
     from repro_torch import tracing
     g = erdos_renyi(600, 2400, n_labels=3, seed=8)
     fr = fragment_graph(g, random_partition(g, 4, seed=8), 4)
@@ -870,7 +943,7 @@ def test_traced_one_shot_query_on_card(cuda):
         spans = [r for r in tracing.drain() if r.kind == "span"]
         return out, *([r for r in spans if r.name == name]
                       for name in ("oneshot.query", "oneshot.local_eval"))
-    want, _, on_cpu = traced("cpu")
+    want, on_host, on_cpu = traced("cpu")
     before = leops.launches
     got, queried, on_card = traced(None)
     assert leops.launches == before + len(queries)
@@ -884,6 +957,9 @@ def test_traced_one_shot_query_on_card(cuda):
         assert card.counts["host.syncs"] == 1
         assert card.counts["fixpoint.steps"] == \
             host.counts["fixpoint.steps"] > 0
+    for card, host in zip(queried[1:], on_host[1:]):
+        for name in ("evaldg.rows", "evaldg.levels"):
+            assert card.counts[name] == host.counts[name] > 0, name
 
 
 @pytest.mark.gpu

@@ -28,9 +28,9 @@ from repro_torch.core import incremental as tinc
 from repro_torch.core.fragments import fragment_graph
 from repro_torch.graph import erdos_renyi, random_partition
 from repro_torch.kernels.tropical_matmul import ops as tops
-from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint,
-                                                 min_plus_matmul,
-                                                 min_plus_matmul_ref)
+from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
+                                                 min_plus_matmul_ref,
+                                                 min_plus_settle)
 from repro_torch.kernels.tropical_matmul.ops import (
     ALIGN, SKINNY_MAX_M, SKINNY_MIN_K, SKINNY_THREADS, Route, _route,
     aligned, is_aligned, padded_i32, pitch_i32)
@@ -287,7 +287,7 @@ def test_combine_dist_on_padded_input(N, nb):
 
 class _Spy:
     """Stands in for ``min_plus_matmul`` in the modules that call it, and
-    for ``min_plus_fixpoint`` in the engine's evalDG, and records, per
+    for ``min_plus_settle`` in the engine's evalDG, and records, per
     caller, whether every operand it was given (and the floor) can be read
     by the kernel as it is."""
 
@@ -296,10 +296,10 @@ class _Spy:
         for mod in (tbes, tcache, tinc):
             monkeypatch.setattr(mod, "min_plus_matmul", self._wrap(mod))
 
-        def fixpoint(d0, W):
+        def settle(d0, W, tgt, bound=None):
             self.calls.setdefault("engine", []).append(is_aligned(W))
-            return min_plus_fixpoint(d0, W)
-        monkeypatch.setattr(tengine, "min_plus_fixpoint", fixpoint)
+            return min_plus_settle(d0, W, tgt, bound)
+        monkeypatch.setattr(tengine, "min_plus_settle", settle)
 
     def _wrap(self, mod):
         name = mod.__name__.rsplit(".", 1)[1]
@@ -314,7 +314,7 @@ class _Spy:
 
 def test_paths_pass_aligned_operands(monkeypatch):
     """Cache build (closure squarings), composes, one-shot evalDG's
-    fixpoint and a repair's rank update: every min-plus operand is already
+    settle kernel and a repair's rank update: every min-plus operand is already
     in the kernel's layout, so on the card none is copied."""
     spy = _Spy(monkeypatch)
     g = erdos_renyi(24, 40, n_labels=3, seed=7)

@@ -446,7 +446,9 @@ def test_trace_cell_reads_the_repair_lane():
                       "session.host_syncs_per_batch",
                       "session.upload_mib_per_batch"]),
     ("oneshot.reach_dist", ["session.cpu_share",
-                            "oneshot.local_steps_p50"])])
+                            "oneshot.local_steps_p50",
+                            "oneshot.evaldg_rows_p50",
+                            "oneshot.evaldg_levels_p50"])])
 def test_trace_cell_reads_the_program_records(cell, expect):
     tool = _trace_cell()
     from bench.tests import tiny

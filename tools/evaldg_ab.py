@@ -21,7 +21,16 @@ random fragments):
   round-robin over 16 fragments to the other; the median of 3 calls;
 - ``evaldg_reach_ms`` / ``evaldg_dist_ms``: ``engine.evaldg_reach`` /
   ``evaldg_dist`` alone on the D / W of the run's first Reach / Dist,
-  CUDA events around 5 calls after a warm-up.
+  CUDA events around 5 calls after a warm-up;
+- ``cell``: on the graph of the benchmark's one-shot cell
+  (``erdos_renyi(32768, 131072, 8)`` in 16 random fragments, nb ~ 32k),
+  for 48 seeded pairs, W of a dist query and of a bounded (6) one written
+  by localEval, then ``min_plus_fixpoint`` alone (the least target
+  distance taken from its last d, outside the timed calls) and, where the
+  tree has it, ``min_plus_settle`` on the same W, CUDA events around 3
+  calls each after a warm-up; grouped by d(s, t) (``inf``: unreachable), the median ms of
+  each, and the settle kernel's median rows read and levels.  The settle
+  kernel's answer must equal the fixpoint's.
 
 Each child also prints its answers, which must be equal across trees.
 """
@@ -35,6 +44,69 @@ import _ab
 
 N, M, LABELS, FRAGS, SEED = 16384, 65536, 8, 16, 0
 N_ONESHOT, N_PAIRS, CHAIN = 32, 16, 1024
+CELL_N, CELL_M, CELL_PAIRS, CELL_BOUND = 32768, 131072, 48, 6
+
+
+def cell(answers: list) -> dict:
+    """The fixpoint against the settle kernel on the one-shot cell's graph
+    (see the module docstring); the fixpoint's answers go into
+    ``answers``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, session
+    from repro_torch.core.fragments import fragment_graph
+    from repro_torch.graph import erdos_renyi, random_partition
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    INF = engine.INF
+    settle = getattr(tops, "min_plus_settle", None)
+    g = erdos_renyi(CELL_N, CELL_M, n_labels=LABELS, seed=SEED)
+    fr = fragment_graph(g, random_partition(g, FRAGS, seed=SEED), FRAGS)
+    dev = torch.device("cuda")
+    W = tops.padded_i32(fr.B, fr.B, dev)
+    rng = np.random.default_rng(SEED + 9)
+    rows = []
+    for s, t in rng.integers(0, g.n, size=(CELL_PAIRS, 2)).tolist():
+        if s == t:
+            continue
+        arrs, s_local, t_local = session._query_inputs(fr, s, t, dev)
+        src, tgt = session._src_rows(fr, dev), session._tgt_cols(fr, t, dev)
+        d0 = torch.full((fr.B,), INF, dtype=torch.int32, device=dev)
+        d0.masked_fill_(src, 0)
+        dist = None
+        for kind, bound in (("dist", None), ("bounded", CELL_BOUND)):
+            engine.local_eval_dist(
+                arrs["esrc"], arrs["edst"], arrs["src_local"],
+                arrs["src_row"], arrs["tgt_local"], s_local, t_local,
+                INF if bound is None else bound, n_max=fr.n_max, B=fr.B,
+                out=W)
+
+            tops.min_plus_fixpoint(d0, W)
+            fix_ms, (d, _) = _ab.events_ms(
+                lambda: tops.min_plus_fixpoint(d0, W), 3)
+            want = int(torch.where(tgt, d, INF).min())
+            if bound is not None and want > bound:
+                want = INF
+            dist = want if kind == "dist" else dist
+            row = {"kind": kind, "d": dist, "fixpoint_ms": fix_ms}
+            if settle is not None:
+                settle(d0, W, tgt, bound)
+                row["settle_ms"], state = _ab.events_ms(
+                    lambda: settle(d0, W, tgt, bound), 3)
+                got, row["levels"], row["rows"] = state.tolist()
+                if got != want:
+                    raise AssertionError(f"settle gave {got} for ({s}, {t}) "
+                                         f"{kind}, the fixpoint {want}")
+            rows.append(row)
+            answers.append((s, t, kind, want))
+    del W
+    torch.cuda.empty_cache()
+    out = {}
+    for row in rows:
+        key = f"{row['kind']} d={'inf' if row['d'] >= INF else row['d']}"
+        out.setdefault(key, []).append(row)
+    return {key: {name: statistics.median(r[name] for r in group)
+                  for name in group[0] if name not in ("kind", "d")}
+            | {"n": len(group)} for key, group in sorted(out.items())}
 
 
 def child(tree: Path) -> dict:
@@ -62,9 +134,9 @@ def child(tree: Path) -> dict:
     orig = (engine.evaldg_reach, engine.evaldg_dist)
 
     def keep(kind, fn):
-        def wrapped(*args):
+        def wrapped(*args, **kw):
             kept.setdefault(kind, args)
-            return fn(*args)
+            return fn(*args, **kw)
         return wrapped
 
     engine.evaldg_reach = keep("reach", orig[0])
@@ -108,12 +180,14 @@ def child(tree: Path) -> dict:
         chain_ms.append(ms)
         answers.append(res.answer)
 
+    by_distance = cell(answers)
     return {"run_ms": statistics.median(runs), "runs_ms": runs,
             "dis_reach_ms": statistics.median(single),
             "dis_reach_max_ms": max(single),
             "chain_ms": statistics.median(chain_ms),
             "evaldg_reach_ms": evaldg["reach"],
             "evaldg_dist_ms": evaldg["dist"],
+            "cell": by_distance,
             "answers": hashlib.sha256(repr(answers).encode()).hexdigest()[:16]}
 
 

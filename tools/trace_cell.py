@@ -155,6 +155,9 @@ def readings(records, trace=None) -> dict:
       no program span covers (needs the device trace);
     * ``oneshot.local_steps_p50``: median ``fixpoint.steps`` of each
       ``oneshot.local_eval``;
+    * ``oneshot.evaldg_rows_p50``, ``oneshot.evaldg_levels_p50``: median
+      ``evaldg.rows`` (rows of W read) and ``evaldg.levels`` (distance
+      levels settled) of each ``oneshot.evaldg`` of a dist or bounded query;
     * the repair lane's, where deltas committed (:func:`repair_readings`).
     """
     spans = [r for r in records if r.kind == "span"]
@@ -180,6 +183,11 @@ def readings(records, trace=None) -> dict:
             [s.counts.get("fixpoint.steps", 0) for s in spans
              if s.name == "oneshot.local_eval"]),
     }
+    settled = [s.counts for s in spans if s.name == "oneshot.evaldg"
+               and s.counts and "evaldg.rows" in s.counts]
+    for name in ("rows", "levels"):
+        out[f"oneshot.evaldg_{name}_p50"] = _median(
+            [c[f"evaldg.{name}"] for c in settled])
     out.update(repair_readings(records))
     if trace is not None:
         gaps = idle_gaps(records, trace)
