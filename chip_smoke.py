@@ -19,15 +19,12 @@ non-zero and prints no result line):
              routes (skinny split-K up to 64 rows, tiles above) with and
              without a floor (``init=``), twice each; the bit-packed
              product also against the or-and kernel, with K = 31, 32, 33
-             and words whose bit 31 is set; the or-and kernel's skinny
-             route (``csrc/or_and_skinny.cu``, up to 8 rows, b read as
-             stored with its pad bytes set) with frontiers all zero,
-             one-hot, all ones and random, with and without ``init``;
-             the two evalDG fixpoint kernels (``or_and_fixpoint``,
-             ``min_plus_fixpoint``), x / d and the steps, on random D and
-             W at B = 2, 300 and 1037, an empty source, a source that
-             covers every column, a row of D all true, a D and a W not in
-             padded storage (one counted copy each) and a 1024-node chain;
+             and words whose bit 31 is set; evalDG's or-and fixpoint
+             kernel (``or_and_fixpoint``, ``csrc/or_and_skinny.cu``), x
+             and the steps, on random D at B = 2, 300 and 1037, an empty
+             source, a source that covers every column, a row of D all
+             true, a D not in padded storage (one counted copy) and a
+             1024-node chain;
              the or-and floor-pair kernel (``or_and_floor_pair(a, b_t,
              F, Ft)``) on ragged shapes with random, all-zero and all-one
              floors: pads zero, floors unchanged.
@@ -58,7 +55,7 @@ non-zero and prints no result line):
              checked against the host BFS and 4 Rpq ``(0|1)* 2`` (D is a
              6.4 GB matrix) against a product-graph BFS, each evalDG one
              launch (``or_and_fixpoint`` for reach, ``min_plus_settle``
-             for dist, none of ``min_plus_fixpoint``) with no per-step
+             for dist) with no per-step
              product and no copy of D or W (``copies`` 0), each Reach and
              Dist one launch of the localEval kernel
              (``csrc/local_eval.cu``, which writes D or W in place); one
@@ -70,14 +67,13 @@ non-zero and prints no result line):
              and timed beside it and the bytes they must move;
              ``dis_reach_sharded`` and ``dis_rpq_sharded`` on the NCCL
              group, one collective of ``traffic_bits`` bits each, one
-             fixpoint launch each, no copy; both products held against
-             their plain versions at evalDG's vector-matrix shape, M = 1
-             (the or-and step on D as stored with every row of x set,
-             beside the tile route through D^T); both fixpoint kernels
-             on the split queries, against their plain versions and timed
-             beside the bytes they read (each step's new rows), the empty
-             step of the grid-barrier probe and, for reach, the engine's
-             evalDG; and the settle kernel on the split dist query,
+             fixpoint launch each, no copy; the min-plus product held
+             against its plain version at evalDG's vector-matrix shape,
+             M = 1; the or-and fixpoint kernel on the split reach query,
+             against its plain version and timed beside the bytes it
+             reads (each step's new rows), the empty step of the
+             grid-barrier probe and the engine's evalDG; and the settle
+             kernel on the split dist query,
              unbounded and with bound 6, its state [answer, levels, rows]
              equal to its plain version's, timed with the engine's evalDG
              beside the bytes of the rows it read.
@@ -126,10 +122,9 @@ non-zero and prints no result line):
              equal to the one-shot RPQ's and the product-graph BFS, each
              reducer's evalDG one fixpoint launch with no copy, the
              device memory peak below 12 GB (the reference stacks 103 GB
-             of mapper outputs), the time split into map and evalDG; the
-             skinny route held against its plain version at the reducer's
-             evalDG step, [1, 80205] x [80205, 80205] on D as stored, and
-             the reducer's fixpoint kernel timed against the rows it reads.
+             of mapper outputs), the time split into map and evalDG; and
+             the reducer's fixpoint kernel, [1, 80205] x [80205, 80205] on
+             D as stored, timed against the rows it reads.
 10. sharded repair — ``session.apply`` on a ``backend="shard_map"``
              session over the NCCL group with a reach-only cache and the
              dynamic phase's reserves: inserts in one fragment, cross
@@ -255,10 +250,8 @@ non-zero and prints no result line):
 The min-plus wrapper's operand copies are asserted 0 on the main,
 one-shot, dynamic and serve paths as well; the or-and wrapper's copies
 (``or_and_copies``) on the one-shot, baselines and MapReduce paths and the
-sharded one-shot functions, and its skinny launches (``or_and_skinny``) 0
-on those and on the main and dynamic paths: since ``or_and_fixpoint`` and
-``min_plus_settle`` run evalDG, no query path launches that route (nor
-``min_plus_fixpoint``, asserted 0 with them).  When the source of an earlier
+sharded one-shot functions, where ``or_and_fixpoint`` and
+``min_plus_settle`` run evalDG.  When the source of an earlier
 min-plus kernel is put at ``build/former/min_plus_matmul.cu``, it is
 built in the build phase and timed beside the current kernel at every
 min-plus shape (``former_ms``).
@@ -505,16 +498,15 @@ def _counted():
 
 
 def _reset_launches():
-    """Set every kernel's launch count (the or-and skinny route's, both
-    fixpoint kernels' and the settle kernel's too), and both wrappers'
-    operand copy counts, to 0."""
+    """Set every kernel's launch count (the or-and floor pair's and
+    fixpoint's and the settle kernel's too), and both wrappers' operand
+    copy counts, to 0."""
     for ops in _counted().values():
         ops.launches = 0
     tops = _counted()["min_plus_matmul"]
-    tops.copies = tops.fixpoint_launches = tops.settle_launches = 0
+    tops.copies = tops.settle_launches = 0
     bops = _counted()["or_and_matmul"]
-    bops.skinny_launches = bops.copies = bops.fixpoint_launches = 0
-    bops.floor_launches = 0
+    bops.copies = bops.fixpoint_launches = bops.floor_launches = 0
 
 
 def _copies() -> int:
@@ -531,7 +523,7 @@ def _assert_no_copies(what: str) -> None:
 
 def _assert_no_b1_copies(what: str) -> None:
     """The or-and wrapper made no K-major copy: evalDG reads D as the
-    paths store it (the skinny route), so a one-shot path makes none."""
+    paths store it (the fixpoint), so a one-shot path makes none."""
     n = _counted()["or_and_matmul"].copies
     if n:
         raise AssertionError(f"{what}: the or-and wrapper made {n} K-major "
@@ -539,23 +531,17 @@ def _assert_no_b1_copies(what: str) -> None:
 
 
 def _launches():
-    """Launches by kernel since the last reset: ``or_and_skinny`` and
-    ``or_and_floor`` count the or-and kernel's skinny route and its
-    floor-pair kernel apart (those launches are in ``or_and_matmul`` too),
-    ``or_and_fixpoint`` and ``min_plus_settle`` evalDG's kernels for reach
-    and dist, ``min_plus_fixpoint`` the whole min-plus fixpoint (the three
-    in neither product's count; the min-plus wrapper counts its two
-    cooperative kernels together, and the settle kernel apart too), and
-    ``or_and_copies`` the or-and wrapper's K-major and row copies."""
+    """Launches by kernel since the last reset: ``or_and_floor`` counts the
+    or-and floor-pair kernel apart (its launches are in ``or_and_matmul``
+    too), ``or_and_fixpoint`` and ``min_plus_settle`` evalDG's kernels for
+    reach and dist (in neither product's count), and ``or_and_copies`` the
+    or-and wrapper's K-major and row copies."""
     counts = {name: ops.launches for name, ops in _counted().items()}
     bops = _counted()["or_and_matmul"]
     tops = _counted()["min_plus_matmul"]
-    counts["or_and_skinny"] = bops.skinny_launches
     counts["or_and_floor"] = bops.floor_launches
     counts["or_and_fixpoint"] = bops.fixpoint_launches
     counts["min_plus_settle"] = tops.settle_launches
-    counts["min_plus_fixpoint"] = (tops.fixpoint_launches
-                                   - tops.settle_launches)
     counts["or_and_copies"] = bops.copies
     return counts
 
@@ -590,22 +576,20 @@ class _EvalDGCalls:
 def _assert_one_fixpoint_each(what: str, launches: dict, calls,
                               local: int) -> None:
     """Each evalDG of a path was one launch, ``or_and_fixpoint`` for reach
-    and ``min_plus_settle`` for dist, with no ``min_plus_fixpoint`` and no
-    per-step product launched and no operand copied (either wrapper), and
+    and ``min_plus_settle`` for dist, with no per-step product launched
+    and no operand copied (either wrapper), and
     the path made ``local`` launches of the localEval kernel: one for each
     one-shot Reach or Dist it evaluated."""
     if launches["local_eval"] != local:
         raise AssertionError(f"{what}: {launches['local_eval']} localEval "
                              f"launches, expected {local}")
-    got = (launches["or_and_fixpoint"], launches["min_plus_settle"],
-           launches["min_plus_fixpoint"])
-    if (got != (calls.reach, calls.dist, 0)
-            or calls.reach + calls.dist == 0):
+    got = (launches["or_and_fixpoint"], launches["min_plus_settle"])
+    if got != (calls.reach, calls.dist) or calls.reach + calls.dist == 0:
         raise AssertionError(f"{what}: {calls.reach} reach and {calls.dist} "
-                             f"dist evalDGs made (or-and fixpoint, settle, "
-                             f"min-plus fixpoint) launches {got}")
-    if any(launches[k] for k in ("or_and_matmul", "or_and_skinny",
-                                 "min_plus_matmul", "bitpack_matmul")):
+                             f"dist evalDGs made (or-and fixpoint, settle) "
+                             f"launches {got}")
+    if any(launches[k] for k in ("or_and_matmul", "min_plus_matmul",
+                                 "bitpack_matmul")):
         raise AssertionError(f"{what}: evalDG launched per-step products: "
                              f"{launches}")
     _assert_no_copies(what)
@@ -717,61 +701,11 @@ def phase_parity() -> None:
                      min_plus_matmul(a, b[:, ::2]),
                      min_plus_matmul_ref(a, b[:, ::2]))
         n += 2
-    n += _parity_or_and_skinny(dev)
     n += _parity_or_and_floor(dev)
     n += _parity_min_plus_routes(dev)
     n += _parity_fixpoints(dev)
     n += _parity_bitpack(dev)
     print(f"parity: {n} kernel calls bit-equal to their plain versions")
-
-
-# the or-and kernel's skinny route: up to 8 rows, N ragged around the
-# 16-byte column groups, K around the 128-row chunks (0 included)
-OR_AND_SKINNY = [(1, 0, 17), (1, 33, 1), (2, 129, 15), (3, 1000, 1037),
-                 (8, 20011, 1037), (1, 4099, 16041)]
-
-
-def _parity_or_and_skinny(dev) -> int:
-    """The skinny route on ``b`` in padded storage whose pad bytes are set
-    (the kernel must not read them) and a strided left operand, for
-    frontiers all zero, one-hot, all ones and random, with and without
-    ``init``: bit-equal to the plain version, C's pads zero, one skinny
-    launch and no copy a call."""
-    import torch
-    from repro_torch.kernels.bool_matmul import (or_and_matmul,
-                                                 or_and_matmul_ref, pitch)
-    from repro_torch.kernels.bool_matmul import ops as bops
-    n = 0
-    for si, (m, k, n_) in enumerate(OR_AND_SKINNY):
-        rng = np.random.default_rng([SEED, si, 13])
-        bv = torch.tensor(rng.random((k, n_)) < 0.05, device=dev)
-        b = torch.ones((k, pitch(n_)), dtype=torch.bool,
-                       device=dev)[:, :n_].copy_(bv)
-        one_hot = np.zeros((m, k), dtype=bool)
-        if k:
-            one_hot[np.arange(m), rng.integers(0, k, m)] = True
-        init = torch.tensor(rng.random((m, n_)) < 0.2, device=dev)
-        for name, x in (("zero", np.zeros((m, k), dtype=bool)),
-                        ("one_hot", one_hot),
-                        ("ones", np.ones((m, k), dtype=bool)),
-                        ("random", rng.random((m, k)) < 0.01)):
-            a = torch.tensor(x.T.copy(), device=dev).T
-            for given in (None, init):
-                before = (bops.launches, bops.skinny_launches, bops.copies)
-                got = or_and_matmul(a, b, init=given)
-                if (bops.launches - before[0], bops.skinny_launches
-                        - before[1], bops.copies - before[2]) != (1, 1, 0):
-                    raise AssertionError(f"or_and skinny {m}x{k}x{n_}: not "
-                                         "one skinny launch without a copy")
-                what = (f"or_and skinny {m}x{k}x{n_} {name} init "
-                        f"{given is not None}")
-                _check_equal(what, got, or_and_matmul_ref(a, bv, init=given))
-                pads = got.as_strided((m, got.stride(0)),
-                                      (got.stride(0), 1))[:, n_:]
-                if pads.any():
-                    raise AssertionError(f"{what}: pad bytes set")
-                n += 1
-    return n
 
 
 # the floor-pair kernel: M and N ragged around its 128 x 128 tiles, K
@@ -831,91 +765,74 @@ def _padded_storage(x):
     return x.as_strided((x.shape[0], x.stride(0)), (x.stride(0), 1))
 
 
-# evalDG's two fixpoint kernels: random D and W at these B, a chain of
+# evalDG's or-and fixpoint kernel: random D at these B, a chain of
 # CHAIN_NODES nodes (one step a hop)
 FIXPOINT_B = (2, 300, 1037)
 
 
 def _fixpoint_cases(dev):
-    """(name, x0, D, d0, W, copies): the parity cases of the fixpoints,
-    with the operand copies each wrapper must make (1 for a D or W that
-    is not in padded storage, else 0)."""
+    """(name, x0, D, copies): the parity cases of the or-and fixpoint, with
+    the operand copies the wrapper must make (1 for a D that is not in
+    padded storage, else 0)."""
     import torch
     from repro_torch.kernels.bool_matmul import padded_zeros
-    from repro_torch.kernels.tropical_matmul import INF
-    from repro_torch.kernels.tropical_matmul.ops import padded_i32
 
-    def weights(rng, mask):
-        return np.where(mask, rng.integers(0, 6, mask.shape),
-                        INF).astype(np.int32)
-
-    def case(name, x0, D, W, padded=True):
+    def case(name, x0, D, padded=True):
         B = len(x0)
-        d0 = np.where(x0, 0, INF).astype(np.int32)
         if padded:
             Dt = padded_zeros(B, B, dev).copy_(torch.tensor(D, device=dev))
-            Wt = padded_i32(B, B, dev).copy_(torch.tensor(W, device=dev))
         else:
-            Dt, Wt = (torch.tensor(v, device=dev) for v in (D, W))
-        return (name, torch.tensor(x0, device=dev), Dt,
-                torch.tensor(d0, device=dev), Wt, 0 if padded else 1)
+            Dt = torch.tensor(D, device=dev)
+        return (name, torch.tensor(x0, device=dev), Dt, 0 if padded else 1)
 
     cases = []
     for B in FIXPOINT_B:
         rng = np.random.default_rng([SEED, B, 17])
         D = rng.random((B, B)) < 2.5 / B
-        W = weights(rng, rng.random((B, B)) < 2.5 / B)
         one = np.zeros(B, dtype=bool)
         one[rng.integers(B)] = True
-        cases.append(case(f"random B={B}", one, D, W))
+        cases.append(case(f"random B={B}", one, D))
         cases.append(case(f"empty source B={B}", np.zeros(B, dtype=bool),
-                          D, W))
+                          D))
         cases.append(case(f"covering source B={B}", np.ones(B, dtype=bool),
-                          D, W))
+                          D))
         full = D.copy()
         full[rng.integers(B)] = True                  # a row all true
-        cases.append(case(f"full row B={B}", one, full, W))
-    B = 1037                       # neither 16 nor 4 divides it: copied
+        cases.append(case(f"full row B={B}", one, full))
+    B = 1037                       # 16 does not divide it: copied
     rng = np.random.default_rng([SEED, B, 18])
     one = np.zeros(B, dtype=bool)
     one[3] = True
-    cases.append(case("unaligned D and W", one, rng.random((B, B)) < 2.5 / B,
-                      weights(rng, rng.random((B, B)) < 2.5 / B),
+    cases.append(case("unaligned D", one, rng.random((B, B)) < 2.5 / B,
                       padded=False))
     B = CHAIN_NODES
     chain = np.zeros((B, B), dtype=bool)
     chain[np.arange(B - 1), np.arange(1, B)] = True
     head = np.zeros(B, dtype=bool)
     head[0] = True
-    cases.append(case(f"chain of {B}", head, chain, weights(rng, chain)))
+    cases.append(case(f"chain of {B}", head, chain))
     return cases
 
 
 def _parity_fixpoints(dev) -> int:
-    """or_and_fixpoint and min_plus_fixpoint on every case of
-    :func:`_fixpoint_cases`: x / d and the steps bit-equal to the plain
-    versions, one fixpoint launch a call and the copies counted."""
+    """or_and_fixpoint on every case of :func:`_fixpoint_cases`: x and the
+    steps bit-equal to the plain version, one fixpoint launch a call and
+    the copies counted."""
     from repro_torch.kernels.bool_matmul import (or_and_fixpoint,
                                                  or_and_fixpoint_ref)
     from repro_torch.kernels.bool_matmul import ops as bops
-    from repro_torch.kernels.tropical_matmul import (min_plus_fixpoint,
-                                                     min_plus_fixpoint_ref)
-    from repro_torch.kernels.tropical_matmul import ops as tops
     n = 0
-    for name, x0, D, d0, W, copies in _fixpoint_cases(dev):
-        for ops, fn, ref, a, b in (
-                (bops, or_and_fixpoint, or_and_fixpoint_ref, x0, D),
-                (tops, min_plus_fixpoint, min_plus_fixpoint_ref, d0, W)):
-            before = (ops.fixpoint_launches, ops.launches, ops.copies)
-            got, steps = fn(a, b)
-            if (ops.fixpoint_launches - before[0], ops.launches - before[1],
-                    ops.copies - before[2]) != (1, 0, copies):
-                raise AssertionError(f"{fn.__name__} {name}: not one "
-                                     f"fixpoint launch with {copies} copies")
-            want, want_steps = ref(a, b)
-            _check_equal(f"{fn.__name__} {name}", got, want)
-            _check_equal(f"{fn.__name__} {name} steps", steps, want_steps)
-            n += 1
+    for name, x0, D, copies in _fixpoint_cases(dev):
+        before = (bops.fixpoint_launches, bops.launches, bops.copies)
+        got, steps = or_and_fixpoint(x0, D)
+        if (bops.fixpoint_launches - before[0], bops.launches - before[1],
+                bops.copies - before[2]) != (1, 0, copies):
+            raise AssertionError(f"or_and_fixpoint {name}: not one fixpoint "
+                                 f"launch with {copies} copies")
+        want, want_steps = or_and_fixpoint_ref(x0, D)
+        _check_equal(f"or_and_fixpoint {name}", got, want)
+        _check_equal(f"or_and_fixpoint {name} steps", steps, want_steps)
+        n += 1
     return n
 
 
@@ -1090,9 +1007,6 @@ def phase_main(out: dict):
     for name in ("or_and_matmul", "min_plus_matmul"):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the main path")
-    if squarings["or_and_skinny"] or launches["or_and_skinny"]:
-        raise AssertionError("the closure squarings or the composes took the "
-                             "or-and skinny route")
     _assert_no_copies("main path")
     checked = _check_reach_dist(g, queries, results)
     print(f"main: cache build (warm, reach + dist) {warm_ms:.1f} ms; "
@@ -1753,104 +1667,73 @@ def _barrier_ms_per_step(blocks: int) -> float:
     return (cuda_timed(probe(PROBE_STEPS), 3)[0] - empty) / PROBE_STEPS
 
 
-def _evaldg_timed(name, kind, D, src, tgt, want, reps=3) -> dict:
-    """The whole evalDG fixpoint of a checked query (its answer ``want``)
-    on the card: the fixpoint kernel alone (its wrapper) and, for reach,
-    the engine's ``evaldg_reach`` around it (the answer read back), CUDA
-    events around ``reps`` runs each, and the plain version (a host loop of
-    one product and one sync a step) once; x or d and the steps held equal
-    to the plain version's.  For dist the engine runs the settle kernel
-    instead (:func:`_settle_timed`), so the answer is the least d over the
-    targets.  A host loop of the per-step product
-    counts each step's new rows |Delta_t|, the rows that ever enter Delta
-    and each step's frontier.  The bound is the bytes the fixpoint must
-    read: each row that ever enters Delta once (for dist, each row whose
-    distance ends finite), N elements of D or W (1 or 4 bytes) each, plus
-    two vector passes (2 N) a step.  Printed beside it: the bytes the
-    kernel's schedule reads, a row each time it enters Delta (sum_t
-    |Delta_t| N + 2 N; the same for reach, whose rows enter once, more for
-    dist, whose rows enter again when their distance falls), and the old
-    bound, the rows each step's frontier holds (sum_t |x_t| N + 2 N).  The
-    floor is the empty step's cost (the grid-barrier probe at this
-    fixpoint's grid) times the steps."""
+def _evaldg_timed(name, D, src, tgt, want, reps=3) -> dict:
+    """The whole evalDG fixpoint of a checked reach query (its answer
+    ``want``) on the card: the fixpoint kernel alone (its wrapper) and the
+    engine's ``evaldg_reach`` around it (the answer read back), CUDA
+    events around ``reps`` runs each, and the plain version (a host loop
+    of one product and one sync a step) once; x and the steps held equal
+    to the plain version's.  A host loop of the steps, each ORing the rows
+    of D that the step before added (the kernel's schedule, whose iterates
+    are the naive loop's), counts each step's new rows |Delta_t|, the rows
+    that ever enter Delta and each step's frontier.  The bound is the
+    bytes the fixpoint must read: each row that ever enters Delta once, N
+    bytes each, plus two vector passes (2 N) a step.  Printed beside it:
+    the old bound, the rows each step's frontier holds (sum_t |x_t| N +
+    2 N).  The floor is the empty step's cost (the grid-barrier probe at
+    this fixpoint's grid) times the steps."""
     import torch
     from repro_torch.core import engine
     from repro_torch.kernels.bool_matmul import ops as bops
-    from repro_torch.kernels.bool_matmul import or_and_matmul
-    from repro_torch.kernels.tropical_matmul import ops as tops
-    from repro_torch.kernels.tropical_matmul import min_plus_matmul
     K, N = D.shape
-    if kind == "reach":
-        ops, elem, a0 = bops, 1, src
-        fix, ref = bops.or_and_fixpoint, bops.or_and_fixpoint_ref
-        evaldg, step = engine.evaldg_reach, or_and_matmul
-        grew = lambda nxt, cur: nxt & ~cur
-        held = lambda cur: cur
-    else:
-        ops, elem = tops, 4
-        a0 = torch.full((K,), engine.INF, dtype=torch.int32, device=D.device)
-        a0.masked_fill_(src, 0)
-        fix, ref = tops.min_plus_fixpoint, tops.min_plus_fixpoint_ref
-        evaldg, step = None, min_plus_matmul
-        grew = lambda nxt, cur: nxt < cur
-        held = lambda cur: cur < engine.INF
     delta, frontier = [], []
-    cur, prev = a0, None
+    cur, new = src, src
     entered = torch.zeros(K, dtype=torch.bool, device=D.device)
-    while bool(held(cur).any()):          # the fixpoint's own steps
-        new = held(cur) if prev is None else grew(cur, prev)
+    while bool(new.any()):                # the fixpoint's own steps
         delta.append(int(new.sum()))
         entered |= new
-        frontier.append(int(held(cur).sum()))
-        nxt = step(cur[None, :], D, init=cur[None, :])[0]
-        if torch.equal(nxt, cur):
-            break
-        prev, cur = cur, nxt
-    before = ops.fixpoint_launches
-    ms, (got, steps) = cuda_timed(lambda: fix(a0, D), reps)
-    if ops.fixpoint_launches - before != reps + 1:
+        frontier.append(int(cur.sum()))
+        nxt = cur | D[new].any(dim=0)
+        new = nxt & ~cur
+        cur = nxt
+    del cur, new
+    before = bops.fixpoint_launches
+    ms, (got, steps) = cuda_timed(lambda: bops.or_and_fixpoint(src, D), reps)
+    if bops.fixpoint_launches - before != reps + 1:
         raise AssertionError(f"{name}: not one fixpoint launch a call")
-    if evaldg is None:
-        evaldg_ms, ans = None, int(torch.where(tgt, got, engine.INF).min())
-    else:
-        before = ops.fixpoint_launches
-        evaldg_ms, ans = cuda_timed(lambda: evaldg(D, src, tgt), reps)
-        if ops.fixpoint_launches - before != reps + 1:
-            raise AssertionError(f"{name}: not one fixpoint launch an "
-                                 "evalDG")
-    plain_ms, (want_x, want_steps) = cuda_timed(lambda: ref(a0, D), 1,
-                                                warmup=False)
+    before = bops.fixpoint_launches
+    evaldg_ms, ans = cuda_timed(lambda: engine.evaldg_reach(D, src, tgt),
+                                reps)
+    if bops.fixpoint_launches - before != reps + 1:
+        raise AssertionError(f"{name}: not one fixpoint launch an evalDG")
+    plain_ms, (want_x, want_steps) = cuda_timed(
+        lambda: bops.or_and_fixpoint_ref(src, D), 1, warmup=False)
     _check_equal(f"{name} fixpoint", got, want_x)
     _check_equal(f"{name} fixpoint steps", steps, want_steps)
     if ans != want or int(steps) != len(delta):
         raise AssertionError(f"{name}: evalDG gave {ans} in {int(steps)} "
                              f"steps, expected {want} in {len(delta)}")
     del got, want_x
-    blocks = ops._card_fixpoint_route(0, K).blocks
+    blocks = bops._card_fixpoint_route(0, K).blocks
     barrier = _barrier_ms_per_step(blocks)
     distinct = int(entered.sum())
     del entered
-    nbytes = (distinct * N + 2 * N * len(delta)) * elem
+    nbytes = distinct * N + 2 * N * len(delta)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    entry_bytes = sum(r * N + 2 * N for r in delta) * elem
-    entry_bound_ms = entry_bytes / HBM_BYTES_PER_S * 1e3
-    old_bytes = sum(r * N + 2 * N for r in frontier) * elem
+    old_bytes = sum(r * N + 2 * N for r in frontier)
     old_bound_ms = old_bytes / HBM_BYTES_PER_S * 1e3
     floor_ms = barrier * len(delta)
-    around = "" if evaldg_ms is None else f", evaldg {evaldg_ms:.4f} ms"
-    print(f"time {name} fixpoint: kernel {ms:.4f} ms{around}, plain "
-          f"{plain_ms:.3f} ms, in {len(delta)} steps (new rows "
-          f"{delta}); bound {bound_ms:.4f} ms ({distinct} rows read once, "
-          f"bytes {nbytes}, {100 * bound_ms / ms:.2f} %); a row each time "
-          f"it enters Delta ({sum(delta)} rows) {entry_bound_ms:.4f} ms "
-          f"({100 * entry_bound_ms / ms:.2f} %); rows the frontiers hold "
-          f"{frontier}, {old_bound_ms:.4f} ms; {blocks} blocks, empty step "
-          f"{1e3 * barrier:.2f} us, floor {floor_ms:.4f} ms")
+    print(f"time {name} fixpoint: kernel {ms:.4f} ms, evaldg "
+          f"{evaldg_ms:.4f} ms, plain {plain_ms:.3f} ms, in {len(delta)} "
+          f"steps (new rows {delta}); bound {bound_ms:.4f} ms ({distinct} "
+          f"rows read once, bytes {nbytes}, {100 * bound_ms / ms:.2f} %); "
+          f"rows the frontiers hold {frontier}, {old_bound_ms:.4f} ms; "
+          f"{blocks} blocks, empty step {1e3 * barrier:.2f} us, floor "
+          f"{floor_ms:.4f} ms")
     return {"ms": ms, "evaldg_ms": evaldg_ms, "plain_ms": plain_ms,
             "steps": len(delta), "delta_rows": delta,
             "frontier_rows": frontier, "distinct_rows": distinct,
             "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
-            "entry_bound_ms": entry_bound_ms, "entry_bytes": entry_bytes,
             "frontier_bound_ms": old_bound_ms, "blocks": blocks,
             "barrier_ms_per_step": barrier, "barrier_floor_ms": floor_ms,
             "max_abs_err": 0.0, "shape": f"[{K}], [{K},{N}]"}
@@ -1862,7 +1745,7 @@ def _settle_timed(W, src, tgt, want, reps=3) -> dict:
     (``dist``) and with bound 6 (``bounded``): the kernel alone (its
     wrapper) and the engine's ``evaldg_dist`` around it (the state read
     back), CUDA events around ``reps`` runs each, each call one launch
-    counted as the settle kernel's and none as the min-plus fixpoint's; and
+    counted as the settle kernel's; and
     the plain version ``min_plus_settle_ref`` (the same schedule in
     PyTorch, a host sync a level) once, whose whole state [answer, levels,
     rows] the kernel's must equal.  The bound is the bytes of the rows it
@@ -1877,14 +1760,12 @@ def _settle_timed(W, src, tgt, want, reps=3) -> dict:
     res = {}
     for kind, bound in (("dist", None), ("bounded", 6)):
         expect = want if bound is None or want <= bound else engine.INF
-        before = (tops.fixpoint_launches, tops.settle_launches)
+        before = tops.settle_launches
         ms, got = cuda_timed(
             lambda b=bound: tops.min_plus_settle(d0, W, tgt, b), reps)
         evaldg_ms, ans = cuda_timed(
             lambda b=bound: engine.evaldg_dist(W, src, tgt, bound=b), reps)
-        n = 2 * (reps + 1)
-        if (tops.fixpoint_launches - before[0],
-                tops.settle_launches - before[1]) != (n, n):
+        if tops.settle_launches - before != 2 * (reps + 1):
             raise AssertionError(f"min_plus_settle {kind}: not one settle "
                                  "launch a call")
         plain_ms, want_state = cuda_timed(
@@ -1912,41 +1793,6 @@ def _settle_timed(W, src, tgt, want, reps=3) -> dict:
                 "blocks": blocks, "max_abs_err": 0.0,
                 "shape": f"[{B}], [{B},{B}] (pitch {pitch_bytes} bytes)"})
     return res
-
-
-def _dense_step(name, D, reps=20) -> dict:
-    """evalDG's step on D as stored with every row of x set, so that every
-    row of D is read: the skinny route against its plain version
-    (bit-equal), its bound (K N + K + N bytes), the library call
-    ``(x.half() @ D.half()) > 0``, and the tile route on the same x
-    through D^T (its K-major copy made once, outside the timing)."""
-    import torch
-    from repro_torch.kernels.bool_matmul import (kmajor_copy, or_and_matmul,
-                                                 or_and_matmul_nt,
-                                                 or_and_matmul_ref)
-    from repro_torch.kernels.bool_matmul import ops as bops
-    K, N = D.shape
-    x = bops.padded_zeros(1, K, D.device)
-    x[:] = True
-    before = bops.skinny_launches
-    Dh = D.half()
-    entry = _time_shape(f"{name} step", "or_and",
-                        lambda: or_and_matmul(x, D),
-                        lambda: or_and_matmul_ref(x, D),
-                        lambda: (x.half() @ Dh) > 0, 1, K, N, 0.0,
-                        reps=reps)
-    del Dh
-    if bops.skinny_launches == before:
-        raise AssertionError(f"{name} step: not on the skinny route")
-    entry["route"] = bops._card_route(0, 1, K, N, True)._asdict()
-    Dt = kmajor_copy(D.T)
-    entry["tile_ms"], got = cuda_timed(lambda: or_and_matmul_nt(x, Dt), reps)
-    _check_equal(f"{name} step, tile route", got, or_and_matmul_ref(x, D))
-    del Dt, got
-    torch.cuda.empty_cache()
-    print(f"time {name} step: skinny {entry['ms']:.4f} ms, tile route "
-          f"through D^T {entry['tile_ms']:.4f} ms, route {entry['route']}")
-    return entry
 
 
 def _rpq_targets(g, s: int, qa) -> np.ndarray:
@@ -2129,60 +1975,37 @@ def phase_oneshot(out: dict, g, fr) -> None:
           f"exec_reach / exec_rpq, D bit-equal; launches "
           f"{sharded['launches']}")
 
-    # evalDG's vector-matrix step, M = 1, for both kernels: the or-and step
-    # on D as stored with every row of x set, and the min-plus step; then
-    # the whole fixpoint of each split query through its fixpoint kernel
+    # the min-plus product at evalDG's vector-matrix shape, M = 1; then the
+    # split reach query through the or-and fixpoint kernel and the split
+    # dist query through the settle kernel
     B = fr.B
     dpx = out["kernels"][1]["dpx_ops_per_s"]
-    step = _dense_step("evaldg_reach", D)
-    shapes = {"or_and_skinny": [step],
-              "min_plus_matmul": [_time_shape(
+    shapes = {"min_plus_matmul": [_time_shape(
                   "evaldg_dist step", "min_plus",
                   lambda: min_plus_matmul(d[None, :], W, init=d[None, :]),
                   lambda: min_plus_matmul_ref(d[None, :], W, d[None, :]),
                   None, 1, B, B, dpx, former=(d[None, :], W, d[None, :], 20),
                   floor=True)]}
     fixpoints = {"or_and_fixpoint": _evaldg_timed(
-                     "evaldg_reach", "reach", D, src, tgt, ans),
-                 "min_plus_fixpoint": _evaldg_timed(
-                     "min_plus", "dist", W, srcd, tgtd, ans_d),
+                     "evaldg_reach", D, src, tgt, ans),
                  "min_plus_settle": _settle_timed(W, srcd, tgtd, ans_d)}
     del D, W
     torch.cuda.empty_cache()
-    # the or-and kernel's second route has a source of its own; since the
-    # fixpoint kernels took evalDG over, no path launches it (0 asserted
-    # on the one-shot path, whose count this is)
+    # the or-and fixpoint kernel: its launches are the one-shot run's (one
+    # for each Reach); no one PyTorch call computes a fixpoint, so no
+    # library time
+    fx = fixpoints["or_and_fixpoint"]
     out["kernels"].append(
-        {"name": "or_and_skinny", "route": "cuda",
-         "source": "src/repro_torch/kernels/bool_matmul/csrc/or_and_skinny.cu",
+        {"name": "or_and_fixpoint", "route": "cuda",
+         "source": "src/repro_torch/kernels/bool_matmul/csrc/"
+                   "or_and_skinny.cu",
          "replaces": "src/repro/kernels/bool_matmul/bool_matmul.py:42",
-         "launches": launches["or_and_skinny"], "launches_path": "oneshot",
-         "max_abs_err": step["max_abs_err"], "ms": step["ms"],
-         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
-         "bound_by": step["bound_by"], "library_ms": step["library_ms"],
-         "shape": step["shape"] + ", every row of x set",
-         "tile_route_ms": step["tile_ms"],
+         "launches": launches["or_and_fixpoint"], "launches_path": "oneshot",
+         "max_abs_err": fx["max_abs_err"], "ms": fx["ms"],
+         "plain_ms": fx["plain_ms"], "bound_ms": fx["bound_ms"],
+         "bound_by": fx["bound_by"], "library_ms": None,
+         "shape": fx["shape"] + f", {fx['steps']} steps", "fixpoint": fx,
          **out["build"]["or_and_skinny"]})
-    # the two fixpoint kernels: their launches are the one-shot run's (one
-    # for each Reach; none of min_plus_fixpoint, which no path runs since
-    # the settle kernel took evalDG's dist over); no one PyTorch call
-    # computes a fixpoint, so no library time
-    for name, source, replaces in (
-            ("or_and_fixpoint", "bool_matmul/csrc/or_and_skinny.cu",
-             "bool_matmul/bool_matmul.py:42"),
-            ("min_plus_fixpoint", "tropical_matmul/csrc/min_plus_matmul.cu",
-             "tropical_matmul/tropical_matmul.py:51")):
-        fx = fixpoints[name]
-        out["kernels"].append(
-            {"name": name, "route": "cuda",
-             "source": f"src/repro_torch/kernels/{source}",
-             "replaces": f"src/repro/kernels/{replaces}",
-             "launches": launches[name], "launches_path": "oneshot",
-             "max_abs_err": fx["max_abs_err"], "ms": fx["ms"],
-             "plain_ms": fx["plain_ms"], "bound_ms": fx["bound_ms"],
-             "bound_by": fx["bound_by"], "library_ms": None,
-             "shape": fx["shape"] + f", {fx['steps']} steps",
-             "fixpoint": fx})
     # the settle kernel: one launch for each one-shot Dist; ms, plain and
     # bound of the unbounded split query (the bounded one under by_kind)
     st = fixpoints["min_plus_settle"]
@@ -2489,9 +2312,6 @@ def phase_dynamic(out: dict, g):
         ms = (time.perf_counter() - t0) * 1e3
         launches = _launches()
         _assert_no_copies(f"dynamic {label} delta")
-        if launches["or_and_skinny"]:
-            raise AssertionError(f"dynamic {label} delta: the rank update "
-                                 "took the or-and skinny route")
         if stats.mode == "repair":
             # B1's layout copies in a repair: the r x r closure's two and
             # C[:, R] (rows_new is gathered padded, T^T comes from T's
@@ -3279,7 +3099,7 @@ def phase_baselines(out: dict, g, fr) -> None:
           f"round, {o_res.stats.payload_bits} bits, {o_ms:.1f} ms")
     # the chain's evalDG alone: one fixpoint of about n steps
     D, src, tgt = _kept_evaldg(lambda: dis_reach(cfr, 0, n - 1))
-    chain_fx = _evaldg_timed("chain evaldg", "reach", D, src, tgt, True)
+    chain_fx = _evaldg_timed("chain evaldg", D, src, tgt, True)
     del D, src, tgt
     out["baselines"] = {"pairs": summary, "launches": launches,
                         "chain": {"m_rounds": m_res.rounds, "m_ms": m_ms,
@@ -3325,10 +3145,9 @@ def phase_mapreduce(out: dict, g, fr) -> None:
     answers equal the one-shot RPQ's and the product-graph BFS; each
     reducer's evalDG one fixpoint launch, no per-step product, no copy;
     the device memory peak printed (the reference would stack 16 mapper
-    outputs of 6.4 GB); the map / evalDG split; B1's skinny route held
-    against its plain version at the reducer's evalDG step, [1, 80205] x
-    [80205, 80205] on D as stored, and the reducer's whole fixpoint through
-    the fixpoint kernel, timed against the bytes it reads."""
+    outputs of 6.4 GB); the map / evalDG split; and the reducer's whole
+    fixpoint, [1, 80205] x [80205, 80205] on D as stored, through the
+    fixpoint kernel, timed against the bytes it reads."""
     import torch
     from repro_torch.core.automaton import build_query_automaton
     from repro_torch.core.mapreduce import mr_drpq
@@ -3376,15 +3195,12 @@ def phase_mapreduce(out: dict, g, fr) -> None:
     # query, rebuilt here
     s, t = pairs[0].tolist()
     D, src, tgt = _kept_evaldg(lambda: mr_drpq(fr, s, t, qa))
-    fixpoint = _evaldg_timed("mr evaldg", "reach", D, src, tgt,
-                             bool(want[0]))
-    shape = _dense_step("mr evaldg", D, reps=5)
+    fixpoint = _evaldg_timed("mr evaldg", D, src, tgt, bool(want[0]))
     del D, src, tgt
     torch.cuda.empty_cache()
     out["mapreduce"] = {"run_ms": run_ms, "launches": launches,
                         "split_ms": split, "peak_bytes": peak,
-                        "stacked_bytes": stacked, "fixpoint": fixpoint,
-                        "shapes": {"or_and_skinny": [shape]}}
+                        "stacked_bytes": stacked, "fixpoint": fixpoint}
 
 
 # ---------------------------------------------------------------------------
@@ -5592,22 +5408,16 @@ def _main(dry: list) -> int:
             ex: run["launches"][name]
             for ex, run in out["examples"].items()}
         k["new_shapes"] = (out["oneshot"]["shapes"].get(name, [])
-                           + out["dynamic"]["shapes"].get(name, [])
-                           + out["mapreduce"]["shapes"].get(name, []))
+                           + out["dynamic"]["shapes"].get(name, []))
         if name == "or_and_matmul":
-            # the skinny route's launches within this kernel's, the
-            # fixpoint kernel's beside them, and the wrapper's K-major and
-            # row copies: 0 skinny launches and copies asserted on the
+            # the fixpoint kernel's launches beside this kernel's, and the
+            # wrapper's K-major and row copies: 0 copies asserted on the
             # one-shot, baselines and MR paths and the sharded one-shot
             # functions, each evalDG there one fixpoint launch
-            k["skinny_launches"] = {p: n["or_and_skinny"]
-                                    for p, n in paths.items()}
             k["fixpoint_launches"] = {p: n["or_and_fixpoint"]
                                       for p, n in paths.items()}
             k["copies"] = {p: n["or_and_copies"] for p, n in paths.items()}
         if name == "min_plus_matmul":
-            k["fixpoint_launches"] = {p: n["min_plus_fixpoint"]
-                                      for p, n in paths.items()}
             k["settle_launches"] = {p: n["min_plus_settle"]
                                     for p, n in paths.items()}
             shapes = {s["path"]: s for s in k["new_shapes"]}

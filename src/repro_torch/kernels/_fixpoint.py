@@ -1,12 +1,10 @@
-"""The launch plan and the binding shared by evalDG's fixpoint kernels,
-``bool_matmul.or_and_fixpoint`` (``bool_matmul/csrc/or_and_skinny.cu``)
-and ``tropical_matmul.min_plus_fixpoint``
+"""The launch plan and the binding shared by evalDG's two cooperative
+kernels, ``bool_matmul.or_and_fixpoint`` (``bool_matmul/csrc/
+or_and_skinny.cu``) and ``tropical_matmul.min_plus_settle``
 (``tropical_matmul/csrc/min_plus_matmul.cu``), whose device code shares
-``fixpoint.cuh``.  Both are one cooperative launch with the same C
-signature; they differ in the library, the entry point and the width of
-a column strip, which each ``ops.py`` passes in.  The grid and the
-binding also serve ``tropical_matmul.min_plus_settle``, a cooperative
-launch whose arguments before the common tail differ (:func:`call`).
+``fixpoint.cuh``.  Each C entry point ends in (B, blocks, stream); the
+library, the entry point, the arguments before that tail and the width of
+a column strip are what each ``ops.py`` passes to :func:`call`.
 """
 from __future__ import annotations
 
@@ -51,11 +49,6 @@ def route(K: int, N: int, strip: int, sms: int = 132,
     slots = max(1, sms * min(per_sm, MAX_PER_SM))
     useful = max(1, -(-K // MIN_ROWS)) * strips
     return FixRoute(min(slots, useful), strips)
-
-
-#: the C arguments of both fixpoint kernels before the common tail (B,
-#: blocks, stream): v0 and its pitch, M and its pitch, out, acc, rows, state
-FIXPOINT_ARGS = ((ctypes.c_void_p, ctypes.c_int) * 2 + (ctypes.c_void_p,) * 4)
 
 
 @functools.cache
@@ -107,15 +100,3 @@ def call(source: str, name: str, strip: int, index: int, B: int,
         code = fn(*args, B, blocks,
                   torch._C._cuda_getCurrentRawStream(index))
     check(lib, name, code)
-
-
-def launch(source: str, name: str, strip: int, v0: torch.Tensor,
-           M: torch.Tensor, out: torch.Tensor, acc: torch.Tensor,
-           rows: torch.Tensor, state: torch.Tensor) -> None:
-    """One cooperative launch of fixpoint ``name`` from the vector v0 [B]
-    on M [B, B] (:func:`call`): ``out`` gets the fixpoint, ``state[0]``
-    the steps; ``acc`` and ``rows`` are scratch.  The caller checks
-    shapes, layouts and int32 limits, and counts the launch."""
-    call(source, name, strip, out.device.index, v0.shape[0], FIXPOINT_ARGS,
-         (v0.data_ptr(), v0.stride(0), M.data_ptr(), M.stride(0),
-          out.data_ptr(), acc.data_ptr(), rows.data_ptr(), state.data_ptr()))

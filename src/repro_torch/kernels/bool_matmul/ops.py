@@ -1,38 +1,33 @@
 """Or-and matrix product: the hand-written CUDA kernels on a CUDA tensor,
 the plain version (``ref.py``) on a CPU tensor.
 
-The kernels replace the TPU kernel
-``src/repro/kernels/bool_matmul/bool_matmul.py::bool_matmul_pallas``, on
-two routes that :func:`_route` picks (a pure function of the shape and of
-the right operand's layout, so that the CPU tests reach the choice):
-
-- the tile route, ``csrc/or_and_matmul.cu``, on Hopper's 8-bit tensor
-  cores.  It squares the boundary closure (``core.bes.bool_closure_kmajor``)
-  and each RPQ product closure, and composes every batched reach and RPQ
-  answer (``core.cache.combine_bool``);
-- the skinny route, ``csrc/or_and_skinny.cu``, for at most
-  :data:`SKINNY_MAX_M` rows with the right operand read as it is stored.
+The product kernel, ``csrc/or_and_matmul.cu``, replaces the TPU kernel
+``src/repro/kernels/bool_matmul/bool_matmul.py::bool_matmul_pallas`` on
+Hopper's 8-bit tensor cores.  It squares the boundary closure
+(``core.bes.bool_closure_kmajor``) and each RPQ product closure, and
+composes every batched reach and RPQ answer (``core.cache.combine_bool``).
 
 The rank update's last product takes a floor pair,
 :func:`or_and_floor_pair` ``(a, b_t, C, Ct)``: one persistent launch of a
-second kernel in the tile route's source writes ``C | P`` and ``Ct | P^T``
+second kernel in the same source writes ``C | P`` and ``Ct | P^T``
 (counted also in :data:`floor_launches`), so no OR pass over the closure
 follows the product.
 
-evalDG's whole fixpoint (``core.engine.evaldg_reach``) is one launch of a
-third kernel in the skinny route's source, :func:`or_and_fixpoint`: each
-step reads only the rows of D that the step before added to the frontier,
-on D as it is stored, so that no query copies its dependency matrix.
+evalDG's whole fixpoint (``core.engine.evaldg_reach``) is one cooperative
+launch of a third kernel, :func:`or_and_fixpoint`, in
+``csrc/or_and_skinny.cu``: each step reads only the rows of D that the
+step before added to the frontier, on D as it is stored, so that no query
+copies its dependency matrix.
 
-Layout rule.  The tile route reads both operands K-major: the left operand
-``a [M, K]`` and the right one as ``b_t [N, K]`` (the transpose of ``b [K,
-N]``), each row-major with K contiguous and every row starting on a
-16-byte boundary (:data:`ALIGN`), as the tensor-memory copies need.
+Layout rule.  The product kernels read both operands K-major: the left
+operand ``a [M, K]`` and the right one as ``b_t [N, K]`` (the transpose of
+``b [K, N]``), each row-major with K contiguous and every row starting on
+a 16-byte boundary (:data:`ALIGN`), as the tensor-memory copies need.
 :func:`kmajor` makes such an operand (one padded copy, counted in
 :data:`copies`, or the tensor itself when it already is one), and the
 kernels' outputs are allocated that way (:func:`padded`), so a chain of
-products, and a closure's pair ``(C, C^T)``, never copies.  The skinny
-route reads ``b [K, N]`` itself, rows a multiple of 16 bytes apart and its
+products, and a closure's pair ``(C, C^T)``, never copies.  The fixpoint
+reads ``D [B, B]`` itself, rows a multiple of 16 bytes apart and its
 storage reaching the last row's last 16-byte group (:func:`rows_aligned`):
 D is made that way from the start (:func:`padded_zeros`).
 """
@@ -41,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -49,12 +44,8 @@ from .. import _fixpoint
 from .ref import (or_and_fixpoint_ref, or_and_floor_pair_ref,
                   or_and_matmul_nt_ref, or_and_matmul_ref)
 
-#: launches of the CUDA kernels (both routes) since the count was last set
-#: to 0
+#: launches of the product kernels since the count was last set to 0
 launches = 0
-
-#: launches of the skinny route alone, also counted in :data:`launches`
-skinny_launches = 0
 
 #: launches of the floor-pair kernel alone (:func:`or_and_floor_pair`),
 #: also counted in :data:`launches`
@@ -73,16 +64,13 @@ copies = 0
 _count_lock = threading.Lock()
 
 
-def _count_launch(skinny: bool = False, floor: bool = False) -> None:
-    """Add one to :data:`launches` (and to :data:`skinny_launches` for the
-    skinny route, :data:`floor_launches` for the floor pair), atomically:
-    the scheduler thread and the repair worker of a server launch kernels
-    at the same time."""
-    global launches, skinny_launches, floor_launches
+def _count_launch(floor: bool = False) -> None:
+    """Add one to :data:`launches` (and to :data:`floor_launches` for the
+    floor pair), atomically: the scheduler thread and the repair worker of
+    a server launch kernels at the same time."""
+    global launches, floor_launches
     with _count_lock:
         launches += 1
-        if skinny:
-            skinny_launches += 1
         if floor:
             floor_launches += 1
 
@@ -133,8 +121,8 @@ def padded(rows: int, cols: int, device) -> torch.Tensor:
 
 def padded_zeros(rows: int, cols: int, device) -> torch.Tensor:
     """:func:`padded` storage with every byte, pads included, zero: the
-    layout in which the paths make a matrix that the skinny route reads,
-    such as evalDG's D."""
+    layout in which the paths make evalDG's D, which the fixpoint reads as
+    it is stored."""
     buf = torch.zeros((rows, pitch(cols)), dtype=torch.bool, device=device)
     return buf[:, :cols]
 
@@ -190,35 +178,10 @@ def _check(a: torch.Tensor, b: torch.Tensor, k_dim: int, name: str) -> None:
         raise ValueError(f"{name} runs on cpu or cuda, not {a.device}")
 
 
-#: products with at most this many rows may take the skinny route
-SKINNY_MAX_M = 8
-
-#: threads of a skinny block, and rows of K in each of its chunks
-SKINNY_THREADS = 128
-
-#: columns (bytes) a skinny thread owns: one 16-byte load of a row of b
-SKINNY_COLS = 16
-
-#: skinny blocks resident on one SM, by rows per thread, where the card is
-#: not asked (the CPU tests): the counts the H100 gave for this kernel; on
-#: the card the kernel's occupancy is read
-PER_SM_GUESS = {1: 16, 2: 10, 4: 9, 8: 6}
-
-
-class Route(NamedTuple):
-    """How one ``a [M, K] (or-and) b [K, N]`` product is launched: ``kind``
-    "skinny" (``rows`` accumulators a thread, M rounded up to a power of
-    two; K cut into ``split`` ranges of whole chunks, one block each per
-    column strip) or "tile" (the other fields unused)."""
-    kind: str
-    rows: int = 0
-    split: int = 1
-
-
 def rows_aligned(b: torch.Tensor) -> bool:
-    """Whether the skinny route can read ``b [K, N]`` as it is stored:
-    bool, N contiguous, base and row pitch multiples of :data:`ALIGN`, and
-    the storage reaching the end of the last row's last 16-byte group (the
+    """Whether the fixpoint can read ``b [K, N]`` as it is stored: bool, N
+    contiguous, base and row pitch multiples of :data:`ALIGN`, and the
+    storage reaching the end of the last row's last 16-byte group (the
     kernel loads that group whole and masks the bytes past N), as
     :func:`padded_zeros` makes it."""
     if not is_kmajor(b):
@@ -230,121 +193,18 @@ def rows_aligned(b: torch.Tensor) -> bool:
     return end <= b.untyped_storage().nbytes()
 
 
-def _route(M: int, K: int, N: int, aligned: bool, sms: int = 132,
-           per_sm: Optional[int] = None) -> Route:
-    """The route of an [M, K] x [K, N] product whose right operand is
-    :func:`rows_aligned` or not, on a card of ``sms`` SMs holding
-    ``per_sm`` skinny blocks each.
+def or_and_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[i, j] = OR_k (a[i, k] AND b[k, j]) for bool a [M, K], b [K, N].
 
-    Up to :data:`SKINNY_MAX_M` rows and an aligned ``b``: the skinny route,
-    with K split so that the column strips times the splits fill the
-    card's block slots once, in whole chunks of :data:`SKINNY_THREADS`
-    rows (no split is left empty; K = 0 takes one split, which ORs in
-    ``init``).  Otherwise the tile route, which reads ``kmajor(b.T)``."""
-    if M > SKINNY_MAX_M or not aligned:
-        return Route("tile")
-    rows = 1
-    while rows < M:
-        rows *= 2
-    if per_sm is None:
-        per_sm = PER_SM_GUESS[rows]
-    strips = max(1, -(-N // (SKINNY_THREADS * SKINNY_COLS)))
-    chunks = max(1, -(-K // SKINNY_THREADS))
-    split = max(1, min(sms * per_sm // strips, chunks, 65535))
-    per = -(-chunks // split)                 # chunks a K range
-    return Route("skinny", rows, -(-chunks // per))
-
-
-@functools.cache
-def _skinny_entries():
-    from .._build import check, library
-    lib = library("or_and_skinny")
-    fn = lib.or_and_skinny
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    per_sm = lib.or_and_skinny_blocks_per_sm
-    per_sm.argtypes = [ctypes.c_int]
-    per_sm.restype = ctypes.c_int
-    return lib, fn, per_sm, check
-
-
-@functools.cache
-def _card_route(index: int, M: int, K: int, N: int, aligned: bool) -> Route:
-    """:func:`_route` with the card's SM count and the skinny kernel's
-    occupancy read from the card."""
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    plan = _route(M, K, N, aligned, sms)
-    if plan.kind == "tile":
-        return plan
-    with torch.cuda.device(index):
-        per_sm = _skinny_entries()[2](plan.rows)
-    if per_sm <= 0:
-        raise RuntimeError(f"or_and_skinny occupancy query failed for "
-                           f"{plan.rows} rows")
-    return _route(M, K, N, aligned, sms, per_sm)
-
-
-def or_and_matmul(a: torch.Tensor, b: torch.Tensor, *,
-                  init: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """C[i, j] = init[i, j] OR (OR_k (a[i, k] AND b[k, j])) for bool
-    a [M, K], b [K, N] and the optional init [M, N] (no init: zeros).
-
-    On the card the route is :func:`_route`'s: the skinny route reads
-    ``b`` as it is stored (at most :data:`SKINNY_MAX_M` rows, ``b``
-    :func:`rows_aligned`) and merges ``init`` in the same launch; the tile
-    route reads ``kmajor(b.T)``, a counted copy unless a caller keeps
-    ``b``'s K-major copy and calls :func:`or_and_matmul_nt`, and ORs
-    ``init`` into its output.  Either way the card's result is a fresh
-    view of zero-padded storage (:func:`padded`), never ``init`` updated
-    in place; on the CPU the plain version's."""
+    On the card it is :func:`or_and_matmul_nt` on ``kmajor(b.T)``, a
+    counted copy unless ``b^T`` already is K-major (a caller that keeps
+    ``b``'s K-major copy calls :func:`or_and_matmul_nt` itself), and the
+    result is a view of padded storage (:func:`padded`); on the CPU the
+    plain version's."""
     _check(a, b, 0, "or_and_matmul")
-    M, K = a.shape
-    N = b.shape[1]
-    if init is not None:
-        if init.dtype != torch.bool or tuple(init.shape) != (M, N):
-            raise ValueError(f"init must be bool [{M}, {N}], got "
-                             f"{init.dtype} {tuple(init.shape)}")
-        if init.device != a.device:
-            raise ValueError(f"init on {init.device}, operands on "
-                             f"{a.device}")
     if a.device.type == "cpu":
-        return or_and_matmul_ref(a, b, init=init)
-    index = a.device.index
-    route = _card_route(index, M, K, N, rows_aligned(b))
-    if route.kind == "tile":
-        c = or_and_matmul_nt(a, kmajor(b.T))
-        if init is not None:
-            c |= init
-        return c
-    c = padded_zeros(M, N, a.device)
-    if M == 0 or N == 0:
-        return c
-    if index == torch._C._cuda_getDevice():
-        _launch_skinny(index, route, a, b, init, c)
-    else:
-        with torch.cuda.device(index):
-            _launch_skinny(index, route, a, b, init, c)
-    return c
-
-
-def _launch_skinny(index: int, route: Route, a, b, init, c) -> None:
-    """One launch of the skinny route on the current stream of device
-    ``index`` (the current device); ``c`` is zero, pads included."""
-    M, K = a.shape
-    N = b.shape[1]
-    ints = (M, K, N, *a.stride(), b.stride(0),
-            *((0, 0) if init is None else init.stride()), c.stride(0),
-            route.rows, route.split)
-    if max(ints) >= 2 ** 31:
-        raise ValueError("sizes and row pitches must fit in int32")
-    lib, fn, _, check = _skinny_entries()
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    code = fn(a.data_ptr(), b.data_ptr(),
-              None if init is None else init.data_ptr(), c.data_ptr(), *ints,
-              stream)
-    _count_launch(skinny=True)
-    check(lib, "or_and_skinny", code)
+        return or_and_matmul_ref(a, b)
+    return or_and_matmul_nt(a, kmajor(b.T))
 
 
 def or_and_matmul_nt(a: torch.Tensor, b_t: torch.Tensor, *,
@@ -444,8 +304,8 @@ def _launch_floor(a: torch.Tensor, b_t: torch.Tensor, init: torch.Tensor,
 
 
 def rows_copy(b: torch.Tensor) -> torch.Tensor:
-    """A :func:`padded_zeros` copy of ``b`` [K, N], which the skinny route
-    and the fixpoint read as it is stored, counted in :data:`copies`."""
+    """A :func:`padded_zeros` copy of ``b`` [K, N], which the fixpoint
+    reads as it is stored, counted in :data:`copies`."""
     _count_copy()
     return padded_zeros(*b.shape, b.device).copy_(b)
 
@@ -454,15 +314,19 @@ def rows_copy(b: torch.Tensor) -> torch.Tensor:
 # evalDG's fixpoint in one launch
 # ---------------------------------------------------------------------------
 
-#: columns of D in one strip of the fixpoint's grid
-FIXPOINT_STRIP = SKINNY_THREADS * SKINNY_COLS
+#: columns (bytes) of D in one strip of the fixpoint's grid: 128 threads a
+#: block, 16 columns (one 16-byte load) a thread
+FIXPOINT_STRIP = 128 * 16
+
+#: the fixpoint kernel's C arguments before (B, blocks, stream): x0 and its
+#: pitch, D and its pitch, x, acc, the list of rows, the state
+FIXPOINT_ARGS = ((ctypes.c_void_p, ctypes.c_int) * 2 + (ctypes.c_void_p,) * 4)
 
 
 def _fixpoint_route(K: int, N: int, sms: int = 132,
                     per_sm: Optional[int] = None) -> _fixpoint.FixRoute:
-    """The or-and fixpoint's grid (:func:`.._fixpoint.route`, blocks of
-    :data:`SKINNY_THREADS` threads over strips of :data:`FIXPOINT_STRIP`
-    bytes)."""
+    """The or-and fixpoint's grid (:func:`.._fixpoint.route`, strips of
+    :data:`FIXPOINT_STRIP` bytes)."""
     return _fixpoint.route(K, N, FIXPOINT_STRIP, sms, per_sm)
 
 
@@ -511,8 +375,12 @@ def or_and_fixpoint(x0: torch.Tensor, D: torch.Tensor
         raise ValueError("sizes and row pitches must fit in int32")
     # acc (16-byte aligned, one word for every 4 bytes of x's storage),
     # then the list of rows
-    work = torch.empty(pitch(B) // 4 + B, dtype=torch.int32, device=dev)
-    _fixpoint.launch("or_and_skinny", "or_and_fixpoint", FIXPOINT_STRIP, x0,
-                     D, x, work, work[pitch(B) // 4:], state)
+    width = pitch(B) // 4
+    work = torch.empty(width + B, dtype=torch.int32, device=dev)
+    _fixpoint.call("or_and_skinny", "or_and_fixpoint", FIXPOINT_STRIP,
+                   dev.index, B, FIXPOINT_ARGS,
+                   (x0.data_ptr(), x0.stride(0), D.data_ptr(), D.stride(0),
+                    x.data_ptr(), work.data_ptr(), work[width:].data_ptr(),
+                    state.data_ptr()))
     _count_fixpoint()
     return x, state[0]

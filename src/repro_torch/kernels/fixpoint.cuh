@@ -1,14 +1,14 @@
-// Device code shared by the two evalDG fixpoint kernels for Hopper
-// (sm_90a): or_and_fixpoint (bool_matmul/csrc/or_and_skinny.cu) and
-// min_plus_fixpoint (tropical_matmul/csrc/min_plus_matmul.cu).
+// Device code shared by evalDG's two cooperative kernels for Hopper
+// (sm_90a): or_and_fixpoint (bool_matmul/csrc/or_and_skinny.cu), the reach
+// fixpoint, and min_plus_settle (tropical_matmul/csrc/min_plus_matmul.cu),
+// the dist answer by levels.
 //
-// Both run a whole single-source fixpoint in one cooperative launch: every
+// Each runs a whole single-source search in one cooperative launch: every
 // block of the grid is resident at once (the grid is at most the SMs times
 // the blocks an SM holds), so the blocks can wait for each other between
-// the phases of a step.  Both keep a list of the frontier's new rows,
+// the phases of a step.  Each keeps lists of the rows a step reads,
 // appended to by every block with one atomicAdd a warp, and a small int32
-// state: [0] the steps taken, [1] and [2] the lengths of the current and
-// the next list, alternating by the step's parity.
+// state that holds the lists' lengths.
 #pragma once
 
 #include <cooperative_groups.h>

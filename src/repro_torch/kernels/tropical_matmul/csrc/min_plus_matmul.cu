@@ -52,10 +52,8 @@
 // on the same stream, by atomicMin.  Min is exact and order-free, so the
 // result is deterministic, and a product is still one launch.
 //
-// Fixpoint (min_plus_fixpoint), evalDG's whole Bellman-Ford loop in one
-// cooperative launch, and settle (min_plus_settle), evalDG's answer by
-// levels in one cooperative launch; their own comments are at the kernels
-// below.
+// Settle (min_plus_settle), evalDG's answer by levels in one cooperative
+// launch; its own comment is at the kernel below.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -361,48 +359,60 @@ struct Skinny {
 };
 
 // ---------------------------------------------------------------------------
-// evalDG's whole fixpoint in one launch: min_plus_fixpoint
+// evalDG's answer by levels (min_plus_settle)
 // ---------------------------------------------------------------------------
 //
-//   d_0 = d0, Delta_0 = {k : d0[k] < INF}
-//   d_{t+1}[j] = min(d_t[j], min_{k in Delta_t} d_t[k] + W[k, j]),
-//   Delta_{t+1} = {k : d_{t+1}[k] < d_t[k]}
-//
-// until Delta is empty; writes d [B] and the number of steps taken.  d0 [B]
-// is int32, read an element at a time through its stride; W [B, B] is
-// int32 with 16-byte rows as the product reads it.  Precondition, as for
-// the product: every entry of d0 and W lies in [0, INF], so no sum
-// overflows and every d_t stays in [0, INF].
+// A dist or bounded query wants one number of the fixpoint: the least d over
+// the target columns, and a bounded one only whether it is at most the bound.
+// min_plus_settle finds it as Dijkstra's algorithm does with integer buckets
+// (Dial's): it settles d level by level, L the least finite d, then the next
+// least, and so on, reads each row of W once, at the level of its final
+// distance, and stops as soon as the answer is fixed.
 //
 // Replaces the TPU kernel tropical_matmul_pallas as the reference's evalDG
 // runs it: one min-plus vector-matrix product a step, folded with min(d,
 // ., INF), inside one jax.lax.while_loop (src/repro/core/engine.py,
-// evaldg_dist).
+// evaldg_dist), whose least target distance it returns.  d0 [B] is int32,
+// read an element at a time through its stride; W [B, B] is int32 with
+// 16-byte rows as the product reads it.  Precondition, as for the product:
+// every entry of d0 and W lies in [0, INF], so no sum overflows.
 //
-// Why it is exact.  The iterates are the naive loop's, d_{t+1} = min(d_t,
-// d_t (min, +) W, INF), step for step: a row k outside Delta_t has d_t[k]
-// = d_{t-1}[k], and the step before already gave d_t[j] <= d_{t-1}[k] +
-// W[k, j] = d_t[k] + W[k, j] for every j, so the row cannot lower d_t.
-// Rows outside Delta_0 hold INF, and INF + W[k, j] >= INF changes nothing
-// under the cap.  The naive loop stops after its first step that changes
-// nothing, the first whose Delta comes out empty, so the steps are counted
-// as the host loop counts its launches (0 when d0 is all INF).  Min is
-// order-free: the result is the same in every run.
+// Why it is exact.  Entries of W lie in [0, INF], so a row expanded at level
+// L lowers d only to L or more.  Once every row whose d is below L has been
+// expanded, and the rows that fall to L (zero entries of W) have been
+// expanded in turn until none falls, no expansion can lower a d below the
+// least d left above L: that least value is final, and it is the next
+// level.  tmin, the least d over the targets, only falls; once it is at most
+// the next level it is final, and once the next level passes the bound no
+// target can end at or below the bound unless tmin already is.  The answer is
+// tmin where it is at most the bound, else INF: the plain fixpoint's least
+// target distance, INF above the bound.  Min is order-free, and the lists
+// below are sets, so the answer, the levels and the rows read are the same in
+// every run.
 //
-// What bounds it: bytes, 4 B per entry of each row of W that enters Delta
-// (a row may enter again when its distance falls again), where the host
-// loop read all of W at every step, plus two grid barriers and a pass over
-// d a step.
+// What bounds it: bytes, 4 B per entry of each row of W whose final distance
+// lies below the level at which it stops, each read once; plus, a round, a
+// pass over d and acc and two grid barriers.
 //
-// Design, as or_and_fixpoint's (bool_matmul/csrc/or_and_skinny.cu): a
-// cooperative grid of FX_THREADS-thread blocks; a step ORs, here mins, the
-// listed rows into an accumulator acc (INF where nothing fell) over
-// (row range x 512-column strip) items, each thread 4 columns with
-// __viaddmin_s32 on 16-byte loads of W, FX_U in flight, and the rows'
-// d_t[k] staged in shared memory with their numbers; a column's minimum
-// merges into acc by atomicMin only where it undercuts d_t; grid barrier;
-// the fold lowers d where acc is below it, resets acc to INF there and
-// lists those columns; grid barrier.
+// Schedule.  Rounds of an expand, a grid barrier, a fold and a grid barrier,
+// over three lists whose roles rotate: E, the rows the round expands; Z, the
+// columns that fell to L in the round, which the next round expands at the
+// same level; X, the columns whose d is T = L + 1, gathered over a level's
+// rounds for the next level.  The expand (relax_rows) mins the listed rows
+// whose d is L, each plus L, into an accumulator acc (INF where nothing
+// fell) over (row range x 512-column strip) items of a cooperative grid of
+// FX_THREADS-thread blocks, each thread 4 columns with __viaddmin_s32 on
+// 16-byte loads of W, FX_U in flight; a stale entry of E costs its d but
+// no row.  The fold folds acc into d over the whole vector and
+// lists into Z the columns that fell to L, into X those whose d is T (every
+// one in a level's first round, those that fell to T after), and keeps the
+// least d at or above T (the next level) and tmin.  After the round, Z not
+// empty: another round at L.  Else, where the next level is T, the round
+// after expands X; where it lies beyond, a round with nothing to expand (a
+// scan) lists the columns whose d is the next level.  The pass that copies
+// d0 into d is the first scan, for level 0.  Every block takes the decision
+// after a barrier, from values no block writes before the next one, so all
+// take it alike, and a level is counted only where some row's d is it.
 
 constexpr int FX_THREADS = 128;           // threads a block
 constexpr int FX_CW = 4;                  // columns a thread (one int4)
@@ -418,15 +428,13 @@ __device__ __forceinline__ void append_lanes(uint32_t fell, long long g,
     rows[pos++] = static_cast<int>(g * FX_CW + __ffs(m) - 1);
 }
 
-// Step 1 of both kernels: mins the listed rows rows[0, n) of W, each plus
-// its d[k], into acc where they undercut d, over (row range x strip)
-// items.  A chunk of a range's rows and their d[k] are staged in ks and kd
-// (FX_THREADS each).  With kAtLevel, only the listed rows whose d[k] is
-// `level` are staged, packed by a ballot a warp (warp totals in wsum), so
-// that a stale entry of a list costs its d but not its row.  Returns the
-// rows this block read in the items of strip 0, so that a grid's sum
-// counts each row once.
-template <bool kAtLevel>
+// The expand: mins the listed rows rows[0, n) of W whose d[k] is `level`,
+// each plus its d[k], into acc where they undercut d, over (row range x
+// strip) items.  A chunk of a range's rows with their d[k] is staged in ks
+// and kd (FX_THREADS each), packed by a ballot a warp (warp totals in
+// wsum), so that a stale entry of a list costs its d but not its row.
+// Returns the rows this block read in the items of strip 0, so that a
+// grid's sum counts each row once.
 __device__ __forceinline__ int relax_rows(const int* __restrict__ w, int ldw,
                                           const int* d, int* acc,
                                           const int* rows, int n, int N,
@@ -447,33 +455,27 @@ __device__ __forceinline__ int relax_rows(const int* __restrict__ w, int ldw,
     for (int c0 = r0; c0 < r1; c0 += FX_THREADS) {
       int m = min(FX_THREADS, r1 - c0);
       __syncthreads();                    // the last chunk is read
-      if constexpr (kAtLevel) {
-        int k = 0, dk = INF;
-        if (t < m) {
-          k = __ldcg(rows + c0 + t);
-          dk = __ldcg(d + k);
-        }
-        const bool keep = dk == level;
-        const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
-        const int warp = t >> 5;
-        if ((t & 31) == 0) wsum[warp] = __popc(ballot);
-        __syncthreads();
-        int pos = __popc(ballot & ((1u << (t & 31)) - 1u));
-        m = 0;
+      int k = 0, dk = INF;
+      if (t < m) {
+        k = __ldcg(rows + c0 + t);
+        dk = __ldcg(d + k);
+      }
+      const bool keep = dk == level;
+      const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
+      const int warp = t >> 5;
+      if ((t & 31) == 0) wsum[warp] = __popc(ballot);
+      __syncthreads();
+      int pos = __popc(ballot & ((1u << (t & 31)) - 1u));
+      m = 0;
 #pragma unroll
-        for (int q = 0; q < FX_THREADS / 32; ++q) {
-          const int got = wsum[q];
-          if (q < warp) pos += got;
-          m += got;
-        }
-        if (keep) {
-          ks[pos] = k;
-          kd[pos] = dk;
-        }
-      } else if (t < m) {
-        const int k = __ldcg(rows + c0 + t);
-        ks[t] = k;
-        kd[t] = __ldcg(d + k);
+      for (int q = 0; q < FX_THREADS / 32; ++q) {
+        const int got = wsum[q];
+        if (q < warp) pos += got;
+        m += got;
+      }
+      if (keep) {
+        ks[pos] = k;
+        kd[pos] = dk;
       }
       __syncthreads();
       if (item % strips == 0) read += m;
@@ -506,127 +508,6 @@ __device__ __forceinline__ int relax_rows(const int* __restrict__ w, int ldw,
   }
   return read;
 }
-
-__global__ void __launch_bounds__(FX_THREADS)
-min_plus_fixpoint_kernel(const int* __restrict__ d0, int ldd0,
-                         const int* __restrict__ w, int ldw, int* d,
-                         int* acc, int* rows, int* state, int N,
-                         int strips) {
-  __shared__ int ks[FX_THREADS];          // a chunk of a range's rows
-  __shared__ int kd[FX_THREADS];          // and their d_t[k]
-  const int t = threadIdx.x;
-  const int wl = t & 31;           // lane in the warp
-  const long long groups = (N + FX_CW - 1) / FX_CW;      // of 4 ints
-  const long long stride = static_cast<long long>(gridDim.x) * FX_THREADS;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * FX_THREADS + (t - wl);
-  int4* d4 = reinterpret_cast<int4*>(d);
-  int4* acc4 = reinterpret_cast<int4*>(acc);
-  const int4 inf4 = make_int4(INF, INF, INF, INF);
-
-  // d = d0 with INF pads, acc = INF, the first list = d0's finite columns
-  for (long long base = first; base < groups; base += stride) {
-    const long long g = base + wl;      // warp-uniform loop
-    uint32_t fell = 0u;
-    if (g < groups) {
-      int v[FX_CW];
-#pragma unroll
-      for (int i = 0; i < FX_CW; ++i) {
-        const long long col = g * FX_CW + i;
-        v[i] = col < N ? min(d0[col * ldd0], INF) : INF;
-        if (v[i] < INF) fell |= 1u << i;
-      }
-      d4[g] = make_int4(v[0], v[1], v[2], v[3]);
-      acc4[g] = inf4;
-    }
-    append_lanes(fell, g, state + 1, rows);
-  }
-  fixpoint::grid_barrier();
-
-  int step = 0;
-  for (;;) {
-    const int n = __ldcg(state + 1 + (step & 1));
-    if (n == 0) break;
-    int* next = state + 1 + ((step + 1) & 1);
-    if (blockIdx.x == 0 && t == 0) *next = 0;
-
-    // 1. min the listed rows, each plus its d_t[k], into acc where they
-    // undercut d_t
-    relax_rows<false>(w, ldw, d, acc, rows, n, N, strips, 0, ks, kd,
-                      nullptr);
-    fixpoint::grid_barrier();
-
-    // 3. fold acc into d and list the columns that fell
-    for (long long base = first; base < groups; base += stride) {
-      const long long g = base + wl;
-      uint32_t fell = 0u;
-      if (g < groups) {
-        const int4 av = __ldcg(acc4 + g);
-        if (min(min(av.x, av.y), min(av.z, av.w)) < INF) {
-          const int4 dv = __ldcg(d4 + g);
-          int nd[FX_CW];
-#pragma unroll
-          for (int i = 0; i < FX_CW; ++i) {
-            const int a = lane(av, i), o = lane(dv, i);
-            nd[i] = min(a, o);
-            if (a < o) fell |= 1u << i;
-          }
-          acc4[g] = inf4;
-          d4[g] = make_int4(nd[0], nd[1], nd[2], nd[3]);
-        }
-      }
-      append_lanes(fell, g, next, rows);
-    }
-    ++step;
-    fixpoint::grid_barrier();
-  }
-  if (blockIdx.x == 0 && t == 0) state[0] = step;
-}
-
-// ---------------------------------------------------------------------------
-// evalDG's answer by levels (min_plus_settle)
-// ---------------------------------------------------------------------------
-//
-// A dist or bounded query wants one number of the fixpoint: the least d over
-// the target columns, and a bounded one only whether it is at most the bound.
-// min_plus_settle finds it as Dijkstra's algorithm does with integer buckets
-// (Dial's): it settles d level by level, L the least finite d, then the next
-// least, and so on, reads each row of W once, at the level of its final
-// distance, and stops as soon as the answer is fixed.
-//
-// Why it is exact.  Entries of W lie in [0, INF], so a row expanded at level
-// L lowers d only to L or more.  Once every row whose d is below L has been
-// expanded, and the rows that fall to L (zero entries of W) have been
-// expanded in turn until none falls, no expansion can lower a d below the
-// least d left above L: that least value is final, and it is the next
-// level.  tmin, the least d over the targets, only falls; once it is at most
-// the next level it is final, and once the next level passes the bound no
-// target can end at or below the bound unless tmin already is.  The answer is
-// tmin where it is at most the bound, else INF: the plain fixpoint's least
-// target distance, INF above the bound.  Min is order-free, and the lists
-// below are sets, so the answer, the levels and the rows read are the same in
-// every run.
-//
-// What bounds it: bytes, 4 B per entry of each row of W whose final distance
-// lies below the level at which it stops, each read once; plus, a round, a
-// pass over d and acc and two grid barriers.
-//
-// Schedule.  Rounds of an expand, a grid barrier, a fold and a grid barrier,
-// over three lists whose roles rotate: E, the rows the round expands; Z, the
-// columns that fell to L in the round, which the next round expands at the
-// same level; X, the columns whose d is T = L + 1, gathered over a level's
-// rounds for the next level.  The expand is min_plus_fixpoint's step 1
-// (relax_rows), reading only the listed rows whose d is L, so that a stale
-// entry costs no row.  The fold folds acc into d over the whole vector and
-// lists into Z the columns that fell to L, into X those whose d is T (every
-// one in a level's first round, those that fell to T after), and keeps the
-// least d at or above T (the next level) and tmin.  After the round, Z not
-// empty: another round at L.  Else, where the next level is T, the round
-// after expands X; where it lies beyond, a round with nothing to expand (a
-// scan) lists the columns whose d is the next level.  The pass that copies
-// d0 into d is the first scan, for level 0.  Every block takes the decision
-// after a barrier, from values no block writes before the next one, so all
-// take it alike, and a level is counted only where some row's d is it.
 
 // state: [0] the answer, [1] the levels expanded, [2] the rows of W read;
 // [3, 6) the three lists' lengths; [6, 8) the next level, by the parity of
@@ -763,7 +644,7 @@ min_plus_settle_kernel(const int* __restrict__ d0, int ldd0,
       *next_at = 0;
     }
     if (n > 0)
-      read += relax_rows<true>(w, ldw, d, acc,
+      read += relax_rows(w, ldw, d, acc,
                                lists + static_cast<size_t>(e) * N, n, N,
                                strips, L, ks, kd, wsum);
     fixpoint::grid_barrier();
@@ -840,40 +721,6 @@ extern "C" int min_plus_skinny_blocks_per_sm(int rows, int cols) {
   SKINNY_CASES(OCCUPANCY)
 #undef OCCUPANCY
   return -1;
-}
-
-// evalDG's fixpoint from d0 on W [N, N] (16-byte rows) in one cooperative
-// launch of `blocks` blocks: d gets the fixpoint (pitch_i32(N) ints,
-// 16-byte aligned, pads INF), state[0] the steps.  acc (pitch_i32(N) ints,
-// 16-byte aligned) and rows (N ints) are scratch; state (3 ints) must be
-// zero before the launch.  Returns the launch's CUDA error code.
-extern "C" int min_plus_fixpoint(const void* d0, int ldd0, const void* w,
-                                 int ldw, void* d, void* acc, void* rows,
-                                 void* state, int N, int blocks,
-                                 void* stream) {
-  if (N <= 0 || ldw < N || blocks < 1) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(d) |
-       reinterpret_cast<uintptr_t>(acc)) & 15u || ldw % 4 != 0)
-    return (int)cudaErrorMisalignedAddress;
-  const auto* D0 = static_cast<const int*>(d0);
-  const auto* Wp = static_cast<const int*>(w);
-  auto* Dp = static_cast<int*>(d);
-  auto* A = static_cast<int*>(acc);
-  auto* R = static_cast<int*>(rows);
-  auto* S = static_cast<int*>(state);
-  int strips = (N + FX_STRIP - 1) / FX_STRIP;
-  void* args[] = {&D0, &ldd0, &Wp, &ldw, &Dp, &A, &R, &S, &N, &strips};
-  return fixpoint::cooperative_launch(
-      reinterpret_cast<const void*>(min_plus_fixpoint_kernel), blocks,
-      FX_THREADS, args, static_cast<cudaStream_t>(stream));
-}
-
-// Fixpoint blocks resident on one SM of the current device, -1 on error.
-extern "C" int min_plus_fixpoint_blocks_per_sm() {
-  int n = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, min_plus_fixpoint_kernel, FX_THREADS, 0);
-  return e == cudaSuccess ? n : -1;
 }
 
 // evalDG's answer from d0 on W [N, N] (16-byte rows) for the targets tgt (N

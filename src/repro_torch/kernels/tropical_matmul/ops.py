@@ -7,9 +7,7 @@ tropical_matmul_pallas``.  It squares the distance closure
 (``core.bes.tropical_closure``), composes every batched distance answer
 (``core.cache.combine_dist``) and runs the rank update of a repair
 (``core.incremental._rank_update_tropical``).  Operands must lie in
-[0, INF].  Two more kernels in the same source are each one cooperative
-launch: :func:`min_plus_fixpoint`, a whole single-source fixpoint whose
-steps read only the rows of W whose distance fell in the step before, and
+[0, INF].  A third kernel in the same source is one cooperative launch,
 :func:`min_plus_settle`, evalDG's answer for a dist or bounded query
 (``core.engine.evaldg_dist``), which settles the rows of W in order of
 distance and stops once the answer is fixed.
@@ -34,23 +32,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import _fixpoint
-from .ref import (INF, min_plus_fixpoint_ref, min_plus_matmul_ref,
-                  min_plus_settle_ref)
+from .ref import INF, min_plus_matmul_ref, min_plus_settle_ref
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
 
-#: launches of the fixpoint and settle kernels (:func:`min_plus_fixpoint`,
-#: :func:`min_plus_settle`), which are not in :data:`launches`
-fixpoint_launches = 0
-
-#: launches of the settle kernel alone, which are in
-#: :data:`fixpoint_launches` too
+#: launches of the settle kernel (:func:`min_plus_settle`), which are not
+#: in :data:`launches`
 settle_launches = 0
 
 #: operand copies made by :func:`aligned` since the count was last set to 0
@@ -68,13 +61,11 @@ def _count_launch() -> None:
         launches += 1
 
 
-def _count_fixpoint(settle: bool = False) -> None:
-    """Add one to :data:`fixpoint_launches`, and to
-    :data:`settle_launches` for a launch of the settle kernel, atomically."""
-    global fixpoint_launches, settle_launches
+def _count_settle() -> None:
+    """Add one to :data:`settle_launches`, atomically."""
+    global settle_launches
     with _count_lock:
-        fixpoint_launches += 1
-        settle_launches += settle
+        settle_launches += 1
 
 
 def _count_copy() -> None:
@@ -300,76 +291,12 @@ def _check_ints(ints) -> None:
 
 
 # ---------------------------------------------------------------------------
-# evalDG's fixpoint in one launch
-# ---------------------------------------------------------------------------
-
-#: int32 columns of W in one strip of the fixpoint's grid: 128 threads a
-#: block, 4 columns (one 16-byte load) a thread
-FIXPOINT_STRIP = 128 * 4
-
-
-def _fixpoint_route(K: int, N: int, sms: int = 132,
-                    per_sm: Optional[int] = None) -> _fixpoint.FixRoute:
-    """The min-plus fixpoint's grid (:func:`.._fixpoint.route`, strips of
-    :data:`FIXPOINT_STRIP` columns)."""
-    return _fixpoint.route(K, N, FIXPOINT_STRIP, sms, per_sm)
-
-
-def _card_fixpoint_route(index: int, B: int) -> _fixpoint.FixRoute:
-    """:func:`_fixpoint_route` with the card's SMs and occupancy."""
-    return _fixpoint.card_route("min_plus_matmul", "min_plus_fixpoint",
-                                FIXPOINT_STRIP, index, B)
-
-
-def min_plus_fixpoint(d0: torch.Tensor, W: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """evalDG's single-source tropical fixpoint (Bellman-Ford) on int32 W
-    [B, B] from int32 d0 [B], every entry of both in [0, INF]:
-    ``d := min(d, d (min, +) W, INF)`` until a step changes nothing.
-    Returns ``(d, steps)``: d [B] int32 and the steps taken as a 0-d int32
-    tensor on d0's device, counted as the naive loop counts its products
-    (0 when d0 is all INF).
-
-    On the card it is one launch (``csrc/min_plus_matmul.cu``, counted in
-    :data:`fixpoint_launches`) that reads nothing back: each step reads
-    only the rows of W whose distance fell in the step before.  W is read
-    as it is stored when :func:`is_aligned`, as the paths make it
-    (:func:`padded_i32`), and copied once otherwise (:func:`aligned`,
-    counted); d is a view of padded storage.  On the CPU it is the plain
-    version's loop."""
-    if d0.dtype != torch.int32 or W.dtype != torch.int32:
-        raise TypeError(f"min_plus_fixpoint takes int32 tensors, got "
-                        f"{d0.dtype} and {W.dtype}")
-    B = d0.shape[0] if d0.dim() == 1 else -1
-    if W.dim() != 2 or tuple(W.shape) != (B, B):
-        raise ValueError(f"min_plus_fixpoint takes d0 [B] and W [B, B], got "
-                         f"{tuple(d0.shape)} and {tuple(W.shape)}")
-    dev = d0.device
-    if W.device != dev:
-        raise ValueError(f"operands on {dev} and {W.device}")
-    if dev.type == "cpu":
-        return min_plus_fixpoint_ref(d0, W)
-    if dev.type != "cuda":
-        raise ValueError(f"min_plus_fixpoint runs on cpu or cuda, not {dev}")
-    d = padded_i32(1, B, dev)[0]
-    state = torch.zeros(3, dtype=torch.int32, device=dev)
-    if B == 0:
-        return d, state[0]
-    W = aligned(W)
-    if max(B, W.stride(0), d0.stride(0)) >= 2 ** 31:
-        raise ValueError("sizes and row pitches must fit in int32")
-    # acc (16-byte aligned, as long as d's storage), then the list
-    width = pitch_i32(B)
-    work = torch.empty(width + B, dtype=torch.int32, device=dev)
-    _fixpoint.launch("min_plus_matmul", "min_plus_fixpoint", FIXPOINT_STRIP,
-                     d0, W, d, work, work[width:], state)
-    _count_fixpoint()
-    return d, state[0]
-
-
-# ---------------------------------------------------------------------------
 # evalDG's answer by levels in one launch
 # ---------------------------------------------------------------------------
+
+#: int32 columns of W in one strip of the settle kernel's grid: 128 threads
+#: a block, 4 columns (one 16-byte load) a thread
+FIXPOINT_STRIP = 128 * 4
 
 #: int32 words of the settle kernel's state: the answer, the levels, the
 #: rows read, the three lists' lengths, the next level by parity, tmin
@@ -381,9 +308,16 @@ SETTLE_STATE = 9
 SETTLE_ARGS = ((ctypes.c_void_p, ctypes.c_int) * 3 + (ctypes.c_void_p,) * 4)
 
 
+def _settle_route(K: int, N: int, sms: int = 132,
+                  per_sm: Optional[int] = None) -> _fixpoint.FixRoute:
+    """The settle kernel's grid (:func:`.._fixpoint.route`, strips of
+    :data:`FIXPOINT_STRIP` columns)."""
+    return _fixpoint.route(K, N, FIXPOINT_STRIP, sms, per_sm)
+
+
 def _card_settle_route(index: int, B: int) -> _fixpoint.FixRoute:
-    """The settle kernel's grid: :func:`.._fixpoint.card_route`, with the
-    settle kernel's occupancy."""
+    """:func:`_settle_route` with the card's SMs and the settle kernel's
+    occupancy."""
     return _fixpoint.card_route("min_plus_matmul", "min_plus_settle",
                                 FIXPOINT_STRIP, index, B)
 
@@ -392,18 +326,18 @@ def min_plus_settle(d0: torch.Tensor, W: torch.Tensor, tgt: torch.Tensor,
                     bound: Optional[int] = None) -> torch.Tensor:
     """evalDG's answer on int32 W [B, B] from int32 d0 [B], every entry of
     both in [0, INF], for the bool target mask ``tgt`` [B]: the least
-    distance onto a target of the fixpoint that :func:`min_plus_fixpoint`
-    computes, INF if there is none or it is above ``bound`` (None: no
-    bound).  Returns an int32 tensor [answer, levels, rows] on d0's
-    device: ``levels`` the distance levels settled, ``rows`` the rows of W
-    read.
+    distance onto a target of the Bellman-Ford fixpoint that
+    :func:`.ref.min_plus_fixpoint_ref` computes, INF if there is none or
+    it is above ``bound`` (None: no bound).  Returns an int32 tensor
+    [answer, levels, rows] on d0's device: ``levels`` the distance levels
+    settled, ``rows`` the rows of W read.
 
     The rows are settled in order of distance (Dijkstra's algorithm with
     integer levels): each row of W whose distance is final is read once,
     and the search stops once the targets' least distance is at most the
     next level, or that level is above the bound.  On the card it is one
     launch (``csrc/min_plus_matmul.cu``, counted in
-    :data:`fixpoint_launches`) that reads nothing back, on W as it is
+    :data:`settle_launches`) that reads nothing back, on W as it is
     stored when :func:`is_aligned` (copied once otherwise, counted).  On
     the CPU it is the plain version, :func:`.ref.min_plus_settle_ref`,
     whose levels and rows are the kernel's."""
@@ -442,5 +376,5 @@ def min_plus_settle(d0: torch.Tensor, W: torch.Tensor, tgt: torch.Tensor,
                     tgt.data_ptr(), top, work.data_ptr(),
                     work[width:].data_ptr(), work[2 * width:].data_ptr(),
                     state.data_ptr()))
-    _count_fixpoint(settle=True)
+    _count_settle()
     return state[:3]

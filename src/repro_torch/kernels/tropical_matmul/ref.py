@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the (min, +) semiring product, of evalDG's
-fixpoint over it, and of evalDG's answer by levels."""
+fixpoint over it (the oracle of the answer by levels), and of evalDG's
+answer by levels."""
 from typing import Optional, Tuple
 
 import torch
@@ -41,7 +42,12 @@ def min_plus_fixpoint_ref(d0: torch.Tensor, W: torch.Tensor
     (min, +) W, INF) until a step changes nothing, one vector-matrix
     product a step and one host sync a step; steps (a 0-d int32 tensor on
     d0's device) counts the products, the last one included (0 when d0 is
-    all INF)."""
+    all INF).
+
+    The plain Bellman-Ford iterate, as the reference's evalDG runs it: no
+    kernel computes it, and it is the oracle against which
+    :func:`min_plus_settle_ref` is defined and tested (its answer is the
+    least d of this fixpoint over the targets)."""
     d = d0.clamp_max(INF)
     steps = 0
     if bool((d < INF).any()):

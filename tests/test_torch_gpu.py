@@ -35,8 +35,7 @@ from repro_torch.kernels.bool_matmul import (is_kmajor, or_and_fixpoint,
                                              pitch, rows_aligned)
 from repro_torch.kernels.local_eval import ops as leops
 from repro_torch.kernels.tropical_matmul import ops as tops
-from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint,
-                                                 min_plus_fixpoint_ref,
+from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint_ref,
                                                  min_plus_matmul,
                                                  min_plus_matmul_ref,
                                                  min_plus_settle,
@@ -136,82 +135,12 @@ def test_or_and_wgmma_unaligned_operands(cuda):
     assert torch.equal(or_and_matmul_nt(a, b.T), want)
 
 
-# the skinny route (or_and_skinny.cu): M up to 8 rows, N ragged around the
-# 16-byte column groups, K around the 32-row warps and the 128-row chunks
-SKINNY_M = [1, 2, 3, 8]
-SKINNY_N = [1, 15, 16, 17, 1037]
-SKINNY_K = [0, 31, 32, 33, 129, 20000]
-
-
-def _frontiers(rng, m, k):
-    """Left operands of the skinny sweep: all zero, one-hot rows, all
-    ones and random."""
-    one_hot = np.zeros((m, k), dtype=bool)
-    if k:
-        one_hot[np.arange(m), rng.integers(0, k, m)] = True
-    return {"zero": np.zeros((m, k), dtype=bool), "one_hot": one_hot,
-            "ones": np.ones((m, k), dtype=bool),
-            "random": rng.random((m, k)) < 0.05}
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("k", SKINNY_K)
-@pytest.mark.parametrize("n", SKINNY_N)
-@pytest.mark.parametrize("m", SKINNY_M)
-def test_or_and_skinny_matches_plain(cuda, m, n, k):
-    """The skinny route on b as it is stored, rows 16 bytes apart and pad
-    bytes set (they must not be read): bit-equal to the plain version for
-    each kind of frontier, with and without init, through a left operand
-    that is a strided view; C's pad bytes zero; one skinny launch and no
-    copy a call."""
-    rng = np.random.default_rng([m, n, k])
-    bv = torch.tensor(rng.random((k, n)) < 0.1, device=cuda)
-    store = torch.ones((k, pitch(n)), dtype=torch.bool, device=cuda)
-    b = store[:, :n].copy_(bv)                      # pads hold ones
-    assert rows_aligned(b)
-    for name, x in _frontiers(rng, m, k).items():
-        a = torch.tensor(x.T.copy(), device=cuda).T  # column-major view
-        init = torch.tensor(rng.random((m, n)) < 0.3, device=cuda)
-        for given in (None, init):
-            before = (bops.launches, bops.skinny_launches, bops.copies)
-            got = or_and_matmul(a, b, init=given)
-            assert (bops.launches - before[0], bops.skinny_launches
-                    - before[1], bops.copies - before[2]) == (1, 1, 0), name
-            assert torch.equal(got, or_and_matmul_ref(a, bv, init=given)), \
-                (name, given is None)
-            assert got.stride(0) == pitch(n)
-            assert not _storage(got)[:, n:].any(), name
-
-
-@pytest.mark.gpu
-def test_or_and_skinny_unaligned_b_takes_one_counted_copy(cuda):
-    """M = 1 with b's rows not 16 bytes apart: the tile route through one
-    counted copy of b^T, and the same bits as the skinny route on an
-    aligned copy of b."""
-    rng = np.random.default_rng(21)
-    k, n = 300, 1037
-    bv = torch.tensor(rng.random((k, n)) < 0.05, device=cuda)
-    a = padded_zeros(1, k, cuda)
-    a[0, rng.integers(0, k, 9)] = True
-    init = torch.tensor(rng.random((1, n)) < 0.3, device=cuda)
-    assert not rows_aligned(bv) and bops._route(1, k, n, False).kind == "tile"
-    before = (bops.launches, bops.skinny_launches, bops.copies)
-    got = or_and_matmul(a, bv, init=init)
-    assert (bops.launches - before[0], bops.skinny_launches - before[1],
-            bops.copies - before[2]) == (1, 0, 1)
-    want = or_and_matmul_ref(a, bv, init=init)
-    assert torch.equal(got, want)
-    b = padded_zeros(k, n, cuda).copy_(bv)
-    assert torch.equal(or_and_matmul(a, b, init=init), want)
-    assert bops.skinny_launches - before[1] == 1
-
-
 @pytest.mark.gpu
 def test_skinny_launches_on_evaldg_not_on_squaring(cuda):
     """evalDG on a padded D is one fixpoint launch, with its steps from the
-    kernel equal to the plain version's, and no product launch (skinny or
-    tile) and no copy; the closure's squarings and a batch compose launch
-    only the tile route."""
+    kernel equal to the plain version's, and no product launch and no
+    copy; the closure's squarings and a batch compose launch the product
+    kernel."""
     rng = np.random.default_rng(22)
     B = 1037
     D = padded_zeros(B, B, cuda).copy_(
@@ -228,10 +157,10 @@ def test_skinny_launches_on_evaldg_not_on_squaring(cuda):
     want_x, want_steps = or_and_fixpoint_ref(src.cpu(), D.cpu())
     assert int(steps) == int(want_steps) > 1 and steps.is_cuda
     assert torch.equal(x.cpu(), want_x)
-    before = (bops.launches, bops.skinny_launches)
+    before = bops.launches
     C, Ct = bool_closure_kmajor(D)
     or_and_matmul_nt(D[:256], Ct)
-    assert bops.launches > before[0] and bops.skinny_launches == before[1]
+    assert bops.launches > before
 
 
 @pytest.mark.gpu
@@ -393,10 +322,11 @@ def _dist_matrix(rng, m, n, density):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [2, 300, 1037])
 def test_evaldg_on_card_matches_cpu(cuda, B):
-    """evalDG on the card, equal to the CPU: one fixpoint launch per
-    evalDG and no per-step product, on D as it is stored, padded (no copy)
-    or not (one counted copy into padded storage), and on W; the kernels'
-    x, d and steps equal to the plain versions'."""
+    """evalDG on the card, equal to the CPU: one fixpoint launch per reach
+    evalDG and one settle launch per dist evalDG, and no per-step
+    product, on D and W as they are stored, padded (no copy) or not (one
+    counted copy into padded storage); the or-and kernel's x and steps
+    equal to the plain version's."""
     rng = np.random.default_rng(B)
     D = rng.random((B, B)) < 3.0 / B
     W = _dist_matrix(rng, B, B, 3.0 / B)
@@ -420,53 +350,41 @@ def test_evaldg_on_card_matches_cpu(cuda, B):
             assert torch.equal(x.cpu(), want_x)
             assert int(steps) == int(want_steps) > 0
         args = [torch.tensor(x) for x in (W, src, tgt)]
-        d0 = torch.tensor(np.where(src, 0, INF).astype(np.int32))
-        want_d, want_steps = min_plus_fixpoint_ref(d0, args[0])
         for Wm in (args[0].to(cuda),
                    padded_i32(B, B, cuda).copy_(args[0].to(cuda))):
-            before = (tops.launches, tops.fixpoint_launches, tops.copies)
+            before = (tops.launches, tops.settle_launches, tops.copies)
             got = engine.evaldg_dist(Wm, *(a.to(cuda) for a in args[1:]))
             assert got == engine.evaldg_dist(*args)
             copies = 0 if is_aligned(Wm) else 1
-            assert (tops.launches, tops.fixpoint_launches, tops.copies) == \
+            assert (tops.launches, tops.settle_launches, tops.copies) == \
                 (before[0], before[1] + 1, before[2] + copies)
-            d, steps = min_plus_fixpoint(d0.to(cuda), Wm)
-            assert torch.equal(d.cpu(), want_d)
-            assert int(steps) == int(want_steps) > 0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [1024, 1037])
 def test_fixpoints_on_a_chain(cuda, B):
-    """A chain walked one hop a step (B steps): both fixpoint kernels
-    bit-equal to their plain versions, steps included, in one launch each;
-    a source at the chain's end takes one step."""
-    D = np.zeros((B, B), dtype=bool)
-    D[np.arange(B - 1), np.arange(1, B)] = True
-    W = np.where(D, 1, INF).astype(np.int32)
+    """A chain walked one hop a step (B steps): the or-and fixpoint kernel
+    bit-equal to its plain version, steps included, in one launch; a
+    source at the chain's end takes one step."""
+    D = torch.zeros((B, B), dtype=torch.bool)
+    D[torch.arange(B - 1), torch.arange(1, B)] = True
+    Dc = padded_zeros(B, B, cuda).copy_(D.to(cuda))
     for head in (0, B - 1):
-        src = np.zeros(B, dtype=bool)
+        src = torch.zeros(B, dtype=torch.bool)
         src[head] = True
-        d0 = np.where(src, 0, INF).astype(np.int32)
-        for fn, ref, ops, a, b, pad in (
-                (or_and_fixpoint, or_and_fixpoint_ref, bops, src, D,
-                 padded_zeros),
-                (min_plus_fixpoint, min_plus_fixpoint_ref, tops, d0, W,
-                 padded_i32)):
-            a, b = torch.tensor(a), torch.tensor(b)
-            want, want_steps = ref(a, b)
-            before = ops.fixpoint_launches
-            got, steps = fn(a.to(cuda), pad(B, B, cuda).copy_(b.to(cuda)))
-            assert ops.fixpoint_launches == before + 1
-            assert torch.equal(got.cpu(), want)
-            assert int(steps) == int(want_steps) == (B if head == 0 else 1)
+        want, want_steps = or_and_fixpoint_ref(src, D)
+        before = bops.fixpoint_launches
+        got, steps = or_and_fixpoint(src.to(cuda), Dc)
+        assert bops.fixpoint_launches == before + 1
+        assert torch.equal(got.cpu(), want)
+        assert int(steps) == int(want_steps) == (B if head == 0 else 1)
 
 
 @pytest.mark.gpu
 def test_fixpoints_on_mr_shaped_inputs(cuda):
     """The MR reducer's shape: a D of side B Q with a few rows set, whose
-    frontier adds one row a step, and a random W of the same side; both
-    kernels bit-equal to their plain versions, steps included."""
+    frontier adds one row a step; the or-and fixpoint kernel bit-equal to
+    its plain version, steps included."""
     side = 5 * 1037
     rng = np.random.default_rng(31)
     D = padded_zeros(side, side, cuda)
@@ -480,13 +398,6 @@ def test_fixpoints_on_mr_shaped_inputs(cuda):
     want_x, want_steps = or_and_fixpoint_ref(src.cpu(), D.cpu())
     assert torch.equal(x.cpu(), want_x) and int(steps) == int(want_steps)
     assert int(steps) >= 5
-    W = padded_i32(side, side, cuda).copy_(torch.tensor(
-        _dist_matrix(rng, side, side, 2.0 / side), device=cuda))
-    d0 = torch.full((side,), INF, dtype=torch.int32, device=cuda)
-    d0[int(hops[0])] = 0
-    d, steps = min_plus_fixpoint(d0, W)
-    want_d, want_steps = min_plus_fixpoint_ref(d0.cpu(), W.cpu())
-    assert torch.equal(d.cpu(), want_d) and int(steps) == int(want_steps)
 
 
 def _settled_rows(d, levels):
@@ -505,8 +416,9 @@ def test_settle_on_card_matches_plain(cuda, B):
     the same W with every weight tripled (empty levels): answer, levels
     and rows read equal to the plain version's for bounds None, 0, 1, 6
     and past INF; the rows exactly those whose final distance lies below
-    the level it stopped at, so no row is read twice; one launch counted a
-    call (in both counts), no product, and no copy of padded W;
+    the level it stopped at (the final distances from the plain
+    Bellman-Ford fixpoint), so no row is read twice; one settle launch
+    counted a call, no product, and no copy of padded W;
     engine.evaldg_dist on the card gives the same answer."""
     rng = np.random.default_rng(B + 40)
     W = _dist_matrix(rng, B, B, 3.0 / B)
@@ -519,15 +431,13 @@ def test_settle_on_card_matches_plain(cuda, B):
             tgt = src.copy() if trial == 2 else rng.random(B) < 0.05
             d0 = torch.tensor(np.where(src, 0, INF).astype(np.int32))
             args = [torch.tensor(src).to(cuda), torch.tensor(tgt).to(cuda)]
-            d = min_plus_fixpoint(d0.to(cuda), Wc)[0].cpu().numpy()
+            d = min_plus_fixpoint_ref(d0, Wt)[0].numpy()
             for bound in (None, 0, 1, 6, 1 << 40):
                 want = min_plus_settle_ref(d0, Wt, torch.tensor(tgt), bound)
-                before = (tops.launches, tops.fixpoint_launches,
-                          tops.settle_launches, tops.copies)
+                before = (tops.launches, tops.settle_launches, tops.copies)
                 got = min_plus_settle(d0.to(cuda), Wc, args[1], bound)
-                assert (tops.launches, tops.fixpoint_launches,
-                        tops.settle_launches, tops.copies) == \
-                    (before[0], before[1] + 1, before[2] + 1, before[3])
+                assert (tops.launches, tops.settle_launches, tops.copies) == \
+                    (before[0], before[1] + 1, before[2])
                 assert torch.equal(got.cpu(), want), (trial, bound)
                 _, levels, rows = got.tolist()
                 assert rows == _settled_rows(d, levels), (trial, bound)
@@ -727,7 +637,8 @@ def test_delta_stream_on_card_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_uncached_session_on_card_matches_cpu(cuda):
     """connect(fr, cache="none") on the card: the one-shot engine through
-    both fixpoint kernels (no product launch), equal to the CPU."""
+    the or-and fixpoint and the settle kernel (no product launch), equal
+    to the CPU."""
     g = erdos_renyi(300, 1200, n_labels=3, seed=6)
     fr = fragment_graph(g, random_partition(g, 4, seed=6), 4)
     rng = np.random.default_rng(6)
@@ -738,9 +649,9 @@ def test_uncached_session_on_card_matches_cpu(cuda):
                         Rpq(s, t, regex="(0|1)* 2")][i % 4])
     want = repro_torch.connect(fr, cache="none", device="cpu").run(queries)
     bops.launches = tops.launches = 0
-    bops.fixpoint_launches = tops.fixpoint_launches = 0
+    bops.fixpoint_launches = tops.settle_launches = 0
     got = repro_torch.connect(fr, cache="none").run(queries)
-    assert bops.fixpoint_launches > 0 and tops.fixpoint_launches > 0
+    assert bops.fixpoint_launches > 0 and tops.settle_launches > 0
     assert bops.launches == 0 and tops.launches == 0
     assert fr.rvset_cache is None
     assert [(r.answer, r.distance, r.stats) for r in got] == \

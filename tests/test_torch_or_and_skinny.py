@@ -1,14 +1,14 @@
-"""The or-and kernel's skinny route on the CPU: ``or_and_matmul(a, b,
-init=)`` against the JAX package's ``x | or_and_matmul(x, D)`` (its Pallas
-kernel in interpret mode, as tests/test_kernels.py runs it), the route
-choice at every shape the query paths launch, the zero-padded D that every
-path hands to evalDG, and the copy counter.
+"""The or-and product and evalDG's D on the CPU: ``x | or_and_matmul(x,
+D)`` against the JAX package's (its Pallas kernel in interpret mode, as
+tests/test_kernels.py runs it), ``or_and_matmul`` at every shape the query
+paths launch, scaled down, on the layout each path builds, against the
+JAX package's ``or_and_matmul``, the zero-padded D that every path hands
+to evalDG, and the copy counter.
 
-The skinny route reads the right operand as it is stored, rows 16 bytes
-apart; on the CPU the wrapper takes the plain version, and these tests
-reach the layout, the route choice and the counts around it.  The kernel
-itself is held against the same results by tests/test_torch_gpu.py on the
-card.
+evalDG's fixpoint reads D as it is stored, rows 16 bytes apart; on the CPU
+the wrappers take the plain versions, and these tests reach the layout
+and the counts around it.  The kernels themselves are held against the
+same results by tests/test_torch_gpu.py on the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +23,7 @@ from repro.core import session as jsession
 from repro.graph import erdos_renyi as j_er
 from repro.graph import random_partition as j_random_partition
 from repro.kernels.bool_matmul import bool_matmul, bool_matmul_ref
+from repro.kernels.bool_matmul import or_and_matmul as j_or_and_matmul
 from repro_torch.core import automaton as tauto
 from repro_torch.core import bes as tbes
 from repro_torch.core import distributed as tdist
@@ -61,7 +62,7 @@ def _frontiers(rng, m, k):
 @pytest.mark.parametrize("kn", SKINNY_KN, ids=str)
 @pytest.mark.parametrize("m", SKINNY_M)
 def test_or_and_init_matches_pallas(m, kn):
-    """or_and_matmul(a, b, init=) on the CPU == the JAX package's
+    """init | or_and_matmul(a, b) on the CPU == the JAX package's
     init | bool_matmul(a, b), for each kind of frontier, with and without
     init, on b as a padded view and as a plain tensor and a as a strided
     view; the CPU launches nothing."""
@@ -77,76 +78,60 @@ def test_or_and_init_matches_pallas(m, kn):
         for layout in (tb, padded_zeros(k, n, "cpu").copy_(tb)):
             before = bops.launches
             for given, want in ((None, prod), (init, prod | init)):
-                got = or_and_matmul(
-                    a, layout, init=None if given is None
-                    else torch.tensor(given))
+                got = or_and_matmul(a, layout)
+                if given is not None:
+                    got = torch.tensor(given) | got
                 assert got.dtype == torch.bool and got.shape == (m, n)
                 np.testing.assert_array_equal(got.numpy(), want,
                                               err_msg=name)
             assert bops.launches == before
 
 
-def test_or_and_init_rejects_bad_init():
-    a = torch.zeros((1, 3), dtype=torch.bool)
-    b = torch.zeros((3, 4), dtype=torch.bool)
-    with pytest.raises(ValueError, match="init must be bool"):
-        or_and_matmul(a, b, init=torch.zeros((1, 5), dtype=torch.bool))
-    with pytest.raises(ValueError, match="init must be bool"):
-        or_and_matmul(a, b, init=torch.zeros((1, 4), dtype=torch.uint8))
-    with pytest.raises(ValueError, match="do not chain"):
-        or_and_matmul(a, torch.zeros((4, 4), dtype=torch.bool))
-
-
-# (name, M, K, N, b's rows 16 bytes apart) of every or-and product the
-# query paths launch at full size: nb = 16039 (16103 with the dynamic
-# phase's reserves), B = nb + 2, and the RPQ side B * Q = 80205
+# (name, M, K, N, the layout of b) of every or-and product the query paths
+# launch, scaled down from nb = 16039 (16103 with the dynamic phase's
+# reserves), B = nb + 2 and the RPQ side B * Q = 80205 to nb = 160, B =
+# 162 and B * Q = 810: evalDG's D zero-padded as the paths make it
+# (padded_zeros) or plain, and a closure or its transpose as the products
+# keep it, K-major (b^T a padded copy)
 PATH_SHAPES = [
-    ("evalDG step, one-shot and sharded reach", 1, 16041, 16041, True),
-    ("evalDG step, one-shot RPQ and MR reducer", 1, 80205, 80205, True),
-    ("closure squaring", 16039, 16039, 16039, True),
-    ("batch compose", 256, 16039, 16039, True),
-    ("rank update T", 64, 16103, 16103, True),
-    ("rank update left", 16103, 64, 64, True),
-    ("rank update P", 16103, 64, 16103, True),
-    ("evalDG step on an unpadded D", 1, 16041, 16041, False),
+    ("evalDG step, one-shot and sharded reach", 1, 162, 162, "padded"),
+    ("evalDG step, one-shot RPQ and MR reducer", 1, 810, 810, "padded"),
+    ("closure squaring", 160, 160, 160, "kmajor"),
+    ("batch compose", 256, 160, 160, "kmajor"),
+    ("rank update T", 64, 224, 224, "kmajor"),
+    ("rank update left", 224, 64, 64, "kmajor"),
+    ("rank update P", 224, 64, 224, "kmajor"),
+    ("evalDG step on an unpadded D", 1, 162, 162, "plain"),
 ]
 
 
 @pytest.mark.parametrize("shape", PATH_SHAPES, ids=lambda s: s[0])
 def test_route_of_each_path_shape(shape):
-    """M = 1 on a padded D goes skinny, with every SM's block slots filled
-    once by whole chunks of K and no empty split; every other product of
-    the paths stays on the tile route."""
-    name, m, k, n, aligned = shape
-    route = bops._route(m, k, n, aligned)
-    if m > bops.SKINNY_MAX_M or not aligned:
-        assert route == bops.Route("tile"), name
-        return
-    assert route.kind == "skinny" and route.rows == 1, name
-    strips = -(-n // (bops.SKINNY_THREADS * bops.SKINNY_COLS))
-    chunks = -(-k // bops.SKINNY_THREADS)
-    assert strips * route.split <= 132 * bops.PER_SM_GUESS[1]
-    per = -(-chunks // route.split)
-    assert (route.split - 1) * per < chunks <= route.split * per
-    for per_sm in (1, 4, 16):
-        again = bops._route(m, k, n, aligned, sms=132, per_sm=per_sm)
-        assert strips * again.split <= max(132 * per_sm, strips)
-
-
-def test_route_rows_and_splits():
-    """Rows round up to a power of two up to 8; K = 0 takes one split; a
-    narrow product splits K down to one chunk a block."""
-    assert [bops._route(m, 640, 100, True).rows for m in range(1, 9)] == \
-        [1, 2, 4, 4, 8, 8, 8, 8]
-    assert bops._route(9, 640, 100, True).kind == "tile"
-    assert bops._route(1, 0, 100, True) == bops.Route("skinny", 1, 1)
-    assert bops._route(1, 640, 100, True, sms=132, per_sm=16).split == 5
-    assert bops._route(1, 640, 100, True, sms=1, per_sm=2).split == 2
-    # 5 chunks over 4 splits would leave the last block an empty range
-    assert bops._route(1, 5 * 128, 100, True, sms=1, per_sm=4).split == 3
+    """or_and_matmul(a, b) on the CPU, at each path's shape scaled down and
+    on b in the layout that path builds, == the JAX package's
+    or_and_matmul, with no launch and no copy."""
+    name, m, k, n, layout = shape
+    rng = np.random.default_rng([m, k, n])
+    a = rng.random((m, k)) < (1.0 if m == 1 else 0.05)
+    b = rng.random((k, n)) < 2.5 / k
+    tb = torch.tensor(b)
+    if layout == "padded":
+        tb = padded_zeros(k, n, "cpu").copy_(tb)
+        assert rows_aligned(tb)
+    elif layout == "kmajor":
+        tb = kmajor_copy(tb.T).T
+        assert is_kmajor(tb.T)
+    want = np.asarray(j_or_and_matmul(jnp.asarray(a), jnp.asarray(b)))
+    before = (bops.launches, bops.copies)
+    got = or_and_matmul(torch.tensor(a), tb)
+    assert (bops.launches, bops.copies) == before, name
+    assert got.dtype == torch.bool and got.shape == (m, n), name
+    np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
 
 
 def test_rows_aligned_is_the_skinny_layout():
+    """rows_aligned: the layout in which evalDG's fixpoint reads D as it is
+    stored."""
     assert rows_aligned(padded_zeros(5, 17, "cpu"))
     assert rows_aligned(torch.zeros((3, 32), dtype=torch.bool))
     assert not rows_aligned(torch.zeros((3, 17), dtype=torch.bool))

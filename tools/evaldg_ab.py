@@ -25,12 +25,9 @@ random fragments):
 - ``cell``: on the graph of the benchmark's one-shot cell
   (``erdos_renyi(32768, 131072, 8)`` in 16 random fragments, nb ~ 32k),
   for 48 seeded pairs, W of a dist query and of a bounded (6) one written
-  by localEval, then ``min_plus_fixpoint`` alone (the least target
-  distance taken from its last d, outside the timed calls) and, where the
-  tree has it, ``min_plus_settle`` on the same W, CUDA events around 3
-  calls each after a warm-up; grouped by d(s, t) (``inf``: unreachable), the median ms of
-  each, and the settle kernel's median rows read and levels.  The settle
-  kernel's answer must equal the fixpoint's.
+  by localEval, then ``min_plus_settle`` alone on that W, CUDA events
+  around 3 calls after a warm-up; grouped by the unbounded answer d(s, t)
+  (``inf``: unreachable), the median ms, rows read and levels.
 
 Each child also prints its answers, which must be equal across trees.
 """
@@ -48,9 +45,8 @@ CELL_N, CELL_M, CELL_PAIRS, CELL_BOUND = 32768, 131072, 48, 6
 
 
 def cell(answers: list) -> dict:
-    """The fixpoint against the settle kernel on the one-shot cell's graph
-    (see the module docstring); the fixpoint's answers go into
-    ``answers``."""
+    """The settle kernel on the one-shot cell's graph (see the module
+    docstring); its answers go into ``answers``."""
     import numpy as np
     import torch
     from repro_torch.core import engine, session
@@ -58,7 +54,6 @@ def cell(answers: list) -> dict:
     from repro_torch.graph import erdos_renyi, random_partition
     from repro_torch.kernels.tropical_matmul import ops as tops
     INF = engine.INF
-    settle = getattr(tops, "min_plus_settle", None)
     g = erdos_renyi(CELL_N, CELL_M, n_labels=LABELS, seed=SEED)
     fr = fragment_graph(g, random_partition(g, FRAGS, seed=SEED), FRAGS)
     dev = torch.device("cuda")
@@ -79,25 +74,14 @@ def cell(answers: list) -> dict:
                 arrs["src_row"], arrs["tgt_local"], s_local, t_local,
                 INF if bound is None else bound, n_max=fr.n_max, B=fr.B,
                 out=W)
-
-            tops.min_plus_fixpoint(d0, W)
-            fix_ms, (d, _) = _ab.events_ms(
-                lambda: tops.min_plus_fixpoint(d0, W), 3)
-            want = int(torch.where(tgt, d, INF).min())
-            if bound is not None and want > bound:
-                want = INF
-            dist = want if kind == "dist" else dist
-            row = {"kind": kind, "d": dist, "fixpoint_ms": fix_ms}
-            if settle is not None:
-                settle(d0, W, tgt, bound)
-                row["settle_ms"], state = _ab.events_ms(
-                    lambda: settle(d0, W, tgt, bound), 3)
-                got, row["levels"], row["rows"] = state.tolist()
-                if got != want:
-                    raise AssertionError(f"settle gave {got} for ({s}, {t}) "
-                                         f"{kind}, the fixpoint {want}")
-            rows.append(row)
-            answers.append((s, t, kind, want))
+            tops.min_plus_settle(d0, W, tgt, bound)
+            settle_ms, state = _ab.events_ms(
+                lambda: tops.min_plus_settle(d0, W, tgt, bound), 3)
+            got, levels, read = state.tolist()
+            dist = got if kind == "dist" else dist
+            rows.append({"kind": kind, "d": dist, "settle_ms": settle_ms,
+                         "levels": levels, "rows": read})
+            answers.append((s, t, kind, got))
     del W
     torch.cuda.empty_cache()
     out = {}
