@@ -504,7 +504,8 @@ def _reset_launches():
     for ops in _counted().values():
         ops.launches = 0
     tops = _counted()["min_plus_matmul"]
-    tops.copies = tops.settle_launches = 0
+    tops.copies = tops.settle_launches = tops.settle_list_launches = 0
+    _counted()["local_eval"].list_launches = 0
     bops = _counted()["or_and_matmul"]
     bops.copies = bops.fixpoint_launches = bops.floor_launches = 0
 
@@ -533,15 +534,19 @@ def _assert_no_b1_copies(what: str) -> None:
 def _launches():
     """Launches by kernel since the last reset: ``or_and_floor`` counts the
     or-and floor-pair kernel apart (its launches are in ``or_and_matmul``
-    too), ``or_and_fixpoint`` and ``min_plus_settle`` evalDG's kernels for
-    reach and dist (in neither product's count), and ``or_and_copies`` the
-    or-and wrapper's K-major and row copies."""
+    too), ``or_and_fixpoint``, ``min_plus_settle`` and
+    ``min_plus_settle_lists`` evalDG's kernels for reach and dist (in
+    neither product's count), ``local_eval_lists`` the localEval launches
+    that wrote W's row lists (in ``local_eval`` too), and
+    ``or_and_copies`` the or-and wrapper's K-major and row copies."""
     counts = {name: ops.launches for name, ops in _counted().items()}
     bops = _counted()["or_and_matmul"]
     tops = _counted()["min_plus_matmul"]
     counts["or_and_floor"] = bops.floor_launches
     counts["or_and_fixpoint"] = bops.fixpoint_launches
     counts["min_plus_settle"] = tops.settle_launches
+    counts["min_plus_settle_lists"] = tops.settle_list_launches
+    counts["local_eval_lists"] = _counted()["local_eval"].list_launches
     counts["or_and_copies"] = bops.copies
     return counts
 
@@ -576,14 +581,16 @@ class _EvalDGCalls:
 def _assert_one_fixpoint_each(what: str, launches: dict, calls,
                               local: int) -> None:
     """Each evalDG of a path was one launch, ``or_and_fixpoint`` for reach
-    and ``min_plus_settle`` for dist, with no per-step product launched
-    and no operand copied (either wrapper), and
-    the path made ``local`` launches of the localEval kernel: one for each
-    one-shot Reach or Dist it evaluated."""
+    and ``min_plus_settle_lists`` (or, on the dense route,
+    ``min_plus_settle``) for dist, with no per-step product launched and
+    no operand copied (either wrapper), and the path made ``local``
+    launches of the localEval kernel: one for each one-shot Reach or Dist
+    it evaluated."""
     if launches["local_eval"] != local:
         raise AssertionError(f"{what}: {launches['local_eval']} localEval "
                              f"launches, expected {local}")
-    got = (launches["or_and_fixpoint"], launches["min_plus_settle"])
+    got = (launches["or_and_fixpoint"],
+           launches["min_plus_settle"] + launches["min_plus_settle_lists"])
     if got != (calls.reach, calls.dist) or calls.reach + calls.dist == 0:
         raise AssertionError(f"{what}: {calls.reach} reach and {calls.dist} "
                              f"dist evalDGs made (or-and fixpoint, settle) "
@@ -1503,13 +1510,13 @@ ONESHOT_REGEX = "(0|1)* 2"
 
 def _split_one_shot(fr, s, t, kind, qa=None):
     """One one-shot query taken apart as ``session.exec_*`` runs it, with
-    CUDA events around its stages: the local stage (the allocation of D or
-    W in padded storage and localEval's one launch, which writes every row
-    into it; for RPQ the product's row block and its assembly) and evalDG
-    (one fixpoint launch, its steps as the kernel counted them; for dist
-    the settle kernel's levels and rows read), which reads D as it is
-    stored.  Returns the split, the answer, D and the
-    source rows."""
+    CUDA events around its stages: the local stage (the allocation of D in
+    padded storage or of W's row lists, and localEval's one launch, which
+    writes every row into it; for RPQ the product's row block and its
+    assembly) and evalDG (one fixpoint launch, its steps as the kernel
+    counted them; for dist the row-list settle kernel's levels and rows
+    read), which reads D or the lists as they are stored.  Returns the
+    split, the answer, D (for dist the row lists) and the source rows."""
     import torch
     from repro_torch.core import engine, session as S
     from repro_torch.kernels.bool_matmul import ops as bops
@@ -1527,8 +1534,7 @@ def _split_one_shot(fr, s, t, kind, qa=None):
                                     B=fr.B, out=bops.padded(fr.B, fr.B, dev))
     elif kind == "dist":
         D = engine.local_eval_dist(*a, s_local, t_local, n_max=fr.n_max,
-                                   B=fr.B,
-                                   out=tops.padded_i32(fr.B, fr.B, dev))
+                                   B=fr.B, out=tops.row_lists(fr.B, dev))
     else:
         Q, start, final = qa.n_states, qa.start, qa.final
         D = engine.regular_rvset(
@@ -1540,7 +1546,7 @@ def _split_one_shot(fr, s, t, kind, qa=None):
     tgt = S._tgt_cols(fr, t, dev, Q, final)
     # the fixpoint's (x, steps), or the settle kernel's [answer, levels,
     # rows], kept as the engine gets them
-    name = "min_plus_settle" if kind == "dist" else "or_and_fixpoint"
+    name = "min_plus_settle_lists" if kind == "dist" else "or_and_fixpoint"
     orig, kept = getattr(engine, name), {}
 
     def keep(*args):
@@ -1562,6 +1568,7 @@ def _split_one_shot(fr, s, t, kind, qa=None):
     split["ms_per_step"] = split["evaldg"] / max(steps, 1)
     if kind == "dist":
         split["rows"] = int(kept["result"][2])
+        split["entries"] = int(kept["result"][4])
     return split, ans, D, src, tgt
 
 
@@ -1636,9 +1643,71 @@ def _local_eval_timed(fr, s, t, reps=5) -> dict:
               f" {100 * bound_ms / ms:.1f} %); bit-equal, pads included")
         del got, m
     torch.cuda.empty_cache()
+    for kind, cap in (("lists", engine.INF), ("lists_bounded", 6)):
+        res[kind] = _local_eval_lists_timed(args, cap, B, n_max, read, reps)
     res["shape"] = (f"B {B} (pitch {pitch(B)} bytes / {pitch_i32(B)} int32), "
                     f"F {F}, S {n_src}, E {E}, n_max {n_max}")
     return res
+
+
+def _sorted_lists(lists):
+    """Each row's pairs sorted by column, INF past its count: row lists
+    compared whatever order the appends took."""
+    import torch
+    live = (torch.arange(lists.pairs.shape[1], device=lists.count.device)
+            [None, :] < lists.count[:, None])
+    key = torch.where(live, lists.pairs[:, :, 0], 1 << 30)
+    order = key.argsort(1)
+    pairs = torch.gather(lists.pairs, 1, order[:, :, None].expand(
+        -1, -1, 2))
+    return torch.where(live[:, :, None], pairs, 1 << 29)
+
+
+def _local_eval_lists_timed(args, cap, B, n_max, read, reps) -> dict:
+    """localEval's row-list route at full size on one query's inputs, into
+    fresh row lists: each row's pairs, its count and the meta held equal
+    to the plain version's (``engine._rows_dist``'s block turned into
+    lists), one launch a call (counted as a row-list launch) and no host
+    sync; timed beside the plain version and beside the least time its
+    bytes take: the pairs and counts stored once, the edges, sources and
+    column map read once."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels.local_eval import ops as lops
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    dev = args[0].device
+    got = tops.row_lists(B, dev)
+    before = (lops.launches, lops.list_launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lops.local_eval_dist_lists(got, *args, cap, n_max=n_max)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    plain_ms, want = cuda_timed(lambda: tops.write_row_lists(
+        tops.row_lists(B, dev), *engine._rows_dist(*args, cap, n_max=n_max,
+                                                   B=B)), 1, warmup=False)
+    kind = "lists" if cap >= engine.INF else "lists_bounded"
+    _check_equal(f"local_eval {kind} counts", got.count, want.count)
+    _check_equal(f"local_eval {kind} meta", got.meta, want.meta)
+    _check_equal(f"local_eval {kind} pairs", _sorted_lists(got),
+                 _sorted_lists(want))
+    entries = int(want.meta[1])
+    del want
+    ms, _ = cuda_timed(lambda: lops.local_eval_dist_lists(
+        got, *args, cap, n_max=n_max), reps, warmup=False)
+    if (lops.launches - before[0], lops.list_launches - before[1]) != \
+            (reps + 1, reps + 1):
+        raise AssertionError(f"local_eval {kind}: not one row-list launch "
+                             "a call")
+    nbytes = 8 * entries + 4 * B + read
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"time local_eval {kind}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes, "
+          f"{100 * bound_ms / ms:.2f} %); {entries} pairs, equal to the "
+          f"plain version's row for row")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bytes": nbytes, "share": bound_ms / ms, "entries": entries}
 
 
 #: empty steps the grid-barrier probe times (beside a launch of none)
@@ -1795,6 +1864,102 @@ def _settle_timed(W, src, tgt, want, reps=3) -> dict:
     return res
 
 
+def _final_distances(lists, src):
+    """d of the plain fixpoint on W's row lists: Bellman-Ford over every
+    pair at once, a scatter-min a step, until nothing falls."""
+    import torch
+    from repro_torch.core.engine import INF
+    live = (torch.arange(lists.pairs.shape[1], device=src.device)[None, :]
+            < lists.count[:, None])
+    rows = torch.arange(lists.B, device=src.device)[:, None].expand_as(
+        live)[live]
+    cols = lists.pairs[:, :, 0][live].long()
+    w = lists.pairs[:, :, 1][live]
+    d = torch.where(src, 0, INF).to(torch.int32)
+    while True:
+        nxt = d.scatter_reduce(0, cols, (d[rows] + w).clamp_max(INF),
+                               "amin")
+        if torch.equal(nxt, d):
+            return d
+        d = nxt
+
+
+def _settle_lists_timed(lists, W, src, tgt, want, reps=3) -> dict:
+    """evalDG's dist kernel on W's row lists, ``min_plus_settle_lists``, on
+    a checked dist query (its answer ``want``), unbounded and with bound 6:
+    the kernel alone and the engine's ``evaldg_dist`` around it, CUDA
+    events around ``reps`` runs each, one launch a call; its state held
+    equal to the dense kernel's on the same query's W and to its plain
+    version's.  The bound is the pairs of the rows it read, 8 bytes each
+    (the rows whose final distance lies below the level it stopped at);
+    the floor its level rounds, one grid barrier each (half the barrier
+    probe's empty step at its grid)."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels.tropical_matmul import ops as tops
+    B = lists.B
+    d0 = torch.full((B,), engine.INF, dtype=torch.int32, device=src.device)
+    d0.masked_fill_(src, 0)
+    d = _final_distances(lists, src)
+    blocks = min(tops.SETTLE_LIST_BLOCKS, tops._settle_list_slots(
+        src.device.index or 0))
+    barrier = _barrier_ms_per_step(blocks) / 2
+    res = {}
+    for kind, bound in (("dist", None), ("bounded", 6)):
+        expect = want if bound is None or want <= bound else engine.INF
+        before = tops.settle_list_launches
+        ms, got = cuda_timed(
+            lambda b=bound: tops.min_plus_settle_lists(src, lists, tgt, b),
+            reps)
+        evaldg_ms, ans = cuda_timed(
+            lambda b=bound: engine.evaldg_dist(lists, src, tgt, bound=b),
+            reps)
+        if tops.settle_list_launches - before != 2 * (reps + 1):
+            raise AssertionError(f"min_plus_settle_lists {kind}: not one "
+                                 "launch a call")
+        plain_ms, want_state = cuda_timed(
+            lambda b=bound: tops.min_plus_settle_lists_ref(src, lists, tgt,
+                                                           b), 1,
+            warmup=False)
+        _check_equal(f"min_plus_settle_lists {kind} state", got, want_state)
+        dense = tops.min_plus_settle(d0, W, tgt, bound)
+        _check_equal(f"min_plus_settle_lists {kind} vs dense", got[:3],
+                     dense)
+        answer, levels, rows, _, entries = got.tolist()
+        if answer != expect or ans != expect:
+            raise AssertionError(f"min_plus_settle_lists {kind}: kernel "
+                                 f"{answer}, evaldg {ans}, expected {expect}")
+        finite = torch.unique(d[d < engine.INF])
+        stop = (int(finite[levels]) if levels < finite.numel()
+                else engine.INF)
+        settled = d < stop
+        if int(settled.sum()) != rows:
+            raise AssertionError(f"min_plus_settle_lists {kind}: {rows} rows "
+                                 f"read, {int(settled.sum())} settled")
+        read = int(lists.count[settled].sum())
+        nbytes = 8 * read
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        floor_ms = barrier * levels
+        res[kind] = {"ms": ms, "evaldg_ms": evaldg_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bytes": nbytes,
+                     "share": bound_ms / ms, "answer": answer,
+                     "levels": levels, "rows": rows, "pairs_read": read,
+                     "floor_ms": floor_ms, "entries": entries}
+        print(f"time min_plus_settle_lists {kind}: kernel {ms:.4f} ms, "
+              f"evaldg {evaldg_ms:.4f} ms, plain {plain_ms:.3f} ms; answer "
+              f"{answer} in {levels} levels, {rows} of {B} rows read "
+              f"({read} of {entries} pairs); bound {bound_ms:.5f} ms "
+              f"({nbytes} bytes, {100 * bound_ms / ms:.2f} %); level-round "
+              f"floor {floor_ms:.4f} ms ({blocks} blocks, "
+              f"{1e3 * barrier:.2f} us a round); state equal to the dense "
+              f"kernel's and the plain version's")
+    res.update({"ms": res["dist"]["ms"], "plain_ms": res["dist"]["plain_ms"],
+                "bound_ms": res["dist"]["bound_ms"], "bound_by": "bytes",
+                "blocks": blocks, "max_abs_err": 0.0,
+                "shape": f"[{B}], row lists [{B}, {tops.ROW_CAP}]"})
+    return res
+
+
 def _rpq_targets(g, s: int, qa) -> np.ndarray:
     """[n] bool: every t that (s, t) answers True for the automaton ``qa``,
     from one product-graph BFS in which the t-only state matches every
@@ -1913,12 +2078,26 @@ def phase_oneshot(out: dict, g, fr) -> None:
     if ans != results[0].answer:
         raise AssertionError("the split reach query disagrees with the run")
     sd, td = int(pairs[half, 0]), int(pairs[half, 1])
-    split["dist"], ans_d, W, srcd, tgtd = _split_one_shot(fr, sd, td, "dist")
+    split["dist"], ans_d, Wl, srcd, tgtd = _split_one_shot(fr, sd, td,
+                                                           "dist")
     from repro_torch.core.engine import INF
     want_d = results[half].distance
     if ans_d != (INF if want_d is None else want_d):
         raise AssertionError("the split dist query disagrees with the run")
+    if launches["local_eval_lists"] != launches["min_plus_settle_lists"] \
+            or launches["min_plus_settle_lists"] != sum(
+                q.kind == "dist" and q.s != q.t for q in queries):
+        raise AssertionError(f"one-shot path: not one row-list localEval "
+                             f"and one row-list settle a Dist: {launches}")
+    from repro_torch.core import engine as E, session as S
     from repro_torch.kernels.tropical_matmul import ops as tops
+    # the same query's dense W, for the dense kernels' shapes
+    arrs, s_loc, t_loc = S._query_inputs(fr, sd, td, "cuda")
+    W = E.local_eval_dist(*(arrs[n] for n in ("esrc", "edst", "src_local",
+                                              "src_row", "tgt_local")),
+                          s_loc, t_loc, n_max=fr.n_max, B=fr.B,
+                          out=tops.padded_i32(fr.B, fr.B, "cuda"))
+    del arrs
     # one step's vector, in padded storage as evaldg_dist keeps it
     d = tops.padded_i32(1, fr.B, "cuda")[0].fill_(INF)
     d.masked_fill_(srcd, 0)
@@ -1988,8 +2167,10 @@ def phase_oneshot(out: dict, g, fr) -> None:
                   floor=True)]}
     fixpoints = {"or_and_fixpoint": _evaldg_timed(
                      "evaldg_reach", D, src, tgt, ans),
-                 "min_plus_settle": _settle_timed(W, srcd, tgtd, ans_d)}
-    del D, W
+                 "min_plus_settle": _settle_timed(W, srcd, tgtd, ans_d),
+                 "min_plus_settle_lists": _settle_lists_timed(
+                     Wl, W, srcd, tgtd, ans_d)}
+    del D, W, Wl
     torch.cuda.empty_cache()
     # the or-and fixpoint kernel: its launches are the one-shot run's (one
     # for each Reach); no one PyTorch call computes a fixpoint, so no
@@ -2019,6 +2200,22 @@ def phase_oneshot(out: dict, g, fr) -> None:
          "max_abs_err": st["max_abs_err"], "ms": st["ms"],
          "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
          "bound_by": st["bound_by"], "library_ms": None,
+         "shape": st["shape"] + f", {st['dist']['rows']} rows read",
+         "by_kind": {k: st[k] for k in ("dist", "bounded")},
+         "blocks": st["blocks"]})
+    # the settle kernel on W's row lists: one launch for each one-shot
+    # Dist; ms, plain and bound of the unbounded split query
+    st = fixpoints["min_plus_settle_lists"]
+    out["kernels"].append(
+        {"name": "min_plus_settle_lists", "route": "cuda",
+         "source": "src/repro_torch/kernels/tropical_matmul/csrc/"
+                   "min_plus_matmul.cu",
+         "replaces": None,
+         "launches": launches["min_plus_settle_lists"],
+         "launches_path": "oneshot", "max_abs_err": st["max_abs_err"],
+         "ms": st["ms"], "plain_ms": st["plain_ms"],
+         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+         "library_ms": None,
          "shape": st["shape"] + f", {st['dist']['rows']} rows read",
          "by_kind": {k: st[k] for k in ("dist", "bounded")},
          "blocks": st["blocks"]})

@@ -16,7 +16,9 @@ cheap because a fragment's diameter is small.  Each step counts in
 (:mod:`repro_torch.tracing`).  The one-shot localEval given ``out=``, the
 dependency matrix itself, takes none of these steps on the card: one launch
 of :mod:`repro_torch.kernels.local_eval` runs every source's local BFS and
-writes its row in place.
+writes its row in place; for a dist or bounded query the one-shot path
+keeps W as the lists of its finite entries (``RowLists``), which that
+launch writes and evalDG's search reads.
 
 Conventions (set up by ``fragments.fragment_graph``):
   * local node slots 0..n_max-1 are real nodes + virtual stubs; slot n_max
@@ -29,15 +31,18 @@ Conventions (set up by ``fragments.fragment_graph``):
 from __future__ import annotations
 
 import threading
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import tracing
 from ..kernels.bool_matmul.ops import or_and_fixpoint, padded_zeros
 from ..kernels.local_eval import (check_args, local_eval_dist_into,
+                                  local_eval_dist_lists,
                                   local_eval_reach_into)
-from ..kernels.tropical_matmul.ops import min_plus_settle
+from ..kernels.tropical_matmul.ops import (RowLists, min_plus_settle,
+                                           min_plus_settle_lists,
+                                           write_row_lists)
 
 INF = 1 << 29          # with int32 tensors; INF + INF still fits in int32
 
@@ -322,19 +327,34 @@ def local_eval_dist(esrc, edst, src_local, src_row, tgt_local, s_local,
     With ``out``, the int32 [B, B] matrix in padded storage, the rows are
     written into it and ``out`` is returned: the matrix ``W.fill_(INF);
     W[rows] = block`` builds, its pads INF too; on the card one launch of
-    :func:`~repro_torch.kernels.local_eval.local_eval_dist_into`."""
+    :func:`~repro_torch.kernels.local_eval.local_eval_dist_into`.
+
+    With ``out`` W's row lists (``tropical_matmul.ops.RowLists``, made by
+    ``row_lists`` with every count zero), each owned row is stored as the
+    list of its finite (column, distance) pairs and ``out`` is returned;
+    a row that does not fit sets ``out.meta[0]``, and evalDG then reports
+    the overflow.  On the card that is one launch of
+    :func:`~repro_torch.kernels.local_eval.local_eval_dist_lists`, the same
+    BFS with no semiring zero stored (it replaces no TPU kernel: W is
+    almost all INF, about 5 finite entries a row at n = 32768, k = 16, and
+    the dense route wrote 4.1 GB of INF there; it is bound by the BFS and
+    the column lookups of each batch of 32 sources: 0.18 ms there on an
+    H100, against 1.68 for the dense route); on the CPU the row block
+    turned into lists (``write_row_lists``)."""
     if out is None:
         return _rows_dist(esrc, edst, src_local, src_row, tgt_local,
                           s_local, t_local, cap, n_max=n_max, B=B)
-    if not out.is_cuda:
-        args = (esrc, edst, src_local, src_row, tgt_local, s_local, t_local)
+    args = (esrc, edst, src_local, src_row, tgt_local, s_local, t_local)
+    lists = isinstance(out, RowLists)
+    if out.device.type != "cuda":
         check_args(True, out, *args)
-        return _write_rows(out, INF, *_rows_dist(*args, cap, n_max=n_max,
-                                                 B=B))
+        rows, block = _rows_dist(*args, cap, n_max=n_max, B=B)
+        if lists:
+            return write_row_lists(out, rows, block)
+        return _write_rows(out, INF, rows, block)
     with FIXPOINT:
-        return local_eval_dist_into(out, esrc, edst, src_local, src_row,
-                                    tgt_local, s_local, t_local, cap,
-                                    n_max=n_max)
+        into = local_eval_dist_lists if lists else local_eval_dist_into
+        return into(out, *args, cap, n_max=n_max)
 
 
 def _write_rows(out, zero, rows, block):
@@ -404,7 +424,7 @@ def evaldg_reach(D, src_rows, tgt_cols) -> bool:
     return bool((x & tgt_cols).any())
 
 
-def evaldg_dist(W, src_rows, tgt_cols, bound=None) -> int:
+def evaldg_dist(W, src_rows, tgt_cols, bound=None) -> Optional[int]:
     """Single-source distances on W [B, B] int32 from ``src_rows``, as the
     paper's Dijkstra on the dependency graph: returns the least distance
     onto ``tgt_cols`` (bool masks [B]), INF if none is reached or it is
@@ -417,13 +437,36 @@ def evaldg_dist(W, src_rows, tgt_cols, bound=None) -> int:
     or the bound is passed, on W as it is stored (the paths make it in
     padded storage, :func:`~repro_torch.kernels.tropical_matmul.ops.
     padded_i32`).  The answer, the levels settled (``evaldg.levels``) and
-    the rows of W read (``evaldg.rows``) are read back once, at the end."""
-    d0 = torch.full((W.shape[0],), INF, dtype=torch.int32, device=W.device)
-    d0.masked_fill_(src_rows, 0)
-    with FIXPOINT:
-        state = min_plus_settle(d0, W, tgt_cols, bound)
-    tracing.count("host.syncs")
-    answer, levels, rows = state.tolist()
+    the rows of W read (``evaldg.rows``) are read back once, at the end.
+
+    Given W's row lists (``RowLists``, as :func:`local_eval_dist` writes
+    them), the same search runs on them,
+    :func:`~repro_torch.kernels.tropical_matmul.ops.min_plus_settle_lists`:
+    the same answer, levels and rows, each settled row reading only its
+    pairs.  On the card one launch (it replaces no TPU kernel: the dense
+    settle read 128 KB a row for about 5 entries; it is bound by its level
+    rounds, each a chain of dependent loads and a barrier: 0.14-0.25 ms a
+    query on the one-shot cell's lists on an H100, against 0.34-1.63 for
+    the dense settle, whose bytes bound it).  The same one
+    read back also gives the pairs the lists hold (``oneshot.w_entries``)
+    and their overflow flags: where those are set the lists do not hold W,
+    and None is returned, for the caller to answer on the dense W."""
+    if isinstance(W, RowLists):
+        with FIXPOINT:
+            state = min_plus_settle_lists(src_rows, W, tgt_cols, bound)
+        tracing.count("host.syncs")
+        answer, levels, rows, overflow, entries = state.tolist()
+        tracing.count("oneshot.w_entries", entries)
+        if overflow:
+            return None
+    else:
+        d0 = torch.full((W.shape[0],), INF, dtype=torch.int32,
+                        device=W.device)
+        d0.masked_fill_(src_rows, 0)
+        with FIXPOINT:
+            state = min_plus_settle(d0, W, tgt_cols, bound)
+        tracing.count("host.syncs")
+        answer, levels, rows = state.tolist()
     tracing.count("evaldg.levels", levels)
     tracing.count("evaldg.rows", rows)
     return answer

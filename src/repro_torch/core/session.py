@@ -45,7 +45,7 @@ from . import cache as _cache
 from . import distributed, engine, incremental
 from ..errors import DeltaApplyFailed, NoCudaDevice, Status, is_device_fault
 from ..kernels.bool_matmul.ops import padded
-from ..kernels.tropical_matmul.ops import padded_i32
+from ..kernels.tropical_matmul.ops import padded_i32, row_lists
 from .automaton import QueryAutomaton, build_query_automaton
 from .engine import INF, QueryStats
 from .fragments import Fragmentation, GraphDelta, Placement, query_slots
@@ -549,29 +549,41 @@ def exec_dist(fr: Fragmentation, s: int, t: int,
               bound: Optional[int] = None, device=None) -> QueryResult:
     """disDist (paper Sec. 4): bounded reachability q_br(s, t, l), with the
     local propagations capped at the bound; with ``bound=None`` the exact
-    dist(s, t) (unreachable: distance None).  evalDG runs through the
-    min-plus settle kernel, which stops at t or past the bound."""
+    dist(s, t) (unreachable: distance None).  W is kept as the lists of its
+    finite entries: localEval writes them, and evalDG's search by levels
+    reads them and stops at t or past the bound.  Where a row does not fit
+    its list, the query is answered again on the dense W (counted in
+    ``oneshot.dense_fallbacks``)."""
     if s == t:
         ok = bound is None or 0 <= bound
         return QueryResult(ok, 0, QueryStats(0, 0, fr.B, 1))
     cap = INF if bound is None else int(bound)
     dev = _resolve_device(device)
-    with tracing.span("oneshot.query", kind="dist"):
-        with tracing.span("oneshot.inputs"):
-            arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
-        with tracing.span("oneshot.assemble"):
-            # padded storage (rows 16 bytes apart): evalDG's settle
-            # kernel reads W as it is, without a copy; the local stage
-            # writes every row, pads included
-            W = padded_i32(fr.B, fr.B, dev)
+
+    def local_then_evaldg(W):
         with tracing.span("oneshot.local_eval"):
             engine.local_eval_dist(
                 arrs["esrc"], arrs["edst"], arrs["src_local"],
                 arrs["src_row"], arrs["tgt_local"], s_local, t_local, cap,
                 n_max=fr.n_max, B=fr.B, out=W)
         with tracing.span("oneshot.evaldg"):
-            d = engine.evaldg_dist(W, _src_rows(fr, dev),
-                                   _tgt_cols(fr, t, dev), bound=bound)
+            return engine.evaldg_dist(W, _src_rows(fr, dev),
+                                      _tgt_cols(fr, t, dev), bound=bound)
+
+    with tracing.span("oneshot.query", kind="dist"):
+        with tracing.span("oneshot.inputs"):
+            arrs, s_local, t_local = _query_inputs(fr, s, t, dev)
+        with tracing.span("oneshot.assemble"):
+            W = row_lists(fr.B, dev)
+        d = local_then_evaldg(W)
+        if d is None:
+            tracing.count("oneshot.dense_fallbacks")
+            del W
+            with tracing.span("oneshot.assemble"):
+                # padded storage (rows 16 bytes apart), which the local
+                # stage writes whole and the settle kernel reads as it is
+                W = padded_i32(fr.B, fr.B, dev)
+            d = local_then_evaldg(W)
     reachable = d < INF
     answer = reachable if bound is None else (reachable and d <= bound)
     stats = QueryStats(payload_bits=fr.traffic_bits("dist"),

@@ -68,6 +68,24 @@
 //  - Each block also writes the rows no source owns in its share of
 //    [0, B), found from a bitmap it builds of the owned rows.
 //
+// The row-list route (local_eval_lists_kernel, dist and bounded queries).
+// Replaces no TPU kernel either: it was added because W is almost all INF
+// (160,774 finite entries of 1.03e9 at n = 32768, k = 16: about 5 a row,
+// at most 44), so the stores of the dense route write 4.1 GB to say
+// nothing.  The same batches and the same BFS; then the block scans the
+// column map once, as the patch does, and appends each reached (column,
+// distance) pair to its row's list, [B, 64] int2 with a count a row, by
+// an atomicAdd in shared memory a pair.  Rows that no source owns keep the
+// count 0 they held before the launch: nothing else is written.  A row of
+// more than 64 entries, or a distance of 64 or more (the settle kernel's
+// ring of levels, tropical_matmul.ops.RING), is never cut silently: the
+// block ORs a flag into meta[0], and the caller answers on the dense
+// route.  What bounds it: the BFS's passes over the edges and the column
+// lookups, a batch each, and no longer the stores (the pairs are 1.3 MB at
+// that size).  Measured on an H100 at that size: 0.18 ms a dist query
+// (0.17 bounded at 6), where the dense route takes 1.68 and the bytes
+// alone would take 0.0014.
+//
 // Sizes and pitches are int; offsets into the output are 64-bit (W at
 // this size holds 1.03e9 entries).
 
@@ -82,6 +100,10 @@ constexpr int LE_BATCH = 32;            // sources a batch: a word's bits
 constexpr int LE_WINDOW = 32768;        // rows of the ownership bitmap a pass
 constexpr int LE_INF = 1 << 29;         // core.engine.INF
 constexpr int LE_ILP = 8;               // column-map loads a thread issues
+constexpr int LE_ROW_CAP = 64;          // tropical_matmul.ops.ROW_CAP
+constexpr int LE_RING = 64;             // tropical_matmul.ops.RING
+constexpr int LE_OVER_ROW = 1;          // a row with more than LE_ROW_CAP
+constexpr int LE_OVER_HOPS = 2;         // a distance of LE_RING or more
 
 struct Args {
   const int* esrc;
@@ -190,6 +212,65 @@ __device__ void patch_rows(const Args& a, int f, const uint32_t* V,
   }
 }
 
+// The BFS of one batch, the sources j0 .. j0 + 31 of fragment f (bit j of
+// a word is source j0 + j) over the edges es / ed: V[slot] gathers the
+// sources that reach slot, and for dist dws[slot * 32 + j] their level.
+// V (three words a slot: the reached, the level's new and the next
+// level's) must be zero.  local_eval_kernel runs the same steps written
+// inline: moved into this function they compiled to other instructions
+// there (H100 build, cuobjdump -sass), and that kernel stays as measured.
+template <bool DIST>
+__device__ __forceinline__ void batch_bfs(const Args& a, int f, int j0,
+                                          const int* es, const int* ed,
+                                          uint32_t* V, int* dws) {
+  const int n1 = a.n_max + 1;
+  const int tid = threadIdx.x;
+  // level 0: the sources themselves; cur holds a level's new bits,
+  // nxt gathers the next level's
+  uint32_t* cur = V + n1;
+  uint32_t* nxt = V + 2 * n1;
+  bool seeded = false;
+  if (tid < LE_BATCH && j0 + tid < a.S && a.cap >= 0) {
+    const int s = source_slot(a, f, j0 + tid);
+    if (in_range(s, a.n_max)) {
+      atomicOr(&V[s], 1u << tid);
+      atomicOr(&cur[s], 1u << tid);
+      if (DIST) dws[(size_t)s * 32 + tid] = 0;
+      seeded = true;
+    }
+  }
+  int level = 0;
+  if (__syncthreads_or(seeded)) {
+    while (level < a.cap) {
+      bool grew = false;
+      for (int e = tid; e < a.E; e += blockDim.x) {
+        const int u = es[e];
+        if (!in_range(u, n1)) continue;
+        const uint32_t bits = cur[u];
+        if (!bits) continue;
+        const int v = ed[e];
+        if (!in_range(v, n1)) continue;
+        uint32_t fresh = bits & ~atomicOr(&V[v], bits);
+        if (!fresh) continue;
+        atomicOr(&nxt[v], fresh);
+        grew = true;
+        if (DIST) {
+          for (; fresh; fresh &= fresh - 1)
+            dws[(size_t)v * 32 + (__ffs(fresh) - 1)] = level + 1;
+        }
+      }
+      if (!__syncthreads_or(grew)) break;
+      for (int i = tid; i < n1; i += blockDim.x) cur[i] = 0;
+      uint32_t* swap = cur;
+      cur = nxt;
+      nxt = swap;
+      ++level;
+      __syncthreads();
+    }
+    if (a.steps && tid == 0) atomicMax(a.steps, level + 1);
+  }
+}
+
 template <bool DIST>
 __global__ void __launch_bounds__(LE_THREADS, 1)
     local_eval_kernel(const Args a) {
@@ -289,6 +370,121 @@ __global__ void __launch_bounds__(LE_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the row-list route (dist): W as lists of its finite entries
+// ---------------------------------------------------------------------------
+
+// Where the row lists live: pairs [B, LE_ROW_CAP] of (column, distance),
+// count [B] (zero before the launch: rows no source owns keep it) and meta
+// (zero before the launch): meta[0] the overflow flags, meta[1] the pairs
+// stored.
+struct Lists {
+  int2* pairs;
+  int* count;
+  int* meta;
+};
+
+// Appends each reached column of the batch's rows to its row's list:
+// fill[j] counts row j's entries (the pairs past LE_ROW_CAP are not
+// stored), *flags gathers LE_OVER_HOPS for a distance the settle kernel's
+// ring cannot hold.  The column map is read as patch_rows reads it.
+__device__ void list_rows(const Args& a, const Lists& l, int f,
+                          const uint32_t* V, const int* dws, const int* rows,
+                          int* fill, int* flags) {
+  const int step = blockDim.x * LE_ILP;
+  for (int c0 = threadIdx.x; c0 < a.B; c0 += step) {
+    int slot[LE_ILP];
+#pragma unroll
+    for (int i = 0; i < LE_ILP; ++i) {
+      const int c = c0 + i * blockDim.x;
+      slot[i] = c < a.B ? column_slot(a, f, c) : a.n_max;
+    }
+#pragma unroll
+    for (int i = 0; i < LE_ILP; ++i) {
+      if (!in_range(slot[i], a.n_max)) continue;
+      const int c = c0 + i * blockDim.x;
+      for (uint32_t bits = V[slot[i]]; bits; bits &= bits - 1) {
+        const int j = __ffs(bits) - 1;
+        if (!in_range(rows[j], a.B)) continue;
+        const int dist = dws[(size_t)slot[i] * 32 + j];
+        if (dist >= LE_RING) atomicOr(flags, LE_OVER_HOPS);
+        const int pos = atomicAdd(&fill[j], 1);
+        if (pos < LE_ROW_CAP)
+          l.pairs[(size_t)rows[j] * LE_ROW_CAP + pos] = make_int2(c, dist);
+      }
+    }
+  }
+}
+
+// The dist BFS of local_eval_kernel<true>, each owned row then stored as
+// the list of its reached columns: no semiring zero is written anywhere.
+__global__ void __launch_bounds__(LE_THREADS, 1)
+    local_eval_lists_kernel(const Args a, const Lists l) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int rows[LE_BATCH];
+  __shared__ int fill[LE_BATCH];
+  __shared__ int flags;
+  const int n1 = a.n_max + 1;
+  const int tid = threadIdx.x;
+  if (tid == 0) flags = 0;
+  int stored = 0;          // pairs this block stored (warp 0)
+
+  uint32_t* V = a.state_shared
+                    ? reinterpret_cast<uint32_t*>(smem)
+                    : a.state_ws + (size_t)blockIdx.x * 3 * n1;
+  int* es_shared = reinterpret_cast<int*>(
+      smem + (a.state_shared ? (size_t)3 * n1 * sizeof(uint32_t) : 0));
+  int* ed_shared = es_shared + a.E;
+  int* dws = a.dist_ws + (size_t)blockIdx.x * 32 * n1;
+
+  const int batches = (a.S + LE_BATCH - 1) / LE_BATCH;
+  const long long work = (long long)a.F * batches;
+  const long long w_lo = work * blockIdx.x / gridDim.x;
+  const long long w_hi = work * (blockIdx.x + 1) / gridDim.x;
+  int loaded = -1;
+  for (long long w = w_lo; w < w_hi; ++w) {
+    const int f = (int)(w / batches);
+    const int j0 = (int)(w % batches) * LE_BATCH;
+    const int* es = a.esrc + (size_t)f * a.E;
+    const int* ed = a.edst + (size_t)f * a.E;
+    if (a.edges_shared) {
+      if (f != loaded) {
+        for (int e = tid; e < a.E; e += blockDim.x) {
+          es_shared[e] = es[e];
+          ed_shared[e] = ed[e];
+        }
+        loaded = f;
+      }
+      es = es_shared;
+      ed = ed_shared;
+    }
+    for (int i = tid; i < 3 * n1; i += blockDim.x) V[i] = 0;
+    if (tid < LE_BATCH) {
+      rows[tid] = j0 + tid < a.S ? source_row(a, f, j0 + tid) : a.B;
+      fill[tid] = 0;
+    }
+    __syncthreads();
+    batch_bfs<true>(a, f, j0, es, ed, V, dws);
+    list_rows(a, l, f, V, dws, rows, fill, &flags);
+    __syncthreads();
+    if (tid < LE_BATCH) {
+      int n = 0;
+      if (in_range(rows[tid], a.B)) {
+        n = fill[tid];
+        if (n > LE_ROW_CAP) atomicOr(&flags, LE_OVER_ROW);
+        n = min(n, LE_ROW_CAP);
+        l.count[rows[tid]] = n;
+      }
+      stored += __reduce_add_sync(0xffffffffu, n);
+    }
+    __syncthreads();     // fill, rows and V are read before the next batch
+  }
+  if (tid == 0) {
+    if (stored) atomicAdd(l.meta + 1, stored);
+    if (flags) atomicOr(l.meta, flags);
+  }
+}
+
 template <bool DIST>
 int launch(const Args& a, int smem, int blocks, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -299,31 +495,46 @@ int launch(const Args& a, int smem, int blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+int launch_lists(const Args& a, const Lists& l, int smem, int blocks,
+                 cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      local_eval_lists_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  local_eval_lists_kernel<<<blocks, LE_THREADS, smem, stream>>>(a, l);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The kernel's one launch: `dist` 0 writes D (bool), 1 writes W (int32).
-// out's base and row pitch must be multiples of 16 bytes.  state_ws
-// (3 (n_max+1) words a block) is needed unless state_shared; dist_ws
-// (32 (n_max+1) ints a block) for dist; steps (one int, 0 before the
-// launch) is optional.  `smem` is the dynamic shared memory: 12 (n_max+1)
-// bytes if state_shared, then 8 E bytes if edges_shared.  Returns the
-// launch's CUDA error code.
-extern "C" int local_eval(int dist, const void* esrc, const void* edst,
+// The kernel's one launch: `mode` 0 writes D (bool), 1 writes W (int32),
+// 2 writes W's row lists (local_eval_lists_kernel): `out` then holds the
+// pairs, [B, 64] int2, and `count` ([B] ints) and `meta` (2 ints) must be
+// zero before the launch; `ldo` is unused.  For modes 0 and 1, out's base
+// and row pitch must be multiples of 16 bytes.  state_ws (3 (n_max+1)
+// words a block) is needed unless state_shared; dist_ws (32 (n_max+1) ints
+// a block) for modes 1 and 2; steps (one int, 0 before the launch) is
+// optional.  `smem` is the dynamic shared memory: 12 (n_max+1) bytes if
+// state_shared, then 8 E bytes if edges_shared.  Returns the launch's CUDA
+// error code.
+extern "C" int local_eval(int mode, const void* esrc, const void* edst,
                           const void* src_local, const void* src_row,
                           const void* tgt_local, int ldt,
                           const void* s_local, const void* t_local,
-                          void* out, long long ldo, void* state_ws,
-                          void* dist_ws, void* steps, int F, int S, int E,
-                          int B, int n_max, int cap, int state_shared,
-                          int edges_shared, int smem, int blocks,
-                          void* stream) {
-  if (F < 0 || S < 1 || E < 0 || B < 2 || n_max < 0 || ldt < B ||
-      ldo < B || blocks < 1 || smem < 0)
+                          void* out, long long ldo, void* count, void* meta,
+                          void* state_ws, void* dist_ws, void* steps, int F,
+                          int S, int E, int B, int n_max, int cap,
+                          int state_shared, int edges_shared, int smem,
+                          int blocks, void* stream) {
+  const bool lists = mode == 2;
+  if (mode < 0 || mode > 2 || F < 0 || S < 1 || E < 0 || B < 2 ||
+      n_max < 0 || ldt < B || (!lists && ldo < B) || blocks < 1 || smem < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t elem = dist ? 4 : 1;
-  if (reinterpret_cast<uintptr_t>(out) % 16 || (ldo * elem) % 16)
+  const size_t elem = mode ? 4 : 1;
+  if (!lists && (reinterpret_cast<uintptr_t>(out) % 16 || (ldo * elem) % 16))
     return (int)cudaErrorMisalignedAddress;
-  if ((!state_shared && !state_ws) || (dist && !dist_ws))
+  if ((!state_shared && !state_ws) || (mode && !dist_ws) ||
+      (lists && (!count || !meta)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.esrc = static_cast<const int*>(esrc);
@@ -337,7 +548,7 @@ extern "C" int local_eval(int dist, const void* esrc, const void* edst,
   a.state_ws = static_cast<uint32_t*>(state_ws);
   a.dist_ws = static_cast<int*>(dist_ws);
   a.steps = static_cast<int*>(steps);
-  a.ldo = ldo;
+  a.ldo = lists ? LE_ROW_CAP : ldo;
   a.ldt = ldt;
   a.F = F;
   a.S = S;
@@ -348,12 +559,18 @@ extern "C" int local_eval(int dist, const void* esrc, const void* edst,
   a.state_shared = state_shared;
   a.edges_shared = edges_shared;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dist ? launch<true>(a, smem, blocks, s)
+  if (lists) {
+    const Lists l{static_cast<int2*>(out), static_cast<int*>(count),
+                  static_cast<int*>(meta)};
+    return launch_lists(a, l, smem, blocks, s);
+  }
+  return mode ? launch<true>(a, smem, blocks, s)
               : launch<false>(a, smem, blocks, s);
 }
 
-// The most dynamic shared memory a block of the kernel may ask for on the
-// current device, -1 on error.
+// The most dynamic shared memory a block of either kernel may ask for on
+// the current device (local_eval_kernel<true> holds the most static shared
+// memory), -1 on error.
 extern "C" int local_eval_smem_limit() {
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
@@ -365,11 +582,13 @@ extern "C" int local_eval_smem_limit() {
   return optin - (int)attr.sharedSizeBytes;
 }
 
-// Blocks of the kernel resident on one SM with `smem` bytes of dynamic
-// shared memory each, -1 on error.
-extern "C" int local_eval_blocks_per_sm(int dist, int smem) {
-  const void* k = dist ? reinterpret_cast<const void*>(local_eval_kernel<true>)
-                       : reinterpret_cast<const void*>(local_eval_kernel<false>);
+// Blocks of the kernel of `mode` (as local_eval's) resident on one SM with
+// `smem` bytes of dynamic shared memory each, -1 on error.
+extern "C" int local_eval_blocks_per_sm(int mode, int smem) {
+  const void* k =
+      mode == 2 ? reinterpret_cast<const void*>(local_eval_lists_kernel)
+      : mode    ? reinterpret_cast<const void*>(local_eval_kernel<true>)
+                : reinterpret_cast<const void*>(local_eval_kernel<false>);
   int n = 0;
   if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess ||

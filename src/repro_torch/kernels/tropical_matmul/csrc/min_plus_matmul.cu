@@ -53,7 +53,8 @@
 // result is deterministic, and a product is still one launch.
 //
 // Settle (min_plus_settle), evalDG's answer by levels in one cooperative
-// launch; its own comment is at the kernel below.
+// launch, and its twin over W's row lists (min_plus_settle_lists); their
+// own comments are at the kernels below.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -661,6 +662,308 @@ min_plus_settle_kernel(const int* __restrict__ d0, int ldd0,
   }
 }
 
+// ---------------------------------------------------------------------------
+// evalDG's answer by levels over W's row lists (min_plus_settle_lists)
+// ---------------------------------------------------------------------------
+//
+// The same search as min_plus_settle, on W held as the lists of its finite
+// entries that localEval's row-list route writes (local_eval.cu): row k's
+// (column, distance) pairs are pairs[k][0, count[k]), at most SL_CAP, each
+// distance below SL_RING.  Replaces no TPU kernel: the reference's evalDG
+// is tropical_matmul_pallas on the dense W.  It was added because that W
+// is almost all INF (about 5 entries a row at n = 32768, k = 16), so
+// min_plus_settle read 128 KB a row for those few.  Sources and targets
+// are N-byte masks; d starts at 0 on the sources and INF elsewhere.
+//
+// Schedule: Dial's buckets on a ring.  Rounds of an expand and a grid
+// barrier.  The expand takes the rows of one list, one a thread: a row
+// whose d is the level L (a stale entry costs its d, and no row) has each
+// pair (c, w) relaxed straight into d with atomicMin(d[c], L + w); where d
+// fell, c is appended to the bucket of its new value when w > 0 (values
+// L + 1 .. L + SL_RING - 1, so a ring of SL_RING buckets never holds two
+// live values in one bucket, and a column at most once a bucket), and when
+// w = 0 to the block's queue in shared memory, whose rows (at L, final)
+// the block expands in the same round until none falls; past the queue's
+// room they go to a zero list, which the next round expands at L again.
+// Values past the bound are dropped.  After the barrier every thread takes
+// the same decision from values no thread writes before the next barrier:
+// the zero list if it is not empty; else the first bucket after L that is
+// not empty, unless the targets' least d (tmin) is at most that value or
+// the value is past the bound, which ends the search as min_plus_settle's
+// does (the answer tmin where it is at most the bound, else INF); and when
+// SL_RING - 1 buckets after L are empty, no finite d is left.  The levels
+// and the rows read are then those of min_plus_settle and of the plain
+// version: a level counts where its bucket held a row still at it.
+//
+// Lengths that one round appends to are reset by the lead thread one
+// round after the last read of them, and three zero lists, two words a
+// bucket (by the parity of value / SL_RING) and two tmin words (by the
+// parity of the round; the lead carries the older into the newer at a
+// round's start) keep every word a decision reads unwritten until the
+// next barrier.
+//
+// What bounds it: the level rounds, each a chain of dependent loads (the
+// list, then a row's d, count and first pairs together, the atomicMin, the
+// append) and a grid barrier, no longer bytes: the whole of W is 1.3 MB of
+// pairs.  A row is one thread; how many blocks the grid takes is
+// ops.SETTLE_LIST_BLOCKS.  Measured on an H100 on the one-shot cell's
+// lists: 0.14-0.25 ms a dist query by d(s, t) (min_plus_settle on the same
+// W: 0.34-1.63), 0.10-0.11 bounded at 6; the barriers alone take ~1.2 us
+// a round, 8-13 rounds.
+//
+// Precondition: meta[0], the overflow flags of the local stage, is zero;
+// where it is not, the lists do not hold W, and every block leaves at once
+// with state[3] set to it (the caller answers on the dense route).
+
+constexpr int SL_THREADS = 1024;          // threads a block: a row each
+constexpr int SL_CAP = 64;                // pairs a row list holds
+constexpr int SL_RING = 64;               // buckets: a pair's w is below it
+constexpr int SL_QUEUE = 4096;            // a block's queue of zero rows
+
+// state words, zero before the launch: [0] the answer, [1] the levels,
+// [2] the rows read, [3] the overflow flags, [4] the pairs in the lists
+// (read back); then the kernel's own: tmin as INF - value by the round's
+// parity, the zero lists' lengths and the rows a round read by the round
+// modulo 3, the buckets' lengths, two a bucket
+constexpr int SL_ANSWER = 0, SL_LEVELS = 1, SL_ROWS = 2, SL_OVER = 3,
+              SL_ENTRIES = 4, SL_TMIN = 5, SL_ZLEN = 7, SL_LROWS = 10,
+              SL_BUCKET = 16, SL_STATE = SL_BUCKET + 2 * SL_RING;
+
+__device__ __forceinline__ int bucket_word(int v) {
+  return SL_BUCKET + v % SL_RING + SL_RING * ((v / SL_RING) & 1);
+}
+
+// Appends c[u] to the bucket of value v[u] for each u whose want[u] is
+// set: one atomicAdd for the lanes of one value and u, the four issued
+// before any is waited on.  Every lane of the warp calls it.
+__device__ __forceinline__ void append_at(int* state, int* buckets, int N,
+                                          const bool* want, const int* v,
+                                          const int* c) {
+  const int lane = threadIdx.x & 31;
+  uint32_t peers[4];
+  int base[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    peers[u] = __match_any_sync(0xffffffffu, want[u] ? v[u] : -1);
+    base[u] = 0;
+    if (want[u] && lane == __ffs(peers[u]) - 1)
+      base[u] = atomicAdd(state + bucket_word(v[u]), __popc(peers[u]));
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (!want[u]) continue;
+    const int at = __shfl_sync(peers[u], base[u], __ffs(peers[u]) - 1);
+    buckets[static_cast<size_t>(v[u] % SL_RING) * N + at +
+            __popc(peers[u] & ((1u << lane) - 1u))] = c[u];
+  }
+}
+
+// What one round's expand works with.
+struct Expand {
+  const int4* pairs;
+  const int* count;
+  const unsigned char* tgt;
+  int* d;
+  int* state;
+  int* buckets;
+  int* zeros;             // the zero list the round spills to
+  int* zword;             // its length
+  int* queue;             // the block's queue, in shared memory
+  int* queued;            // its length, in shared memory
+  int N, L, bound;
+};
+
+// Expands rows list[lo + i] for i = `first` + lane, `first` + `stride` +
+// lane, ... below n: each row whose d is L (every row, where `final`) is
+// read and relaxed; returns the rows this thread read and lowers *tm to
+// the least target d it lowered.  Every lane of the warp calls it with the
+// same `first` (a multiple of 32) and `stride`.
+template <bool kShared>
+__device__ __forceinline__ int expand(const Expand& x, const int* list,
+                                      int n, long long first,
+                                      long long stride, int* tm) {
+  const int L = x.L;
+  int mine = 0;
+  for (long long base = first; base < n; base += stride) {
+    const long long i = base + (threadIdx.x & 31);  // warp-uniform loop
+    int k = 0, cnt = 0;
+    bool live = false;
+    int4 h0 = make_int4(0, INF, 0, INF), h1 = h0;
+    if (i < n) {
+      k = kShared ? list[i] : __ldcg(list + i);
+      // a row's d, count and first four pairs at once
+      const int4* row = x.pairs + static_cast<size_t>(k) * (SL_CAP / 2);
+      const int dk = kShared ? L : __ldcg(x.d + k);
+      cnt = __ldg(x.count + k);
+      h0 = __ldg(row);
+      h1 = __ldg(row + 1);
+      live = dk == L;
+      if (!live) cnt = 0;
+    }
+    mine += live;
+    const int most = __reduce_max_sync(0xffffffffu, cnt);
+    const int4* row = x.pairs + static_cast<size_t>(k) * (SL_CAP / 2);
+    for (int p = 0; p < most; p += 4) {
+      if (p > 0) {
+        const int4 none = make_int4(0, INF, 0, INF);
+        h0 = p < cnt ? __ldg(row + p / 2) : none;
+        h1 = p + 2 < cnt ? __ldg(row + p / 2 + 1) : none;
+      }
+      const int c[4] = {h0.x, h0.z, h1.x, h1.z};
+      int v[4] = {h0.y, h0.w, h1.y, h1.w};
+      bool fell[4], later[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int w = v[u];
+        v[u] = L + w;
+        fell[u] = p + u < cnt && v[u] <= x.bound &&
+                  v[u] < atomicMin(x.d + c[u], v[u]);
+        later[u] = fell[u] && w > 0;
+      }
+      append_at(x.state, x.buckets, x.N, later, v, c);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (fell[u] && !later[u]) {       // final at L: this block's queue
+          const int pos = atomicAdd(x.queued, 1);
+          if (pos < SL_QUEUE) {
+            x.queue[pos] = c[u];
+          } else {
+            x.zeros[atomicAdd(x.zword, 1)] = c[u];
+          }
+        }
+        if (fell[u] && v[u] < *tm && x.tgt[c[u]]) *tm = v[u];
+      }
+    }
+  }
+  return mine;
+}
+
+__global__ void __launch_bounds__(SL_THREADS)
+min_plus_settle_lists_kernel(const unsigned char* __restrict__ src,
+                             const int4* __restrict__ pairs,
+                             const int* __restrict__ count,
+                             const int* __restrict__ meta,
+                             const unsigned char* __restrict__ tgt, int bound,
+                             int* d, int* lists, int* state, int N) {
+  __shared__ int queue[SL_QUEUE];
+  __shared__ int queued;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  const int over = __ldcg(meta);
+  if (over != 0) {                        // the lists do not hold W
+    if (lead) {
+      state[SL_ANSWER] = INF;
+      state[SL_OVER] = over;
+      state[SL_ENTRIES] = __ldcg(meta + 1);
+    }
+    return;
+  }
+  int* buckets = lists;                   // SL_RING lists of N
+  int* zeros = lists + static_cast<size_t>(SL_RING) * N;   // 3 lists of N
+  const int lane = threadIdx.x & 31;
+  const int warp_first = threadIdx.x - lane;
+  const long long threads = static_cast<long long>(gridDim.x) * SL_THREADS;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * SL_THREADS + warp_first;
+  if (threadIdx.x == 0) queued = 0;
+
+  // round 0: d, the sources into bucket 0, tmin where a source is a target
+  int tm = INF;
+  for (long long base = first; base < N; base += threads) {
+    const long long c = base + lane;      // warp-uniform loop
+    bool s = false;
+    if (c < N) {
+      s = src[c] != 0;
+      d[c] = s ? 0 : INF;
+      if (s && tgt[c]) tm = 0;
+    }
+    if (__any_sync(0xffffffffu, s)) {
+      const int pos = fixpoint::warp_append(state + bucket_word(0), s);
+      if (s) buckets[pos] = static_cast<int>(c);
+    }
+  }
+  warp_min_into(state + SL_TMIN, tm);
+  fixpoint::grid_barrier();
+
+  Expand x{pairs, count, tgt, d, state, buckets, nullptr, nullptr, queue,
+           &queued, N, -1, bound};
+  int levels = 0, read = 0, answer = INF;
+  int expanded = -1;                      // the length word round r read
+  bool bucket_round = false;
+  for (int r = 0;; ++r) {
+    // what round q = r + 1 expands, decided alike by every thread
+    const int q = r + 1;
+    const int L = x.L;
+    const int tmin = INF - __ldcg(state + SL_TMIN + (r & 1));
+    const int nz = __ldcg(state + SL_ZLEN + r % 3);
+    int n = __ldcg(state + bucket_word(L + 1));
+    if (lead && bucket_round && __ldcg(state + SL_LROWS + r % 3) > 0)
+      ++levels;
+    const int* list;
+    int word;
+    if (nz > 0) {                         // zero rows left over: level L
+      n = nz;
+      word = SL_ZLEN + r % 3;
+      list = zeros + static_cast<size_t>(r % 3) * N;
+      bucket_round = false;
+    } else {
+      int v = L + 1;
+      for (;;) {
+        if (tmin <= v || v > bound || v >= L + SL_RING) {
+          n = 0;                          // stopped, or no finite d left
+          break;
+        }
+        if (n > 0) break;
+        n = __ldcg(state + bucket_word(++v));
+      }
+      if (n == 0) {
+        answer = tmin <= bound ? tmin : INF;
+        break;
+      }
+      x.L = v;
+      word = bucket_word(v);
+      list = buckets + static_cast<size_t>(v % SL_RING) * N;
+      bucket_round = true;
+    }
+    if (lead) {                           // no thread reads any of these now
+      if (expanded >= 0) state[expanded] = 0;
+      state[SL_LROWS + (q + 1) % 3] = 0;
+      atomicMax(state + SL_TMIN + (q & 1),
+                __ldcg(state + SL_TMIN + (r & 1)));
+    }
+    expanded = word;
+
+    // round q: the list's rows at level x.L, then the block's zero rows
+    x.zeros = zeros + static_cast<size_t>(q % 3) * N;
+    x.zword = state + SL_ZLEN + q % 3;
+    tm = INF;
+    int mine = expand<false>(x, list, n, first, threads, &tm);
+    if (bucket_round) {
+      const int got = __reduce_add_sync(0xffffffffu, mine);
+      if (lane == 0 && got > 0) atomicAdd(state + SL_LROWS + q % 3, got);
+    }
+    for (int head = 0;;) {
+      __syncthreads();
+      const int tail = min(queued, SL_QUEUE);
+      __syncthreads();                    // every thread has read tail
+      if (head >= tail) break;
+      mine += expand<true>(x, queue + head, tail - head, warp_first,
+                           SL_THREADS, &tm);
+      head = tail;
+    }
+    if (threadIdx.x == 0) queued = 0;     // ordered by the grid barrier
+    read += mine;
+    warp_min_into(state + SL_TMIN + (q & 1), tm);
+    fixpoint::grid_barrier();
+  }
+  read = __reduce_add_sync(0xffffffffu, read);
+  if (lane == 0 && read > 0) atomicAdd(state + SL_ROWS, read);
+  if (lead) {
+    state[SL_ANSWER] = answer;
+    state[SL_LEVELS] = levels;
+    state[SL_ENTRIES] = __ldcg(meta + 1);
+  }
+}
+
 }  // namespace
 
 // The tile path; ``floor_`` may be null (INF).  Returns cudaGetLastError()
@@ -758,6 +1061,46 @@ extern "C" int min_plus_settle_blocks_per_sm() {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &n, min_plus_settle_kernel, FX_THREADS, 0);
+  return e == cudaSuccess ? n : -1;
+}
+
+// evalDG's answer from the source mask src on W's row lists (pairs [N,
+// SL_CAP] int2, 16-byte aligned; count [N]; meta, the local stage's
+// overflow flags and pairs stored) for the targets tgt up to `bound`, by
+// levels, in one cooperative launch of `blocks` blocks: state[0] gets the
+// least target distance (INF if it is none or above the bound), state[1]
+// the levels expanded, state[2] the rows read, state[3] meta[0] and
+// state[4] meta[1].  d (pitch_i32(N) ints) and lists ((SL_RING + 3) N
+// ints) are scratch; state (SL_STATE ints) must be zero before the
+// launch.  Returns the launch's CUDA error code.
+extern "C" int min_plus_settle_lists(const void* src, const void* pairs,
+                                     const void* count, const void* meta,
+                                     const void* tgt, int bound, void* d,
+                                     void* lists, void* state, int N,
+                                     int blocks, void* stream) {
+  if (N <= 0 || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(pairs) & 15u)
+    return (int)cudaErrorMisalignedAddress;
+  const auto* Sr = static_cast<const unsigned char*>(src);
+  const auto* P = static_cast<const int4*>(pairs);
+  const auto* C = static_cast<const int*>(count);
+  const auto* M = static_cast<const int*>(meta);
+  const auto* Tg = static_cast<const unsigned char*>(tgt);
+  auto* Dp = static_cast<int*>(d);
+  auto* Ls = static_cast<int*>(lists);
+  auto* S = static_cast<int*>(state);
+  void* args[] = {&Sr, &P, &C, &M, &Tg, &bound, &Dp, &Ls, &S, &N};
+  return fixpoint::cooperative_launch(
+      reinterpret_cast<const void*>(min_plus_settle_lists_kernel), blocks,
+      SL_THREADS, args, static_cast<cudaStream_t>(stream));
+}
+
+// Row-list settle blocks resident on one SM of the current device, -1 on
+// error.
+extern "C" int min_plus_settle_lists_blocks_per_sm() {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, min_plus_settle_lists_kernel, SL_THREADS, 0);
   return e == cudaSuccess ? n : -1;
 }
 

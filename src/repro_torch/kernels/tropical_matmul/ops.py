@@ -10,7 +10,9 @@ tropical_matmul_pallas``.  It squares the distance closure
 [0, INF].  A third kernel in the same source is one cooperative launch,
 :func:`min_plus_settle`, evalDG's answer for a dist or bounded query
 (``core.engine.evaldg_dist``), which settles the rows of W in order of
-distance and stops once the answer is fixed.
+distance and stops once the answer is fixed; a fourth,
+:func:`min_plus_settle_lists`, is the same search on W held as the lists of
+its finite entries (:class:`RowLists`), as the one-shot path keeps it.
 
 Two routes, chosen in Python by :func:`_route` so that the CPU tests reach
 the choice: a skinny path for at most :data:`SKINNY_MAX_M` rows, which
@@ -37,7 +39,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import _fixpoint
-from .ref import INF, min_plus_matmul_ref, min_plus_settle_ref
+from .ref import (INF, min_plus_matmul_ref, min_plus_settle_lists_ref,
+                  min_plus_settle_ref)
 
 #: launches of the CUDA kernel since the count was last set to 0
 launches = 0
@@ -45,6 +48,10 @@ launches = 0
 #: launches of the settle kernel (:func:`min_plus_settle`), which are not
 #: in :data:`launches`
 settle_launches = 0
+
+#: launches of the row-list settle kernel (:func:`min_plus_settle_lists`),
+#: in neither count above
+settle_list_launches = 0
 
 #: operand copies made by :func:`aligned` since the count was last set to 0
 copies = 0
@@ -66,6 +73,13 @@ def _count_settle() -> None:
     global settle_launches
     with _count_lock:
         settle_launches += 1
+
+
+def _count_settle_list() -> None:
+    """Add one to :data:`settle_list_launches`, atomically."""
+    global settle_list_launches
+    with _count_lock:
+        settle_list_launches += 1
 
 
 def _count_copy() -> None:
@@ -378,3 +392,175 @@ def min_plus_settle(d0: torch.Tensor, W: torch.Tensor, tgt: torch.Tensor,
                     state.data_ptr()))
     _count_settle()
     return state[:3]
+
+
+# ---------------------------------------------------------------------------
+# W as row lists, and evalDG's answer by levels over them
+# ---------------------------------------------------------------------------
+
+#: (column, distance) pairs a row list holds: the one-shot cell's W has 5
+#: finite entries a row on average and 44 at most
+ROW_CAP = 64
+
+#: levels the row-list settle kernel's ring of buckets spans: every
+#: distance in the lists must be below it
+RING = 64
+
+#: flags of ``RowLists.meta[0]``: a row with more than :data:`ROW_CAP`
+#: finite entries, a distance of :data:`RING` or more
+OVER_ROW, OVER_HOPS = 1, 2
+
+#: int32 words of the row-list settle kernel's state: the five read back
+#: (answer, levels, rows, overflow, entries), its own words, and two
+#: lengths a bucket of the ring
+SETTLE_LIST_STATE = 16 + 2 * RING
+
+#: blocks of the row-list settle kernel's grid, of 1024 threads each: the
+#: least time on the one-shot cell's lists of 1, 4, 8, 16, 32, 66 and 132
+#: (tools/evaldg_ab.py, H100), where one block waits on each row's chain
+#: of loads and more blocks wait longer at each barrier
+SETTLE_LIST_BLOCKS = 16
+
+#: the row-list settle kernel's C arguments before (B, blocks, stream):
+#: src, pairs, count, meta, tgt, the bound, d, the lists, the state
+SETTLE_LIST_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,)
+                    + (ctypes.c_void_p,) * 3)
+
+
+class RowLists(NamedTuple):
+    """W [B, B] int32 as the lists of its finite entries: row r's (column,
+    distance) pairs are ``pairs[r, :count[r]]``, in no set order.
+    ``meta[0]`` holds the overflow flags (:data:`OVER_ROW`,
+    :data:`OVER_HOPS`): where it is not 0 some row did not fit, and the
+    lists do not hold W; ``meta[1]`` counts the pairs stored.  Made by
+    :func:`row_lists`, written once by localEval's row-list route
+    (``core.engine.local_eval_dist``) and read by evalDG
+    (:func:`min_plus_settle_lists`)."""
+    pairs: torch.Tensor      # int32 [B, ROW_CAP, 2]
+    count: torch.Tensor      # int32 [B]
+    meta: torch.Tensor       # int32 [2]
+
+    @property
+    def B(self) -> int:
+        return self.count.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.count.device
+
+
+def row_lists(B: int, device) -> RowLists:
+    """Row lists for W [B, B] with every count and ``meta`` zero (one fill
+    of 4 (B + 2) bytes) and the pairs uninitialised."""
+    head = torch.zeros(B + 2, dtype=torch.int32, device=device)
+    pairs = torch.empty((B, ROW_CAP, 2), dtype=torch.int32, device=device)
+    return RowLists(pairs, head[2:], head[:2])
+
+
+def write_row_lists(out: RowLists, rows: torch.Tensor,
+                    block: torch.Tensor) -> RowLists:
+    """The row block ``block`` [r, B] int32 (INF where absent) of the rows
+    ``rows`` [r] written into ``out`` as localEval's row-list route writes
+    it, with no host sync: each row's finite entries in column order, the
+    first :data:`ROW_CAP` of them kept and counted, the flags of a row
+    that does not fit and of a distance of :data:`RING` or more ORed into
+    ``meta[0]``, the pairs stored added to ``meta[1]``.  The plain
+    version of that route; returns ``out``."""
+    finite = block < INF
+    n = finite.sum(1)
+    i, c = torch.nonzero(finite, as_tuple=True)         # row by row
+    pos = torch.arange(i.shape[0], device=block.device) - (
+        torch.cumsum(n, 0) - n)[i]
+    keep = pos < ROW_CAP
+    i, c, pos = i[keep], c[keep], pos[keep]
+    out.pairs[rows[i], pos] = torch.stack(
+        [c.to(torch.int32), block[i, c].to(torch.int32)], 1)
+    kept = n.clamp_max(ROW_CAP).to(torch.int32)
+    out.count[rows] = kept
+    flags = ((n > ROW_CAP).any().to(torch.int32) * OVER_ROW
+             | (block[finite] >= RING).any().to(torch.int32) * OVER_HOPS)
+    out.meta[0] |= flags
+    out.meta[1] += kept.sum().to(torch.int32)
+    return out
+
+
+def min_plus_settle_lists(src: torch.Tensor, lists: RowLists,
+                          tgt: torch.Tensor,
+                          bound: Optional[int] = None) -> torch.Tensor:
+    """evalDG's answer on W's row lists from the bool source mask ``src``
+    [B] (d 0 there, INF elsewhere) for the bool target mask ``tgt`` [B]:
+    :func:`min_plus_settle`'s search and result, [answer, levels, rows],
+    followed by the lists' ``meta``, [overflow, entries], as one int32
+    tensor on src's device.  Where ``overflow`` is set the lists do not
+    hold W, and nothing is searched (the answer is INF).
+
+    On the card it is one launch (``csrc/min_plus_matmul.cu``, counted in
+    :data:`settle_list_launches`) that reads nothing back; on the CPU the
+    plain version, :func:`.ref.min_plus_settle_lists_ref`, whose levels
+    and rows are the kernel's and the dense search's."""
+    B = src.shape[0] if src.dim() == 1 else -1
+    if src.dtype != torch.bool or tgt.dtype != torch.bool:
+        raise TypeError(f"min_plus_settle_lists takes bool src and tgt, got "
+                        f"{src.dtype} and {tgt.dtype}")
+    if (tuple(tgt.shape) != (B,) or tuple(lists.count.shape) != (B,)
+            or tuple(lists.pairs.shape) != (B, ROW_CAP, 2)
+            or tuple(lists.meta.shape) != (2,)):
+        raise ValueError(f"min_plus_settle_lists takes src [B], tgt [B] and "
+                         f"row lists of B rows, got {tuple(src.shape)}, "
+                         f"{tuple(tgt.shape)} and {tuple(lists.count.shape)}")
+    dev = src.device
+    if tgt.device != dev or lists.device != dev:
+        raise ValueError(f"operands on {dev}, {tgt.device} and "
+                         f"{lists.device}")
+    if dev.type == "cpu":
+        return min_plus_settle_lists_ref(src, lists, tgt, bound)
+    if dev.type != "cuda":
+        raise ValueError(f"min_plus_settle_lists runs on cpu or cuda, not "
+                         f"{dev}")
+    if B == 0:
+        return torch.tensor([INF, 0, 0, 0, 0], dtype=torch.int32, device=dev)
+    if not (lists.pairs.is_contiguous() and lists.count.is_contiguous()
+            and lists.meta.is_contiguous()):
+        raise ValueError("row lists must be contiguous")
+    top = INF if bound is None else max(-1, min(int(bound), INF))
+    blocks = min(SETTLE_LIST_BLOCKS, _settle_list_slots(dev.index))
+    return settle_lists_launch(src.contiguous(), lists, tgt.contiguous(),
+                               top, blocks)
+
+
+@functools.cache
+def _settle_list_slots(index: int) -> int:
+    """Blocks of the row-list settle kernel the card holds at once: the
+    most a cooperative grid may have."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    with torch.cuda.device(index):
+        per_sm = _fixpoint._blocks_per_sm("min_plus_matmul",
+                                          "min_plus_settle_lists")()
+    if per_sm <= 0:
+        raise RuntimeError("min_plus_settle_lists occupancy query failed")
+    return sms * per_sm
+
+
+def settle_lists_launch(src, lists: RowLists, tgt, top: int,
+                        blocks: int) -> torch.Tensor:
+    """One launch of the row-list settle kernel on a grid of ``blocks``
+    blocks, on checked operands (:func:`min_plus_settle_lists`; the A/B
+    tools call it with other grids); returns its state's first five
+    words."""
+    dev = src.device
+    B = src.shape[0]
+    work = torch.empty((RING + 4) * B, dtype=torch.int32, device=dev)
+    state = torch.zeros(SETTLE_LIST_STATE, dtype=torch.int32, device=dev)
+    from .._build import check
+    with torch.cuda.device(dev.index):
+        lib, fn = _fixpoint._entries("min_plus_matmul",
+                                     "min_plus_settle_lists",
+                                     SETTLE_LIST_ARGS)
+        code = fn(src.data_ptr(), lists.pairs.data_ptr(),
+                  lists.count.data_ptr(), lists.meta.data_ptr(),
+                  tgt.data_ptr(), top, work.data_ptr(),
+                  work[B:].data_ptr(), state.data_ptr(), B, blocks,
+                  torch._C._cuda_getCurrentRawStream(dev.index))
+    check(lib, "min_plus_settle_lists", code)
+    _count_settle_list()
+    return state[:5]

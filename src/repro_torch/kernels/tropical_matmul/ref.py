@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the (min, +) semiring product, of evalDG's
 fixpoint over it (the oracle of the answer by levels), and of evalDG's
-answer by levels."""
+answer by levels, on W as it is and on W's row lists."""
 from typing import Optional, Tuple
 
 import torch
@@ -100,3 +100,50 @@ def min_plus_settle_ref(d0: torch.Tensor, W: torch.Tensor, tgt: torch.Tensor,
     answer = tmin if tmin <= top else INF
     return torch.tensor([answer, levels, rows], dtype=torch.int32,
                         device=d0.device)
+
+
+def min_plus_settle_lists_ref(src: torch.Tensor, lists, tgt: torch.Tensor,
+                              bound: Optional[int] = None) -> torch.Tensor:
+    """src [B] bool (d starts at 0 there, INF elsewhere), ``lists`` the row
+    lists of W (``ops.RowLists``: row k's (column, distance) pairs are
+    ``pairs[k, :count[k]]``, every distance in [0, INF)), tgt [B] bool ->
+    int32 [answer, levels, rows, overflow, entries] on src's device:
+    :func:`min_plus_settle_ref`'s search, each settled row relaxed through
+    its list, so that answer, levels and rows are the dense search's on the
+    W the lists hold; ``overflow`` and ``entries`` are ``lists.meta``.
+    Where ``overflow`` is set the lists do not hold W: nothing is searched,
+    and the answer is INF."""
+    over, entries = (int(x) for x in lists.meta.tolist())
+    if over:
+        return torch.tensor([INF, 0, 0, over, entries], dtype=torch.int32,
+                            device=src.device)
+    top = INF if bound is None else min(int(bound), INF)
+    d = torch.where(src.bool(), 0, INF).to(torch.int32)
+    tgt = tgt.bool()
+    settled = torch.zeros_like(tgt)
+    slot = torch.arange(lists.pairs.shape[1], device=src.device)
+
+    def least(mask):
+        return int(torch.where(mask, d, INF).min()) if d.numel() else INF
+
+    tmin = least(tgt)
+    levels = rows = 0
+    while True:
+        level = least(~settled)
+        if tmin <= level or level > top:
+            break
+        levels += 1
+        new = (d == level) & ~settled
+        while bool(new.any()):
+            settled |= new
+            rows += int(new.sum())
+            ks = torch.nonzero(new)[:, 0]
+            live = slot < lists.count[ks][:, None]
+            cols = lists.pairs[ks, :, 0][live].long()
+            dist = (level + lists.pairs[ks, :, 1][live]).clamp_max(INF)
+            d.scatter_reduce_(0, cols, dist.to(torch.int32), "amin")
+            new = (d == level) & ~settled
+        tmin = least(tgt)
+    answer = tmin if tmin <= top else INF
+    return torch.tensor([answer, levels, rows, 0, entries],
+                        dtype=torch.int32, device=src.device)

@@ -7,8 +7,9 @@ reference's ``while_loop`` steps, the bound applied), numpy models of the
 kernels' schedules (each fixpoint step reads only the rows the step before
 added; the settle kernel's three lists read each row once, in order of
 distance) against the naive iterate and the plain version, the launch
-plans ``_fixpoint_route`` and ``_settle_route`` as pure functions, and the
-one-shot queries through both packages.
+plans ``_fixpoint_route`` and ``_settle_route`` as pure functions, the
+same search on W's row lists (``min_plus_settle_lists``' plain version)
+against the dense one, and the one-shot queries through both packages.
 
 On the card each is one cooperative launch whose steps never return to
 the host; the kernels are held against the same plain versions by
@@ -37,6 +38,7 @@ from repro_torch.kernels.bool_matmul import (or_and_fixpoint,
 from repro_torch.kernels.tropical_matmul import ops as tops
 from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint_ref,
                                                  min_plus_settle,
+                                                 min_plus_settle_lists,
                                                  min_plus_settle_ref)
 from repro_torch import tracing
 from repro_torch.graph import erdos_renyi
@@ -383,6 +385,86 @@ def test_one_shot_dist_on_a_fragmented_graph(bound):
         assert 0 < counts["evaldg.rows"] <= tfr.B, (s, t)
         assert 0 < counts["evaldg.levels"] <= (
             tfr.B if bound is None else bound + 1), (s, t)
+
+
+# ---------------------------------------------------------------------------
+# the answer by levels on W's row lists
+# ---------------------------------------------------------------------------
+
+def _lists_of(W):
+    """W's row lists, as localEval's row-list route writes them."""
+    Wt = torch.tensor(W)
+    B = Wt.shape[0]
+    return tops.write_row_lists(tops.row_lists(B, "cpu"), torch.arange(B),
+                                Wt)
+
+
+@pytest.mark.parametrize("kind,B", KINDS, ids=lambda v: str(v))
+def test_settle_lists_plain_equals_the_dense_search(kind, B):
+    """min_plus_settle_lists on the CPU, the plain row-list search, for
+    every case of _settle_cases that starts at 0 on its sources and INF
+    elsewhere (one source, none, one that covers a target, the source's own
+    row as the target: s == t, unreachable targets; zero entries, and
+    levels that go empty), and bounds None, 0, 1, 6 and past INF: [answer,
+    levels, rows] equal to min_plus_settle_ref's on the dense W, then
+    [0, the entries]; engine.evaldg_dist answers alike on W and its
+    lists."""
+    for name, W, d0, tgt in _settle_cases(kind, B, seed=B + 8):
+        if ((d0 > 0) & (d0 < INF)).any():
+            continue        # evalDG starts at 0 on its sources, INF elsewhere
+        src = torch.tensor(d0 == 0)
+        lists = _lists_of(W)
+        entries = int((W < INF).sum())
+        assert lists.meta.tolist() == [0, entries], name
+        for bound in BOUNDS:
+            want = min_plus_settle_ref(torch.tensor(d0), torch.tensor(W),
+                                       torch.tensor(tgt), bound)
+            got = min_plus_settle_lists(src, lists, torch.tensor(tgt), bound)
+            assert got.dtype == torch.int32
+            assert got.tolist() == want.tolist() + [0, entries], (name,
+                                                                  bound)
+            assert tengine.evaldg_dist(lists, src, torch.tensor(tgt),
+                                       bound=bound) == \
+                tengine.evaldg_dist(torch.tensor(W), src, torch.tensor(tgt),
+                                    bound=bound) == int(want[0]), (name,
+                                                                   bound)
+
+
+def test_settle_lists_report_an_overflow():
+    """Lists whose meta flags an overflow do not hold W: the search does not
+    run, its state is [INF, 0, 0, the flags, the entries], and
+    engine.evaldg_dist returns None after counting the entries."""
+    B = tops.ROW_CAP + 10
+    W = np.full((B, B), INF, dtype=np.int32)
+    W[0, 1:] = 1                     # row 0: B - 1 entries, past ROW_CAP
+    lists = _lists_of(W)
+    assert lists.meta.tolist() == [tops.OVER_ROW, tops.ROW_CAP]
+    src = torch.zeros(B, dtype=torch.bool)
+    src[0] = True
+    tgt = ~src
+    assert min_plus_settle_lists(src, lists, tgt).tolist() == \
+        [INF, 0, 0, tops.OVER_ROW, tops.ROW_CAP]
+    tracing.enable()
+    try:
+        with tracing.span("oneshot.evaldg"):
+            assert tengine.evaldg_dist(lists, src, tgt) is None
+    finally:
+        tracing.disable()
+    counts, = [r.counts for r in tracing.drain() if r.kind == "span"]
+    assert counts["oneshot.w_entries"] == tops.ROW_CAP
+    assert "evaldg.rows" not in counts
+
+
+def test_settle_lists_refuse_bad_operands():
+    B = 5
+    lists = _lists_of(np.full((B, B), INF, dtype=np.int32))
+    src = torch.zeros(B, dtype=torch.bool)
+    with pytest.raises(TypeError, match="bool"):
+        min_plus_settle_lists(src.int(), lists, src)
+    with pytest.raises(ValueError, match="row lists of B rows"):
+        min_plus_settle_lists(src[:4], lists, src[:4])
+    with pytest.raises(ValueError, match="row lists of B rows"):
+        min_plus_settle_lists(src, lists, src[:4])
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,9 @@ from repro_torch.kernels.tropical_matmul import (INF, min_plus_fixpoint_ref,
                                                  min_plus_settle_ref)
 from repro_torch.kernels.tropical_matmul.ops import (is_aligned, padded_i32,
                                                      pitch_i32)
+from repro_torch.kernels.tropical_matmul import (min_plus_settle_lists,
+                                                 min_plus_settle_lists_ref,
+                                                 row_lists, write_row_lists)
 
 SHAPES = [(128, 128, 128), (7, 200, 33), (256, 64, 128), (1, 1, 1),
           (130, 257, 5), (64, 512, 64), (5, 0, 7), (300, 1000, 260)]
@@ -833,12 +836,249 @@ def test_local_eval_kernel_on_a_ranks_fragments(cuda, frags):
     _le_check(fr, pairs, frags, [None, INF, 0, 3], cuda)
 
 
+# ---------------------------------------------------------------------------
+# W as row lists on the card: localEval's row-list route and the settle
+# kernel over the lists
+# ---------------------------------------------------------------------------
+
+def _lists_sets(lists):
+    """Row -> the set of (column, distance) pairs its list holds, on the
+    host, with the counts and meta."""
+    count = lists.count.cpu()
+    pairs = lists.pairs.cpu()
+    out = {}
+    for r in torch.nonzero(count)[:, 0].tolist():
+        got = {tuple(p) for p in pairs[r, :int(count[r])].tolist()}
+        assert len(got) == int(count[r]), r
+        out[r] = got
+    return out, count, lists.meta.tolist()
+
+
+def _le_lists_kernel(fr, args, cap, cuda):
+    """The row-list route on the card with the recorder off: one launch of
+    the row-list kernel and no host sync."""
+    lists = row_lists(fr.B, cuda)
+    before = (leops.launches, leops.list_launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert engine.local_eval_dist(*args, cap, n_max=fr.n_max, B=fr.B,
+                                      out=lists) is lists
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (leops.launches, leops.list_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    return lists
+
+
+def _le_lists_check(fr, pairs, frags, caps, cuda):
+    """The card's row lists hold, row for row, the entry sets of the plain
+    version's (on the CPU), with the same counts and meta; where a row did
+    not fit, the same flags and counts, and a subset of its entries."""
+    for s, t in pairs:
+        card = _le_args(fr, s, t, frags, cuda)
+        host = _le_args(fr, s, t, frags, "cpu")
+        for cap in caps:
+            got, count, meta = _lists_sets(_le_lists_kernel(fr, card, cap,
+                                                            cuda))
+            rows, block = engine.local_eval_dist(*host, cap, n_max=fr.n_max,
+                                                 B=fr.B)
+            want, want_count, want_meta = _lists_sets(write_row_lists(
+                row_lists(fr.B, "cpu"), rows, block))
+            assert meta == want_meta and torch.equal(count, want_count), \
+                (s, t, cap)
+            finite = {int(r): {(int(c), int(block[i, c]))
+                               for c in torch.nonzero(block[i] < INF)[:, 0]}
+                      for i, r in enumerate(rows)}
+            for r, entries in got.items():
+                full = len(finite[r]) > tops.ROW_CAP
+                assert entries <= finite[r] if full else \
+                    entries == want[r], (s, t, cap, r)
+            assert set(got) == set(want), (s, t, cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frags", [[3], [0, 2, 5, 7], list(range(8))],
+                         ids=["F1", "F4", "F8"])
+def test_local_eval_lists_kernel_matches_plain(cuda, frags):
+    """The row-list route on 1, 4 and 8 of 8 fragments (spare boundary
+    rows among them), exact and capped at 0, 1 and 6, s or t a boundary
+    node and s == t: the plain version's entry sets row for row."""
+    g = erdos_renyi(4000, 16000, n_labels=3, seed=9)
+    fr = fragment_graph(g, random_partition(g, 8, seed=9), 8,
+                        reserve_boundary=5)
+    rng = np.random.default_rng(19)
+    pairs = [tuple(int(x) for x in p) for p in rng.integers(0, g.n, (2, 2))]
+    b = [int(x) for x in fr.bnodes]
+    pairs += [(b[0], pairs[0][1]), (pairs[0][0], b[-1]), (b[1], b[1])]
+    _le_lists_check(fr, pairs, frags, [INF, 0, 1, 6], cuda)
+
+
+@pytest.mark.gpu
+def test_local_eval_lists_kernel_at_the_cells_size(cuda):
+    """The one-shot cell's graph: the row lists, written out, are the W of
+    the dense route, exact and capped at 6, and meta counts its finite
+    entries."""
+    g = erdos_renyi(32768, 131072, n_labels=8, seed=0)
+    fr = fragment_graph(g, random_partition(g, 16, seed=0), 16)
+    B = fr.B
+    rng = np.random.default_rng(7)
+    for s, t in rng.integers(0, g.n, (2, 2)).tolist():
+        args = _le_args(fr, s, t, list(range(16)), cuda)
+        for cap in (INF, 6):
+            W = padded_i32(B, B, cuda)
+            engine.local_eval_dist(*args, cap, n_max=fr.n_max, B=B, out=W)
+            lists = _le_lists_kernel(fr, args, cap, cuda)
+            live = (torch.arange(tops.ROW_CAP, device=cuda)[None, :]
+                    < lists.count[:, None])
+            rows = torch.arange(B, device=cuda)[:, None].expand(
+                B, tops.ROW_CAP)[live]
+            got = torch.full((B, B), INF, dtype=torch.int32, device=cuda)
+            got[rows, lists.pairs[:, :, 0][live].long()] = \
+                lists.pairs[:, :, 1][live]
+            assert torch.equal(got, W), (s, t, cap)
+            assert lists.meta.tolist() == [0, int((W < INF).sum())]
+            del W, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [tops.ROW_CAP - 1, tops.ROW_CAP,
+                               tops.ROW_CAP + 1, 200])
+def test_local_eval_lists_kernel_flags_a_full_row(cuda, h):
+    """A source that reaches h stubs: past ROW_CAP the row keeps ROW_CAP
+    of its entries and the flag is set, as the plain version sets it; ten
+    launches each, as the appends race."""
+    n = 2 * h + 2
+    g = Graph(n, np.zeros(h, dtype=np.int64), np.arange(h + 2, 2 * h + 2),
+              np.zeros(n, dtype=np.int32))
+    fr = fragment_graph(g, (np.arange(n) > h).astype(np.int64), 2)
+    for _ in range(10):
+        _le_lists_check(fr, [(0, 1)], [0, 1], [INF, 1], cuda)
+
+
+@pytest.mark.gpu
+def test_local_eval_lists_kernel_flags_a_far_entry(cuda):
+    """The 1024-node chain: distances past the settle kernel's ring set
+    OVER_HOPS, as in the plain version; capped below the ring they do
+    not."""
+    fr = _le_chain_graph()
+    args = _le_args(fr, 0, 1023, [0, 1], cuda)
+    lists = _le_lists_kernel(fr, args, INF, cuda)
+    assert int(lists.meta[0]) & tops.OVER_HOPS
+    lists = _le_lists_kernel(fr, args, tops.RING - 1, cuda)
+    assert not int(lists.meta[0]) & tops.OVER_HOPS
+
+
+def _lists_on(W, device):
+    Wt = torch.tensor(W, device=device)
+    return write_row_lists(row_lists(W.shape[0], device),
+                           torch.arange(W.shape[0], device=device), Wt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2, 300, 1037, 5185])
+def test_settle_lists_on_card_matches_plain(cuda, B):
+    """min_plus_settle_lists on the card, on the lists of random W with zero
+    entries and of the same W with every weight tripled (empty levels):
+    its whole state equal to the plain row-list version's, whose first
+    three words are min_plus_settle_ref's on W, for bounds None, 0, 1, 6
+    and past INF, the source's own row as a target once; one launch a
+    call, no host sync; engine.evaldg_dist on the lists answers alike."""
+    rng = np.random.default_rng(B + 41)
+    W = _dist_matrix(rng, B, B, 3.0 / B)
+    for Wn in (W, np.where(W < INF, 3 * W, INF).astype(np.int32)):
+        Wt = torch.tensor(Wn)
+        lists, host = _lists_on(Wn, cuda), _lists_on(Wn, "cpu")
+        for trial in range(3):
+            src = np.zeros(B, dtype=bool)
+            src[rng.integers(B)] = True
+            tgt = src.copy() if trial == 2 else rng.random(B) < 0.05
+            d0 = torch.tensor(np.where(src, 0, INF).astype(np.int32))
+            srcc, tgtc = torch.tensor(src, device=cuda), torch.tensor(
+                tgt, device=cuda)
+            for bound in (None, 0, 1, 6, 1 << 40):
+                dense = min_plus_settle_ref(d0, Wt, torch.tensor(tgt), bound)
+                want = min_plus_settle_lists_ref(torch.tensor(src), host,
+                                                 torch.tensor(tgt), bound)
+                assert want.tolist()[:3] == dense.tolist()
+                before = tops.settle_list_launches
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = min_plus_settle_lists(srcc, lists, tgtc, bound)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                assert tops.settle_list_launches == before + 1
+                assert torch.equal(got.cpu(), want), (trial, bound)
+                assert engine.evaldg_dist(lists, srcc, tgtc, bound=bound) \
+                    == int(want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1024, 1037])
+def test_settle_lists_on_a_chain(cuda, B):
+    """A chain walked one level a hop, past the ring of buckets many times:
+    the rows up to the target and no further, a stop past the bound, and
+    with no target every row once, B levels in one launch."""
+    W = np.full((B, B), INF, dtype=np.int32)
+    W[np.arange(B - 1), np.arange(1, B)] = 1
+    lists = _lists_on(W, cuda)
+    src = torch.zeros(B, dtype=torch.bool, device=cuda)
+    src[0] = True
+    end = torch.zeros(B, dtype=torch.bool, device=cuda)
+    end[B - 1] = True
+    assert min_plus_settle_lists(src, lists, end).tolist() == \
+        [B - 1, B - 1, B - 1, 0, B - 1]
+    assert min_plus_settle_lists(src, lists, end, 6).tolist() == \
+        [INF, 7, 7, 0, B - 1]
+    assert min_plus_settle_lists(src, lists, torch.zeros_like(end)
+                                 ).tolist() == [INF, B, B, 0, B - 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bound", [None, 6])
+def test_one_shot_dist_past_the_row_lists_on_card(cuda, bound):
+    """Two fragments of a dense graph, whose rows overflow the row lists:
+    the card answers as the CPU does, through the dense route, and counts
+    the fallback once a query."""
+    from repro_torch import tracing
+    g = erdos_renyi(160, 2400, n_labels=4, seed=7)
+    fr = fragment_graph(g, random_partition(g, 2, seed=7), 2)
+    queries = [Dist(3, 100, bound=bound), Dist(50, 7, bound=bound),
+               Dist(int(fr.bnodes[0]), int(fr.bnodes[-1]), bound=bound)]
+
+    def traced(device):
+        tracing.enable()
+        try:
+            out = repro_torch.connect(fr, cache="none",
+                                      device=device).run(queries)
+        finally:
+            tracing.disable()
+        return out, [r.counts for r in tracing.drain()
+                     if r.kind == "span" and r.name == "oneshot.query"]
+    want, on_cpu = traced("cpu")
+    before = (tops.settle_launches, tops.settle_list_launches)
+    got, on_card = traced(None)
+    assert [(r.answer, r.distance) for r in got] == \
+        [(r.answer, r.distance) for r in want]
+    fell = [c.get("oneshot.dense_fallbacks", 0) for c in on_card]
+    assert fell == [c.get("oneshot.dense_fallbacks", 0) for c in on_cpu]
+    assert sum(fell) > 0 or bound is not None
+    assert (tops.settle_launches - before[0],
+            tops.settle_list_launches - before[1]) == (sum(fell),
+                                                       len(queries))
+
+
 @pytest.mark.gpu
 def test_traced_one_shot_query_on_card(cuda):
-    """A traced one-shot query on the card: one localEval launch, at most
-    two host syncs (the deepest level read back, evalDG's answer), the
-    same ``fixpoint.steps`` as the CPU's host loop, and the same
-    ``evaldg.rows`` and ``evaldg.levels`` as the CPU's plain search."""
+    """A traced one-shot query on the card: one localEval launch (for a
+    dist query the row-list route, then one launch of the row-list settle
+    kernel), at most two host syncs (the deepest level read back,
+    evalDG's answer), and both again on the dense route for a query whose
+    W overflowed the lists, as on the CPU; the same ``fixpoint.steps`` as
+    the CPU's host loop, and the same ``evaldg.rows``, ``evaldg.levels``
+    and ``oneshot.w_entries`` as the CPU's plain search."""
     from repro_torch import tracing
     g = erdos_renyi(600, 2400, n_labels=3, seed=8)
     fr = fragment_graph(g, random_partition(g, 4, seed=8), 4)
@@ -855,21 +1095,27 @@ def test_traced_one_shot_query_on_card(cuda):
         return out, *([r for r in spans if r.name == name]
                       for name in ("oneshot.query", "oneshot.local_eval"))
     want, on_host, on_cpu = traced("cpu")
-    before = leops.launches
+    before = (leops.launches, leops.list_launches, tops.settle_list_launches)
     got, queried, on_card = traced(None)
-    assert leops.launches == before + len(queries)
+    fell = [q.counts.get("oneshot.dense_fallbacks", 0) for q in queried]
+    assert fell == [q.counts.get("oneshot.dense_fallbacks", 0)
+                    for q in on_host]
+    assert (leops.launches, leops.list_launches,
+            tops.settle_list_launches) == (
+        before[0] + len(queries) + sum(fell), before[1] + 2, before[2] + 2)
     assert [(r.answer, r.distance) for r in got] == \
         [(r.answer, r.distance) for r in want]
-    assert len(queried) == len(on_card) == len(queries)
-    for query in queried:
-        assert query.counts["oneshot.local_launches"] == 1
-        assert query.counts["host.syncs"] <= 2
+    assert len(queried) == len(queries)
+    assert len(on_card) == len(queries) + sum(fell)
+    for query, again in zip(queried, fell):
+        assert query.counts["oneshot.local_launches"] == 1 + again
+        assert query.counts["host.syncs"] <= 2 + 2 * again
     for card, host in zip(on_card, on_cpu):
         assert card.counts["host.syncs"] == 1
         assert card.counts["fixpoint.steps"] == \
             host.counts["fixpoint.steps"] > 0
     for card, host in zip(queried[1:], on_host[1:]):
-        for name in ("evaldg.rows", "evaldg.levels"):
+        for name in ("evaldg.rows", "evaldg.levels", "oneshot.w_entries"):
             assert card.counts[name] == host.counts[name] > 0, name
 
 

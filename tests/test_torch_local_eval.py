@@ -4,8 +4,10 @@
 equals the ``(rows, block)`` row block written into a zero D (``D[rows] =
 block``) or an INF W (``W.fill_(INF); W[rows] = block``), byte for byte
 over the whole padded storage, so that rows no source owns and the pad
-columns get the semiring zero.  Also the kernel wrapper's refusals and its
-shared-memory plan.  The kernel itself is held to this path on the card in
+columns get the semiring zero.  Given W's row lists instead, each row
+holds exactly the finite entries of the row block, and what does not fit
+is flagged.  Also the kernel wrapper's refusals and its shared-memory
+plan.  The kernels themselves are held to this path on the card in
 tests/test_torch_gpu.py.
 """
 import numpy as np
@@ -19,6 +21,8 @@ from repro_torch.graph import erdos_renyi, random_partition
 from repro_torch.kernels.local_eval import (local_eval_dist_into,
                                             local_eval_reach_into)
 from repro_torch.kernels.local_eval import ops
+from repro_torch.kernels.tropical_matmul import ops as tops
+from repro_torch.graph.graph import Graph
 
 # test_torch_uncached.py's CASES: (n, m, k, seed, reserve_boundary)
 CASES = [(24, 70, 3, 0, 0), (36, 110, 4, 1, 0), (30, 90, 2, 2, 4),
@@ -200,13 +204,21 @@ def test_wrapper_refuses(kind):
 
 
 def test_wrapper_refuses_the_other_semiring():
-    """Reach into an int32 W, dist into a bool D."""
+    """Reach into an int32 W, dist into a bool D; row lists into neither
+    matrix entry, and no matrix into the row-list entry."""
     fr, args, d = _good()
     w = _storage(fr.B, INF)[1]
+    lists = tops.row_lists(fr.B, "cpu")
     with pytest.raises(TypeError):
         local_eval_reach_into(w, *args, n_max=fr.n_max)
     with pytest.raises(TypeError):
         local_eval_dist_into(d, *args, 3, n_max=fr.n_max)
+    with pytest.raises(TypeError):
+        local_eval_dist_into(lists, *args, 3, n_max=fr.n_max)
+    with pytest.raises(TypeError):
+        local_eval_reach_into(lists, *args, n_max=fr.n_max)
+    with pytest.raises(TypeError):
+        ops.local_eval_dist_lists(w, *args, 3, n_max=fr.n_max)
 
 
 # a block's shared memory on the H100 (227 KB) less the kernel's static 4 KB
@@ -224,3 +236,117 @@ def test_shared_memory_plan(n_max, E, limit, want):
     """What the kernel keeps in shared memory: the BFS state and the edges
     where both fit, else the state, else neither."""
     assert ops._plan(n_max, E, limit) == want
+
+
+# ---------------------------------------------------------------------------
+# the row-list route: W's finite entries, row for row
+# ---------------------------------------------------------------------------
+
+#: the dist tests' bounds: none, and the caps 0, 1 and the cell's 6
+BOUNDS = [None, 0, 1, 6]
+
+
+def _list_pairs(fr, seed):
+    """(s, t): a drawn pair, s a boundary node, t a boundary node, and
+    s == t (the boundary pairs where the graph has a boundary)."""
+    rng = np.random.default_rng(seed + 50)
+    n = fr.g.n
+    s, t = (int(v) for v in rng.integers(0, n, 2))
+    pairs = [(s, t), (s, s)]
+    if len(fr.bnodes):
+        b = [int(v) for v in fr.bnodes]
+        pairs += [(b[0], t), (s, b[-1])]
+    return pairs
+
+
+def _finite_entries(rows, block):
+    """Row -> the set of its finite (column, distance) pairs."""
+    return {int(r): {(int(c), int(block[i, c]))
+                     for c in torch.nonzero(block[i] < INF)[:, 0]}
+            for i, r in enumerate(rows)}
+
+
+def _listed(lists):
+    """Row -> the set of pairs its list holds (no pair twice)."""
+    out = {}
+    for r in range(lists.B):
+        n = int(lists.count[r])
+        got = {tuple(p) for p in lists.pairs[r, :n].tolist()}
+        assert len(got) == n, r
+        if n:
+            out[r] = got
+    return out
+
+
+@pytest.mark.parametrize("which", FRAGS)
+@pytest.mark.parametrize("bound", BOUNDS, ids=str)
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_row_lists_hold_the_finite_entries(case, bound, which):
+    """engine.local_eval_dist into row lists on the CPU: each row's list
+    holds exactly the finite entries of _rows_dist's row block, rows no
+    source owns stay empty, and meta is [0, the pairs stored]."""
+    fr = _fragmentation(case)
+    cap = INF if bound is None else bound
+    frags = _frags(fr, which)
+    for s, t in _list_pairs(fr, case[3]):
+        args = _args(fr, s, t, frags)
+        rows, block = engine.local_eval_dist(*args, cap, n_max=fr.n_max,
+                                             B=fr.B)
+        lists = tops.row_lists(fr.B, "cpu")
+        got = engine.local_eval_dist(*args, cap, n_max=fr.n_max, B=fr.B,
+                                     out=lists)
+        assert got is lists
+        want = {r: e for r, e in _finite_entries(rows, block).items() if e}
+        assert _listed(lists) == want, (s, t)
+        assert lists.meta.tolist() == [0, sum(map(len, want.values()))]
+
+
+def _fan_out(h):
+    """Fragment 0 holds node 0 with edges to h nodes of fragment 1: the s
+    row of s = 0 has h finite entries, the h stubs."""
+    n = 2 * h + 2
+    g = Graph(n, np.zeros(h, dtype=np.int64), np.arange(h + 2, 2 * h + 2),
+              np.zeros(n, dtype=np.int32))
+    return fragment_graph(g, (np.arange(n) > h).astype(np.int64), 2)
+
+
+@pytest.mark.parametrize("h", [tops.ROW_CAP - 1, tops.ROW_CAP,
+                               tops.ROW_CAP + 1, 200])
+def test_row_lists_flag_a_row_that_does_not_fit(h):
+    """A row of more than ROW_CAP entries keeps its first ROW_CAP, in
+    column order, and sets OVER_ROW; one that fits sets nothing."""
+    fr = _fan_out(h)
+    args = _args(fr, 0, 1, [0, 1])
+    rows, block = engine.local_eval_dist(*args, INF, n_max=fr.n_max, B=fr.B)
+    lists = engine.local_eval_dist(*args, INF, n_max=fr.n_max, B=fr.B,
+                                   out=tops.row_lists(fr.B, "cpu"))
+    s_row = fr.B - 2
+    entries = sorted(_finite_entries(rows, block)[s_row])
+    assert len(entries) == h
+    kept = min(h, tops.ROW_CAP)
+    assert int(lists.count[s_row]) == kept
+    assert lists.pairs[s_row, :kept].tolist() == [list(e) for e in
+                                                  entries[:kept]]
+    over = h > tops.ROW_CAP
+    assert int(lists.meta[0]) == (tops.OVER_ROW if over else 0)
+
+
+@pytest.mark.parametrize("cap", [tops.RING - 1, INF])
+def test_row_lists_flag_a_distance_past_the_ring(cap):
+    """A chain of 80 nodes in one fragment whose end points out of it: the
+    s row of s = 0 reaches that stub at distance 80, past the ring of the
+    settle kernel's levels, unless the cap cuts it off first."""
+    n = 82
+    src = np.concatenate([np.arange(79), [79, 81]])
+    dst = np.concatenate([np.arange(1, 80), [80, 79]])
+    g = Graph(n, src, dst, np.zeros(n, dtype=np.int32))
+    part = (np.arange(n) >= 80).astype(np.int64)
+    fr = fragment_graph(g, part, 2)
+    args = _args(fr, 0, 81, [0, 1])
+    lists = engine.local_eval_dist(*args, cap, n_max=fr.n_max, B=fr.B,
+                                   out=tops.row_lists(fr.B, "cpu"))
+    over = cap >= tops.RING
+    assert int(lists.meta[0]) == (tops.OVER_HOPS if over else 0)
+    d = [w for _, w in lists.pairs[fr.B - 2, :int(lists.count[fr.B - 2])]
+         .tolist()]
+    assert d == ([80] if over else [])

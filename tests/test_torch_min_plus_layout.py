@@ -30,7 +30,8 @@ from repro_torch.graph import erdos_renyi, random_partition
 from repro_torch.kernels.tropical_matmul import ops as tops
 from repro_torch.kernels.tropical_matmul import (INF, min_plus_matmul,
                                                  min_plus_matmul_ref,
-                                                 min_plus_settle)
+                                                 min_plus_settle,
+                                                 min_plus_settle_lists)
 from repro_torch.kernels.tropical_matmul.ops import (
     ALIGN, SKINNY_MAX_M, SKINNY_MIN_K, SKINNY_THREADS, Route, _route,
     aligned, is_aligned, padded_i32, pitch_i32)
@@ -287,9 +288,10 @@ def test_combine_dist_on_padded_input(N, nb):
 
 class _Spy:
     """Stands in for ``min_plus_matmul`` in the modules that call it, and
-    for ``min_plus_settle`` in the engine's evalDG, and records, per
-    caller, whether every operand it was given (and the floor) can be read
-    by the kernel as it is."""
+    for ``min_plus_settle`` and ``min_plus_settle_lists`` in the engine's
+    evalDG, and records, per caller, whether every operand it was given
+    (and the floor) can be read by the kernel as it is: W in padded
+    storage, or W's row lists contiguous with 16-byte aligned pairs."""
 
     def __init__(self, monkeypatch):
         self.calls = {}
@@ -299,7 +301,14 @@ class _Spy:
         def settle(d0, W, tgt, bound=None):
             self.calls.setdefault("engine", []).append(is_aligned(W))
             return min_plus_settle(d0, W, tgt, bound)
+
+        def settle_lists(src, lists, tgt, bound=None):
+            self.calls.setdefault("engine", []).append(
+                lists.pairs.is_contiguous() and lists.count.is_contiguous()
+                and lists.pairs.data_ptr() % 16 == 0)
+            return min_plus_settle_lists(src, lists, tgt, bound)
         monkeypatch.setattr(tengine, "min_plus_settle", settle)
+        monkeypatch.setattr(tengine, "min_plus_settle_lists", settle_lists)
 
     def _wrap(self, mod):
         name = mod.__name__.rsplit(".", 1)[1]

@@ -35,6 +35,8 @@ from repro_torch.core.engine import INF
 from repro_torch.core.fragments import fragment_graph, query_slots
 from repro_torch.graph import erdos_renyi, random_partition
 from repro_torch.kernels.bool_matmul import padded_zeros
+from repro_torch.kernels.tropical_matmul import ROW_CAP
+from repro_torch import tracing
 
 from oracles import oracle_dist, oracle_reach, oracle_rpq
 
@@ -353,6 +355,100 @@ def test_trivial_and_bounded_edges_match_reference():
                                                   qa_t.n_states))
     assert tsession.exec_reach(tfr, 4, 4, device="cpu").stats == (0, 0,
                                                                   tfr.B, 1)
+
+
+# ---------------------------------------------------------------------------
+# exec_dist on W's row lists, and its dense route
+# ---------------------------------------------------------------------------
+
+def _row_list_pairs(fr, seed):
+    """A drawn pair, s == t, and s or t a boundary node where there is
+    one."""
+    rng = np.random.default_rng(seed + 200)
+    s, t = (int(v) for v in rng.integers(0, fr.g.n, 2))
+    pairs = [(s, t), (t, t)]
+    if len(fr.bnodes):
+        pairs += [(int(fr.bnodes[0]), t), (s, int(fr.bnodes[-1]))]
+    return pairs
+
+
+def _traced_dist(fr, s, t, bound):
+    """exec_dist on the CPU with the recorder on: its result, the
+    oneshot.evaldg spans' counts and the oneshot.query span's."""
+    tracing.enable()
+    try:
+        got = tsession.exec_dist(fr, s, t, bound=bound, device="cpu")
+    finally:
+        tracing.disable()
+    spans = [r for r in tracing.drain() if r.kind == "span"]
+    return (got, [r.counts for r in spans if r.name == "oneshot.evaldg"],
+            [r.counts for r in spans if r.name == "oneshot.query"])
+
+
+def _finite_per_row(fr, s, t, cap):
+    """The finite entries of W a row, from the row block of every
+    fragment."""
+    qs = query_slots(fr, s, t)
+    a = fr.arrays
+    args = [torch.tensor(a[n]) for n in ("esrc", "edst", "src_local",
+                                         "src_row", "tgt_local")]
+    args += [torch.tensor(qs[n]) for n in ("s_local", "t_local")]
+    _, block = tengine.local_eval_dist(*args, cap, n_max=fr.n_max, B=fr.B)
+    return (block < INF).sum(1)
+
+
+@pytest.mark.parametrize("bound", [None, 0, 1, 6], ids=str)
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_exec_dist_on_row_lists_matches_reference(case, bound):
+    """exec_dist, which keeps W as row lists, against JAX's exec_dist: a
+    drawn pair, s == t, s or t a boundary node; the traced evalDG counts
+    the pairs the lists hold (oneshot.w_entries), W's finite entries, and
+    no query takes the dense route."""
+    jfr, tfr = _fragmentations(case)
+    cap = INF if bound is None else bound
+    for s, t in _row_list_pairs(tfr, case[3]):
+        want = jsession.exec_dist(jfr, s, t, bound=bound)
+        got, evaldg, query = _traced_dist(tfr, s, t, bound)
+        assert (got.answer, got.distance, tuple(got.stats)) == \
+            (bool(want.answer), want.distance, tuple(want.stats)), (s, t)
+        if s == t:
+            assert evaldg == []
+            continue
+        counts, = evaldg
+        assert counts["oneshot.w_entries"] == int(
+            _finite_per_row(tfr, s, t, cap).sum()), (s, t)
+        assert "oneshot.dense_fallbacks" not in query[0], (s, t)
+
+
+@pytest.mark.parametrize("bound", [None, 0, 1, 6], ids=str)
+def test_exec_dist_past_the_row_lists_takes_the_dense_route(bound):
+    """Two fragments of a dense graph, whose rows reach more stubs than a
+    row list holds: every query answers as JAX's exec_dist does, and one
+    that overflowed the lists is answered again on the dense W, counted
+    once in oneshot.dense_fallbacks, its second evalDG a dense one."""
+    jg = j_er(160, 2400, n_labels=4, seed=7)
+    tg = erdos_renyi(160, 2400, n_labels=4, seed=7)
+    jfr = j_fragment(jg, j_random_partition(jg, 2, 7), 2)
+    tfr = fragment_graph(tg, random_partition(tg, 2, 7), 2)
+    cap = INF if bound is None else bound
+    rng = np.random.default_rng(8)
+    pairs = [tuple(int(v) for v in p) for p in rng.integers(0, 160, (4, 2))
+             if p[0] != p[1]]
+    pairs.append((int(tfr.bnodes[0]), int(tfr.bnodes[-1])))
+    fell_back = 0
+    for s, t in pairs:
+        want = jsession.exec_dist(jfr, s, t, bound=bound)
+        got, evaldg, query = _traced_dist(tfr, s, t, bound)
+        assert (got.answer, got.distance) == (bool(want.answer),
+                                              want.distance), (s, t)
+        over = int(_finite_per_row(tfr, s, t, cap).max()) > ROW_CAP
+        assert query[0].get("oneshot.dense_fallbacks", 0) == int(over)
+        assert len(evaldg) == 1 + over
+        if over:
+            assert "evaldg.rows" not in evaldg[0]
+            assert evaldg[1]["evaldg.rows"] > 0
+        fell_back += over
+    assert fell_back == (len(pairs) if bound is None else fell_back)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,13 @@ random fragments):
   for 48 seeded pairs, W of a dist query and of a bounded (6) one written
   by localEval, then ``min_plus_settle`` alone on that W, CUDA events
   around 3 calls after a warm-up; grouped by the unbounded answer d(s, t)
-  (``inf``: unreachable), the median ms, rows read and levels.
+  (``inf``: unreachable), the median ms, rows read and levels.  Where the
+  tree keeps W as row lists (``tropical_matmul.ops.row_lists``), also
+  ``lists_ms``: ``min_plus_settle_lists`` alone on the lists localEval
+  writes for the same query (its state held equal to the dense search's),
+  ``grid_<b>_ms`` the same kernel on grids of b blocks, ``plain_ms`` its
+  plain version on the card (the first 8 pairs), and ``entries``, the
+  pairs the lists hold.
 
 Each child also prints its answers, which must be equal across trees.
 """
@@ -42,6 +48,8 @@ import _ab
 N, M, LABELS, FRAGS, SEED = 16384, 65536, 8, 16, 0
 N_ONESHOT, N_PAIRS, CHAIN = 32, 16, 1024
 CELL_N, CELL_M, CELL_PAIRS, CELL_BOUND = 32768, 131072, 48, 6
+#: grids the row-list settle kernel is timed on, in blocks of 1024 threads
+GRIDS = (1, 4, 8, 16, 32, 66, 132)
 
 
 def cell(answers: list) -> dict:
@@ -58,9 +66,11 @@ def cell(answers: list) -> dict:
     fr = fragment_graph(g, random_partition(g, FRAGS, seed=SEED), FRAGS)
     dev = torch.device("cuda")
     W = tops.padded_i32(fr.B, fr.B, dev)
+    lists = hasattr(tops, "row_lists")
     rng = np.random.default_rng(SEED + 9)
     rows = []
-    for s, t in rng.integers(0, g.n, size=(CELL_PAIRS, 2)).tolist():
+    for i, (s, t) in enumerate(rng.integers(0, g.n,
+                                            size=(CELL_PAIRS, 2)).tolist()):
         if s == t:
             continue
         arrs, s_local, t_local = session._query_inputs(fr, s, t, dev)
@@ -69,18 +79,21 @@ def cell(answers: list) -> dict:
         d0.masked_fill_(src, 0)
         dist = None
         for kind, bound in (("dist", None), ("bounded", CELL_BOUND)):
-            engine.local_eval_dist(
-                arrs["esrc"], arrs["edst"], arrs["src_local"],
-                arrs["src_row"], arrs["tgt_local"], s_local, t_local,
-                INF if bound is None else bound, n_max=fr.n_max, B=fr.B,
-                out=W)
+            args = (arrs["esrc"], arrs["edst"], arrs["src_local"],
+                    arrs["src_row"], arrs["tgt_local"], s_local, t_local,
+                    INF if bound is None else bound)
+            engine.local_eval_dist(*args, n_max=fr.n_max, B=fr.B, out=W)
             tops.min_plus_settle(d0, W, tgt, bound)
             settle_ms, state = _ab.events_ms(
                 lambda: tops.min_plus_settle(d0, W, tgt, bound), 3)
             got, levels, read = state.tolist()
             dist = got if kind == "dist" else dist
-            rows.append({"kind": kind, "d": dist, "settle_ms": settle_ms,
-                         "levels": levels, "rows": read})
+            row = {"kind": kind, "d": dist, "settle_ms": settle_ms,
+                   "levels": levels, "rows": read}
+            if lists:
+                row.update(settle_lists(engine, tops, args, fr, src, tgt,
+                                        bound, state.tolist(), i < 8))
+            rows.append(row)
             answers.append((s, t, kind, got))
     del W
     torch.cuda.empty_cache()
@@ -88,9 +101,43 @@ def cell(answers: list) -> dict:
     for row in rows:
         key = f"{row['kind']} d={'inf' if row['d'] >= INF else row['d']}"
         out.setdefault(key, []).append(row)
-    return {key: {name: statistics.median(r[name] for r in group)
+    return {key: {name: statistics.median(r[name] for r in group
+                                          if name in r)
                   for name in group[0] if name not in ("kind", "d")}
             | {"n": len(group)} for key, group in sorted(out.items())}
+
+
+def settle_lists(engine, tops, args, fr, src, tgt, bound, want,
+                 plain: bool) -> dict:
+    """The row-list settle kernel on the lists localEval writes for one
+    query: held to the dense search's state ``want``, timed as the engine
+    runs it and on each grid of GRIDS, and its plain version (``plain``)."""
+    import torch
+    from repro_torch.kernels.tropical_matmul import min_plus_settle_lists_ref
+    L = tops.row_lists(fr.B, src.device)
+    engine.local_eval_dist(*args, n_max=fr.n_max, B=fr.B, out=L)
+    top = engine.INF if bound is None else bound
+    tops.min_plus_settle_lists(src, L, tgt, bound)          # warm-up
+    ms, state = _ab.events_ms(
+        lambda: tops.min_plus_settle_lists(src, L, tgt, bound), 3)
+    got = state.tolist()
+    if got[:3] != want or got[3] != 0:
+        raise AssertionError(f"row-list settle {got}, dense {want}")
+    out = {"lists_ms": ms, "entries": got[4]}
+    for blocks in GRIDS:
+        tops.settle_lists_launch(src, L, tgt, top, blocks)
+        ms, state = _ab.events_ms(
+            lambda: tops.settle_lists_launch(src, L, tgt, top, blocks), 3)
+        if state.tolist() != got:
+            raise AssertionError(f"{blocks} blocks: {state.tolist()}")
+        out[f"grid_{blocks}_ms"] = ms
+    if plain:
+        ms, state = _ab.events_ms(
+            lambda: min_plus_settle_lists_ref(src, L, tgt, bound), 1)
+        if state.tolist() != got:
+            raise AssertionError(f"plain row-list settle {state.tolist()}")
+        out["plain_ms"] = ms
+    return out
 
 
 def child(tree: Path) -> dict:

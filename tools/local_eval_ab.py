@@ -23,9 +23,18 @@ the median ms of a call to the end of its device work:
   least time its bytes take at 3.35 TB/s (``*_bound_ms``: every row of
   the [B, B] matrix written once over its pitch, the edges, sources and
   column map read once);
+- ``stage_lists_ms`` / ``stage_lists_bounded_ms`` (trees whose engine
+  keeps W as row lists, ``tropical_matmul.ops.row_lists``): the local
+  stage as ``exec_dist`` then runs it, the lists' allocation and
+  ``engine.local_eval_dist`` into them; ``kernel_lists_ms`` /
+  ``kernel_lists_bounded_ms`` the row-list kernel alone (CUDA events, 5
+  calls), beside its bytes bound (``*_bound_ms``: the pairs and counts
+  stored once, the edges, sources and column map read once) and its
+  plain version on the card (``plain_lists_ms``: ``engine._rows_dist``
+  and the block turned into lists); ``entries`` the pairs stored;
 - ``digest``: a digest of the matrices' row sums (D: the ones of each row;
   W: each row's finite distances summed, unreached as -1), which must be
-  equal across trees.
+  equal across trees; the row lists' sums must equal their tree's W's.
 
 Distances are bounded at 6, as the cell's bounded reads are.
 """
@@ -93,6 +102,7 @@ def child(tree: Path) -> dict:
 
     row = {"B": B, "n_max": n_max, "S": fr.s_max, "E": fr.e_max}
     digest = hashlib.sha256()
+    sums = {}
     for kind in ("reach", "dist", "bounded"):
         ms = []
         stage(kind, inputs(*pairs[0]))            # warm-up (and the build)
@@ -104,13 +114,78 @@ def child(tree: Path) -> dict:
             out = stage(kind, args)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-            digest.update(row_sums(out, engine.INF))
+            sums[kind, s, t] = row_sums(out, engine.INF)
+            digest.update(sums[kind, s, t])
             del out
         row[f"stage_{kind}_ms"] = statistics.median(ms)
+    if hasattr(engine, "RowLists"):
+        row.update(list_times(fr, pairs, inputs, sums))
     row["digest"] = digest.hexdigest()[:16]
     if into:
         row.update(kernel_times(fr, inputs(*pairs[0])))
     return row
+
+
+def list_times(fr, pairs, inputs, sums) -> dict:
+    """The row-list route: the stage as exec_dist runs it, each query's row
+    sums held equal to the dense W's in ``sums``, then the kernel alone on
+    the first pair beside its bytes bound and its plain version."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels.local_eval import local_eval_dist_lists
+    from repro_torch.kernels.tropical_matmul.ops import (row_lists,
+                                                         write_row_lists)
+    B, n_max, dev = fr.B, fr.n_max, torch.device("cuda")
+    out = {}
+    for kind, dense, cap in (("lists", "dist", engine.INF),
+                             ("lists_bounded", "bounded", BOUND)):
+        def stage(args, c=cap):
+            return engine.local_eval_dist(*args, c, n_max=n_max, B=B,
+                                          out=row_lists(B, dev))
+        stage(inputs(*pairs[0]))
+        torch.cuda.synchronize()
+        ms = []
+        for s, t in pairs:
+            args = inputs(s, t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lists = stage(args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if list_sums(lists) != sums[dense, s, t]:
+                raise AssertionError(f"{kind} ({s}, {t}): the row lists "
+                                     f"differ from the dense W")
+        out[f"stage_{kind}_ms"] = statistics.median(ms)
+        args = inputs(*pairs[0])
+        entries = int(stage(args).meta[1])
+        lists = row_lists(B, dev)
+        call = (lambda c=cap: local_eval_dist_lists(lists, *args, c,
+                                                    n_max=n_max))
+        call()
+        torch.cuda.synchronize()
+        kms, _ = _ab.events_ms(call, 5)
+        F, E = args[0].shape
+        S = args[2].shape[1]
+        nbytes = 8 * entries + 4 * B + 4 * F * (2 * E + 2 * S + B + 2)
+        plain_ms, _ = _ab.events_ms(lambda c=cap: write_row_lists(
+            row_lists(B, dev), *engine._rows_dist(*args, c, n_max=n_max,
+                                                  B=B)), 1)
+        out[f"kernel_{kind}_ms"] = kms
+        out[f"kernel_{kind}_bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[f"plain_{kind}_ms"] = plain_ms
+        out[f"entries_{kind}"] = entries
+    return out
+
+
+def list_sums(lists) -> bytes:
+    """Each row's finite distances summed, each entry it lacks counted as
+    -1: the bytes row_sums reads from the dense W of the same query."""
+    import torch
+    count = lists.count.long()
+    live = (torch.arange(lists.pairs.shape[1], device=count.device)[None, :]
+            < count[:, None])
+    sums = torch.where(live, lists.pairs[:, :, 1], 0).sum(1, dtype=torch.int64)
+    return (sums - (lists.B - count)).cpu().numpy().tobytes()
 
 
 def row_sums(m, inf: int) -> bytes:

@@ -158,6 +158,11 @@ def readings(records, trace=None) -> dict:
     * ``oneshot.evaldg_rows_p50``, ``oneshot.evaldg_levels_p50``: median
       ``evaldg.rows`` (rows of W read) and ``evaldg.levels`` (distance
       levels settled) of each ``oneshot.evaldg`` of a dist or bounded query;
+    * ``oneshot.w_entries_p50``: median ``oneshot.w_entries`` (the pairs
+      W's row lists hold) of each ``oneshot.evaldg`` on row lists;
+      ``oneshot.dense_fallbacks``: the queries answered again on the dense
+      W, summed over the ``oneshot.query`` spans (0 where the row lists
+      held every W; None where the program has no row lists);
     * the repair lane's, where deltas committed (:func:`repair_readings`).
     """
     spans = [r for r in records if r.kind == "span"]
@@ -188,6 +193,13 @@ def readings(records, trace=None) -> dict:
     for name in ("rows", "levels"):
         out[f"oneshot.evaldg_{name}_p50"] = _median(
             [c[f"evaldg.{name}"] for c in settled])
+    listed = [s.counts["oneshot.w_entries"] for s in spans
+              if s.name == "oneshot.evaldg" and s.counts
+              and "oneshot.w_entries" in s.counts]
+    out["oneshot.w_entries_p50"] = _median(listed)
+    out["oneshot.dense_fallbacks"] = sum(
+        s.counts.get("oneshot.dense_fallbacks", 0) for s in spans
+        if s.name == "oneshot.query") if listed else None
     out.update(repair_readings(records))
     if trace is not None:
         gaps = idle_gaps(records, trace)
