@@ -32,8 +32,10 @@ from bench.spec import BENCH, component
 (GRAPH, PARTITION, QUERIES, ARRIVALS, DELTAS, WARMUP, WARMUP_DELTAS,
  DELTA_ARRIVALS) = range(8)
 
-#: the read kinds a traffic mix may name, in the order of its shares
-KINDS = ("reach", "dist", "bounded")
+#: the read kinds a traffic mix may name, in the order of its shares (a
+#: kind added at the end, with no share, leaves every older mix's draws as
+#: they were)
+KINDS = ("reach", "dist", "bounded", "rpq")
 
 #: what a traffic mix that names no sampler or arrival process gets
 DEFAULT_PAIRS = {"sampler": "uniform"}
@@ -86,13 +88,14 @@ def make_graph(config: dict, seed: int, bench_dir: Path = BENCH
 
 @dataclasses.dataclass
 class Read:
-    """One read request: ``kind`` in :data:`KINDS`, endpoints, and the
-    hop bound of a bounded read."""
+    """One read request: ``kind`` in :data:`KINDS`, endpoints, the hop
+    bound of a bounded read and the regular expression of an rpq read."""
 
     kind: str
     s: int
     t: int
     bound: int = 0
+    regex: str = ""
 
 
 def _balanced(count: int, shares, gen: np.random.Generator) -> np.ndarray:
@@ -112,16 +115,23 @@ def make_reads(n: int, count: int, traffic: dict, seed: int,
                bench_dir: Path = BENCH) -> List[Read]:
     """``count`` reads, the kinds in the mix's shares (``{"reach": 1,
     "dist": 1, "bounded": 1}``), bounded reads at ``mix["bound"]`` hops,
-    the pairs from the traffic's ``pairs`` sampler."""
+    rpq reads with the regular expression ``mix["regex"]``, the pairs from
+    the traffic's ``pairs`` sampler."""
     mix = traffic["mix"]
     gen = rng(seed, QUERIES)
     kinds = _balanced(count, [mix["shares"].get(k, 0) for k in KINDS], gen)
     pspec = traffic.get("pairs", DEFAULT_PAIRS)
     pairs = component("traffic/pairs", pspec["sampler"],
                       bench_dir).make(n, count, pspec, gen)
-    return [Read(KINDS[kd], int(s), int(t),
-                 mix.get("bound", 0) if KINDS[kd] == "bounded" else 0)
+    return [read_of(KINDS[kd], int(s), int(t), mix)
             for kd, (s, t) in zip(kinds, pairs)]
+
+
+def read_of(kind: str, s: int, t: int, mix: dict) -> Read:
+    """A read of ``kind`` from ``s`` to ``t`` with what the mix gives that
+    kind: a bounded read its ``bound``, an rpq read its ``regex``."""
+    return Read(kind, s, t, mix.get("bound", 0) if kind == "bounded" else 0,
+                mix["regex"] if kind == "rpq" else "")
 
 
 def make_arrivals(count: int, seconds: float, spec: Optional[dict],

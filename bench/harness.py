@@ -176,8 +176,8 @@ def warm_session(session, traffic: dict, g: gen.GraphData, seed: int) -> None:
     for kind in gen.KINDS:
         if traffic["mix"]["shares"].get(kind, 0):
             s, t = (int(x) for x in rng.integers(0, g.n, size=2))
-            r = gen.Read(kind, s, t, traffic["mix"].get("bound", 0))
-            session.run([qmod.query_of(r)])
+            session.run([qmod.query_of(gen.read_of(kind, s, t,
+                                                   traffic["mix"]))])
 
 
 class _GcPauses:
@@ -410,6 +410,15 @@ def describe(run: Run) -> None:
             f", max {lat.max():.4f}; sender lateness p50 "
             f"{np.percentile(late, 50):.4f} ms, p99 "
             f"{np.percentile(late, 99):.4f}, max {late.max():.4f}")
+    shares: Dict[str, List[int]] = {}
+    for r in run.reads:
+        if r.ok and isinstance(r.value, bool):
+            k = shares.setdefault(r.read.kind, [0, 0])
+            k[0] += r.value
+            k[1] += 1
+    if shares:
+        log("answers True: " + ", ".join(f"{k} {t} of {n}"
+                                         for k, (t, n) in shares.items()))
     if run.deltas:
         modes: Dict[str, int] = {}
         for d in run.deltas:

@@ -7,9 +7,11 @@ recording the host spans that label the device's idle gaps.
   (the row counts ``M`` of its two compose products);
 * ``session.repair_on`` on the server's session: a delta's repair on the
   MVCC path, with a synchronize at its end;
-* ``engine.local_eval_*`` and ``engine.evaldg_*``: the one-shot engine's
-  two stages, the first with a synchronize at its end (the second returns
-  a host value).
+* ``engine.local_eval_*``, ``engine.regular_rvset`` and
+  ``engine.evaldg_*``: the one-shot engine's two stages (a regular path
+  query's local stage is ``regular_rvset``, its product localEval over
+  every fragment), the first with a synchronize at its end (the second
+  returns a host value).
 
 Each wrapper is an attribute set on the session object or the engine
 module, and :meth:`Probes.remove` takes it away again.
@@ -80,7 +82,8 @@ class Probes:
         self._set(session, "repair_on", timed_repair)
 
     def oneshot(self) -> None:
-        """Time the one-shot engine's local stage and evalDG."""
+        """Time the one-shot engine's local stage (reach, dist and the
+        product one of a regular path query) and evalDG."""
         from repro_torch.core import engine
         clock, sync, layers, spans = (self._clock, self._sync, self.layers,
                                       self.spans)
@@ -96,7 +99,7 @@ class Probes:
                 spans.add(label, a, b)
                 return out
             return timed
-        for name in ("local_eval_reach", "local_eval_dist"):
+        for name in ("local_eval_reach", "local_eval_dist", "regular_rvset"):
             self._set(engine, name, wrap(getattr(engine, name),
                                          layers.local_ms, "local_eval", True))
         for name in ("evaldg_reach", "evaldg_dist"):

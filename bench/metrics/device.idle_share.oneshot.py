@@ -1,6 +1,6 @@
-"""device.idle_share.oneshot: in the one-shot cell, the share, in %, of the
-traced window in which no kernel, copy or fill ran on the card (1 - busy
-union / window)."""
+"""device.idle_share.oneshot: in the one-shot cells (reach and dist, and
+regular path queries), the share, in %, of the traced window in which no
+kernel, copy or fill ran on the card (1 - busy union / window)."""
 
 
 def read(run):

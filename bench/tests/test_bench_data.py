@@ -1,9 +1,14 @@
 """The benchmark's inputs come from the seed alone, in fixed counts."""
 from __future__ import annotations
 
+import hashlib
+import json
+
 import numpy as np
+import pytest
 
 from bench.data import generate as gen
+from bench.spec import BENCH
 
 CONFIG = {"generator": "erdos_renyi", "n_nodes": 512, "n_edges": 2048,
           "n_labels": 8, "partitioner": "random_partition", "n_fragments": 8,
@@ -44,7 +49,9 @@ def test_other_seed_other_inputs_same_counts():
     assert ra != rb
     for reads in (ra, rb):
         kinds = [r.kind for r in reads]
-        assert sorted(kinds.count(k) for k in gen.KINDS) == [100, 100, 101]
+        assert sorted(kinds.count(k) for k in gen.KINDS) == [0, 100, 100,
+                                                             101]
+        assert "rpq" not in kinds
         assert all(r.bound == 6 for r in reads if r.kind == "bounded")
     da, db = gen.make_deltas(a, 40, DELTAS, 1), gen.make_deltas(a, 40,
                                                                 DELTAS, 2)
@@ -104,3 +111,48 @@ def test_a_delta_shape_sees_the_edges_drawn_before_it():
     assert len(ctx.edges()[0]) == len(src) - 1
     with np.testing.assert_raises(ValueError):
         gen.apply(ctx.edges(), gen.Delta("delete", [], [(-1, -1)]))
+
+
+# the reads each older traffic file drew before rpq reads were added to
+# the kinds, for n = 32768: a digest of every read's kind, pair and bound
+OLDER_READS = {
+    ("reach_dist_closed", 11):
+        "13b07810add45ffd8ab434c40595a36eecac57fa2c172a9c127710952d62ac8d",
+    ("reach_dist_closed", 2 ** 31 + 12345):
+        "82a8b4140974d17dea187624c0c2a24d9dffcd8e2b96898d3b829fb434a2ee43",
+    ("reads_backlog", 11):
+        "d734f759acaffa0a8b376bf454ea5713566a4967de84a0730afd1c538c3b899a",
+    ("reads_backlog", 2 ** 31 + 12345):
+        "24679d21e476dd2f53e70f89506feb5e8f8a3a98037c9d556cf51769b3aa08f9",
+    ("reads_deltas_backlog", 11):
+        "d734f759acaffa0a8b376bf454ea5713566a4967de84a0730afd1c538c3b899a",
+    ("reads_deltas_backlog", 2 ** 31 + 12345):
+        "24679d21e476dd2f53e70f89506feb5e8f8a3a98037c9d556cf51769b3aa08f9",
+}
+
+
+def _traffic(name):
+    return json.loads((BENCH / "traffic" / f"{name}.json").read_text())
+
+
+@pytest.mark.parametrize("name,seed", sorted(OLDER_READS))
+def test_older_traffic_draws_the_reads_it_drew(name, seed):
+    """A kind added at the end of the kinds, with no share in these mixes,
+    leaves every read they draw as it was: kind, pair and bound."""
+    reads = gen.make_reads(32768, _traffic(name)["reads"], _traffic(name),
+                           seed)
+    rows = [[r.kind, r.s, r.t, r.bound] for r in reads]
+    assert all(r.regex == "" for r in reads)
+    digest = hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+    assert digest == OLDER_READS[name, seed]
+
+
+@pytest.mark.parametrize("seed", [11, 2 ** 31 + 12345])
+def test_rpq_traffic_draws_rpq_reads_with_the_regex(seed):
+    traffic = _traffic("rpq_closed")
+    reads = gen.make_reads(32768, traffic["reads"], traffic, seed)
+    assert len(reads) == 4096
+    assert all(r.kind == "rpq" and r.bound == 0 for r in reads)
+    assert {r.regex for r in reads} == {traffic["mix"]["regex"]}
+    other = gen.make_reads(32768, traffic["reads"], traffic, seed + 1)
+    assert [(r.s, r.t) for r in reads] != [(r.s, r.t) for r in other]

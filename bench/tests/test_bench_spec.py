@@ -89,6 +89,22 @@ def test_every_cell_reports_enough(bench):
         assert set(m.get("workloads", cells)) <= set(cells)
 
 
+@pytest.mark.parametrize("cell,kinds", [
+    ("oneshot.reach_dist", {"reach", "dist", "bounded"}),
+    ("oneshot.rpq", {"rpq"})])
+def test_one_shot_cells_load_with_their_metrics(cell, kinds):
+    """Both one-shot cells report the caller's tail and rate, and read the
+    one-shot engine's two stages and the card's idle share."""
+    c = spec.load_cell(ROOT, cell)
+    assert c.config["cache"] == "none" and c.traffic["loop"] == "closed"
+    assert {k for k, v in c.traffic["mix"]["shares"].items() if v} == kinds
+    assert {m["name"] for m in c.end_to_end} == {
+        "query_p95_ms", "queries_per_s", "device_peak_gib", "setup_s"}
+    assert {m["name"] for m in c.per_layer} == {
+        "oneshot.local_ms_p50", "oneshot.evaldg_ms_p50",
+        "device.idle_share.oneshot"}
+
+
 def test_every_named_file_exists_and_parses(bench):
     used = {w["config"] for w in bench["workloads"]}
     for c in bench["configs"]:

@@ -18,11 +18,13 @@ from bench.record import ReadRec
 
 
 def query_of(r):
-    from repro_torch import Dist, Reach
+    from repro_torch import Dist, Reach, Rpq
     if r.kind == "reach":
         return Reach(r.s, r.t)
     if r.kind == "dist":
         return Dist(r.s, r.t)
+    if r.kind == "rpq":
+        return Rpq(r.s, r.t, regex=r.regex)
     return Dist(r.s, r.t, bound=r.bound)
 
 
